@@ -4,7 +4,10 @@ The counterpart of cfdtpu/forms/navier_stokes.py StabilizedNSForm
 (Crank-Nicolson midpoint, equal-order Pk-Pk): the cell residual is
 kernel K3 (kernels/ns_cell_residual.py, P1 triangles on CUDA; its plain
 vmapped version elsewhere) reduced to the nodes by K2; the facet terms
-are plain torch mapped with torch.func.vmap and added with index_add_.
+are plain torch mapped with torch.func.vmap and reduced to the nodes by
+K2 too, over one sorted scatter per facet block, so the residual is the
+same on every run (an index_add on CUDA sums with atomics in no fixed
+order).
 The exact element Jacobians are torch.func.vmap(jacfwd(...)) of the
 same plain kernels — the analogue of jax.vmap(jax.jacfwd(...)).
 
@@ -172,6 +175,8 @@ class StabilizedNSForm:
             "name": name,
             "kernel": kernel,
             "dofmap_u": torch.as_tensor(dm_u, device=dev),
+            # deterministic facet -> node reduction (K2), cf. _scatter_u
+            "scatter_u": SortedScatter(dm_u, self.V.num_dofs, device=dev),
             "dofmap_p": torch.as_tensor(
                 np.asarray(self.Q.dofmap)[cells].astype(np.int64),
                 device=dev),
@@ -217,10 +222,12 @@ class StabilizedNSForm:
         )
         ru = self._scatter_u(ru_e.reshape(-1, self.dim))
         rp = self._scatter_p(rp_e.reshape(-1))
+        # cells first, then each facet block in order: a fixed order of
+        # sums (cfdtpu adds with .at[dm_u].add)
         for block in self._facet_blocks:
-            dm_u, ru_f = self._block_residual(block, u, p, aux, prm)
-            ru = ru.index_add(0, dm_u.reshape(-1),
-                              ru_f.reshape(-1, self.dim))
+            _, ru_f = self._block_residual(block, u, p, aux, prm)
+            ru = ru + block["scatter_u"](
+                ru_f.reshape(-1, self.dim).contiguous())
         return ru, rp
 
     # ------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernel library.
 
-All sources in cfdtpu_torch/csrc/*.cu are compiled by ONE nvcc call
-into cfdtpu_torch/_build/libcfdtpu_kernels.so (a plain C interface,
-loaded with ctypes) at first use, and rebuilt when a source is newer
-than the library. Nothing here runs at import time: the CPU tests
+Each source in cfdtpu_torch/csrc/*.cu is compiled by its own nvcc
+process, all started together, and the objects are linked into
+cfdtpu_torch/_build/libcfdtpu_kernels.so (a plain C interface, loaded
+with ctypes) at first use; the library is rebuilt when a source is
+newer than it. Nothing here runs at import time: the CPU tests
 import every module on machines without nvcc.
 
 Each C entry point takes raw pointers, sizes, strides, an `is_f64`
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libcfdtpu_kernels.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 P = ctypes.c_void_p
@@ -48,6 +49,10 @@ SIGNATURES = {
                                 P, P, I32, P],
     # vals, e1, e2, kcol, inv_duu, contrib, nt, d, is_f64, stream
     "cfd_selfp_triple": [P, P, P, P, P, P, I64, I64, I32, P],
+    # x, vals, idx, y, P, L, K, is_f64, stream
+    "cfd_patch_spmv": [P, P, P, P, I64, I64, I64, I32, P],
+    # inv, x, win, base, out, n, d, s, o, w, n_sub, is_f64, stream
+    "cfd_ras_apply": [P, P, P, P, P, I64, I64, I64, I64, I64, I64, I32, P],
 }
 
 _lib = None
@@ -83,15 +88,35 @@ def build(force: bool = False) -> str:
     if not force and not _stale():
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed building the CUDA kernels:\n"
-            + " ".join(cmd) + "\n" + res.stdout + res.stderr
-        )
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, os.path.basename(src)[:-3]
+                           + f".{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + out)
+    tmp = f"{LIB_PATH}.{tag}"
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed building the CUDA kernels:\n"
+                           + "\n".join(failed))
     os.replace(tmp, LIB_PATH)  # atomic against a concurrent build
     build_seconds = time.perf_counter() - t0
     return LIB_PATH

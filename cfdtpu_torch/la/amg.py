@@ -1,19 +1,22 @@
-"""Aggregation multigrid for the pressure Schur stage.
+"""Aggregation multigrid: scalar (the SELFP Schur stage) and node-block
+(BlockAMG, the velocity block A_uu).
 
-The counterpart of cfdtpu/la/amg.py (scalar AMG only): plain
-(unsmoothed) aggregation with piecewise-constant transfer, Galerkin
-coarse operators, l1-Jacobi smoothing and a dense coarsest inverse.
-The aggregates and every index map are built once in numpy, exactly as
-in cfdtpu.
+The counterpart of cfdtpu/la/amg.py: plain (unsmoothed) aggregation
+with piecewise-constant transfer, Galerkin coarse operators, l1-Jacobi
+smoothing (or, on BlockAMG's finest level, an optional RAS smoother)
+and a dense coarsest inverse. The aggregates and every index map are
+built once in numpy, exactly as in cfdtpu.
 
-Kernels: level matvecs are K1 (sup_spmv) at supernode width g=8, with
-its epilogues fusing the l1-Jacobi update and the pre-restriction
-residual; restriction and Galerkin value coarsening are K2 (ell_sum)
-over SortedScatter maps of the aggregates and of the coarse entry map.
+Kernels: level matvecs are K1 (sup_spmv) at supernode width g=8 (g*d
+for the node-block levels), with its epilogues fusing the l1-Jacobi
+update and the pre-restriction residual; restriction and Galerkin value
+coarsening are K2 (ell_sum) over SortedScatter maps of the aggregates
+and of the coarse entry map (width d and d*d for the block variants);
+the RAS smoother is K6 (ras_apply) with its x + RAS(r) epilogue.
 Prolongation is an index gather; the coarsest solve a dense inverse.
 
-Not ported yet: the K-cycle (_gcr2), Chebyshev smoothing, the W-cycle,
-the weighted p-multigrid level (PLevel) and BlockAMG. Their flags raise
+Not ported yet: the K-cycle (_gcr2), Chebyshev smoothing, the W-cycle
+and the weighted p-multigrid level (PLevel). Their flags raise
 NotImplementedError when set.
 """
 
@@ -88,8 +91,9 @@ def build_aggregates(row, col, n: int, pairwise: bool = False
 class AMGLevel:
     """One aggregation level: transfer maps and the Galerkin entry map.
 
-    restrict and coarsen_vals are K2 reductions (SortedScatter over the
-    aggregate ids and over the coarse entry ids); prolong is a gather."""
+    restrict and coarsen_vals (and their node-block variants) are K2
+    reductions (SortedScatter over the aggregate ids and over the coarse
+    entry ids); prolong is a gather."""
 
     __slots__ = ("agg", "n_coarse", "_restrict", "_coarsen",
                  "row", "col", "n", "_coarse_coo")
@@ -124,6 +128,17 @@ class AMGLevel:
 
     def prolong(self, xc):
         return xc[self.agg]
+
+    # node-block variants: (nnz, d, d) blocks sum wholesale, (n*d,)
+    # vectors are component-major per node
+    def coarsen_block_vals(self, vals):
+        return self._coarsen(vals)
+
+    def restrict_block(self, r, d):
+        return self._restrict(r.reshape(-1, d)).reshape(-1)
+
+    def prolong_block(self, xc, d):
+        return xc.reshape(-1, d)[self.agg].reshape(-1)
 
 
 class AMG:
@@ -239,8 +254,12 @@ class AMG:
         d = torch.sum(torch.abs(sup_vals), dim=(1, 3)).reshape(-1)
         return torch.clamp(d[: maps.n], min=1e-30)
 
-    def v_cycle(self, built, b):
-        """One V(n_smooth, n_smooth) cycle for A x = b, x0 = 0."""
+    def v_cycle(self, built, b, kcycle=None):
+        """One V(n_smooth, n_smooth) cycle for A x = b, x0 = 0. Only the
+        plain cycle is ported: kcycle=True raises (la/schur.py passes
+        kcycle=False where the cycle must stay linear)."""
+        if kcycle:
+            raise NotImplementedError("AMG K-cycle is not ported")
         level_vals, coarse_inv = built
         nl = len(self.levels)
 
@@ -260,5 +279,113 @@ class AMG:
             xc = descend(k + 1, self.levels[k].restrict(r))
             x = x + self.levels[k].prolong(xc)
             return smooth(k, vals, d, x, b, self.n_smooth)
+
+        return descend(0, b)
+
+
+class BlockAMG(AMG):
+    """Node-block (d x d) aggregation AMG for the velocity block A_uu.
+
+    The same plain-aggregation hierarchy as the scalar AMG (aggregates
+    and Galerkin entry maps from the node graph, built once) with
+    (d x d) block values: block Galerkin coarsening, block l1-Jacobi
+    smoothing (row sums of |A_ij| per component row), and a dense
+    coarsest inverse over node blocks. fine_smoother: an optional
+    la/ras.RASPrecond used as the finest-level smoother (coarser levels
+    keep l1-Jacobi).
+
+    Vectors are (n*d,) flat, component-major per node (the solver's u
+    layout).
+    """
+
+    def __init__(self, row, col, n, d: int, coarse_size: int = 400,
+                 fine_smoother=None, **kw):
+        self.d = int(d)
+        self.fine_smoother = fine_smoother
+        super().__init__(row, col, n, coarse_size=coarse_size, **kw)
+        # per-level block placement positions into (ns, Kg, g*d, g*d)
+        self._bpos = []
+        for k in range(len(self.levels)):
+            maps, _ = self.sup[k]
+            r, c, _ = self.coo[k]
+            self._bpos.append(torch.as_tensor(
+                maps.block_positions_uniform(
+                    r.astype(np.int64), c.astype(np.int64), self.d
+                ).reshape(-1), device=self.device))
+
+    def _place_block(self, k, vals):
+        maps, _ = self.sup[k]
+        gd = maps.g * self.d
+        return place(self._bpos[k], vals, maps.ns * maps.Kg * gd * gd,
+                     (maps.ns, maps.Kg, gd, gd))
+
+    def build(self, vals):
+        """vals: (nnz, d, d) block values on the finest graph. Returns
+        (per-level (sup values, l1 diagonal), coarsest inverse, RAS
+        window inverses or None)."""
+        d = self.d
+        ras_inv = (self.fine_smoother.build(vals)
+                   if self.fine_smoother is not None else None)
+        out = []
+        for k, lvl in enumerate(self.levels):
+            ev = self._place_block(k, vals)
+            out.append((ev, self._l1_diag_block(k, ev)))
+            vals = lvl.coarsen_block_vals(vals)
+        m = self.n_coarsest
+        A = torch.zeros((m * m, d, d), dtype=vals.dtype, device=vals.device)
+        A[self._coarse_rc] = vals
+        # (row node, col node, i, j) -> rows (node, i), cols (node, j)
+        A = A.reshape(m, m, d, d).permute(0, 2, 1, 3).reshape(m * d, m * d)
+        A = A + 1e-12 * torch.max(torch.abs(vals)) * torch.eye(
+            m * d, dtype=vals.dtype, device=vals.device)
+        return out, torch.linalg.inv(A), ras_inv
+
+    def _matvec_block(self, k, sup_vals, x, mode="y", b=None, dg=None):
+        """Level-k (m*d,) block matvec (K1 at width g*d), with K1's
+        residual / l1-Jacobi epilogues as in AMG._matvec."""
+        maps, _ = self.sup[k]
+        gd = maps.g * self.d
+        return sup_spmv(sup_vals, maps.sup_cols,
+                        sup_rows(x, maps.ns, gd), n_out=maps.n * self.d,
+                        mode=mode, b=b, x=x if mode == "jacobi" else None,
+                        d=dg, omega=self.omega)
+
+    def _l1_diag_block(self, k, sup_vals):
+        maps, _ = self.sup[k]
+        dsum = torch.sum(torch.abs(sup_vals), dim=(1, 3)).reshape(-1)
+        return torch.clamp(dsum[: maps.n * self.d], min=1e-30)
+
+    def v_cycle(self, built, b, kcycle=None):
+        if kcycle:
+            raise NotImplementedError("AMG K-cycle is not ported")
+        level_vals, coarse_inv, ras_inv = built
+        nl = len(self.levels)
+        d = self.d
+        ras = self.fine_smoother
+
+        def smooth(k, vals, dg, x, b, iters):
+            if k == 0 and ras_inv is not None:
+                for _ in range(iters):
+                    r = self._matvec_block(k, vals, x, mode="residual", b=b)
+                    x = ras.apply(ras_inv, r, base=x)  # x + RAS(r)
+                return x
+            for _ in range(iters):
+                x = self._matvec_block(k, vals, x, mode="jacobi", b=b,
+                                       dg=dg)
+            return x
+
+        def descend(k, b):
+            if k == nl:
+                return coarse_inv @ b
+            vals, dg = level_vals[k]
+            if k == 0 and ras_inv is not None:
+                x = ras.apply(ras_inv, b)  # pre-smooth from x0 = 0
+            else:
+                x = self.omega * b / dg  # first pre-smooth from x0 = 0
+            x = smooth(k, vals, dg, x, b, self.n_smooth - 1)
+            r = self._matvec_block(k, vals, x, mode="residual", b=b)
+            xc = descend(k + 1, self.levels[k].restrict_block(r, d))
+            x = x + self.levels[k].prolong_block(xc, d)
+            return smooth(k, vals, dg, x, b, self.n_smooth)
 
         return descend(0, b)

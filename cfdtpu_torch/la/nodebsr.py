@@ -10,11 +10,11 @@ Kernels on this path: assembly reduces element blocks with K2
 (ell_sum); every operator apply — the full matrix, the fieldsplit
 sub-blocks and the fused SELFP p-column — is K1 (sup_spmv) on a
 strided view of the one value array; the SELFP values are K4
-(selfp_triple) reduced by K2.
+(selfp_triple) reduced by K2. The velocity-block hooks (uu_vals,
+uu_amg, uu_ras) serve the *_up / *_sup methods of la/schur.py.
 
-Not ported yet: the g=1 per-node ELL branch, uu_amg/uu_ras (the
-velocity-block AMG and RAS of the *_up/*_sup methods), pp_amg,
-bbt_vals and the PCD p-scatter.
+Not ported yet: the g=1 per-node ELL branch, pp_amg, bbt_vals and the
+PCD p-scatter.
 """
 
 from __future__ import annotations
@@ -80,6 +80,10 @@ class NodeBSR:
         self.n_blocks = len(uniq)
         self.block_row_np = (uniq // n_nodes).astype(np.int32)
         self.block_col_np = (uniq % n_nodes).astype(np.int32)
+        self._block_row = torch.as_tensor(
+            self.block_row_np.astype(np.int64), device=self.device)
+        self._block_col = torch.as_tensor(
+            self.block_col_np.astype(np.int64), device=self.device)
         self._assemble_scatter = SortedScatter(inv, self.n_blocks,
                                                device=self.device)
 
@@ -101,6 +105,9 @@ class NodeBSR:
         )
         self._sp = None
         self._sp_amg_h = None
+        self._uu_amg_h = None
+        self._uu_ras_key = None
+        self._uu_ras_obj = None
 
     # -- assembly (once per operator build) -------------------------------
     def assemble(self, A_cells, A_blocks):
@@ -313,6 +320,60 @@ class NodeBSR:
             )
         self._sp_amg_h.set_cycle(kcycle=kcycle, cheby=cheby, wcycle=wcycle)
         return self._sp_amg_h
+
+    # -- velocity-block AMG / RAS hooks (la/amg.py BlockAMG, la/ras.py) ---
+    def uu_vals(self, vals, bc_mask_u):
+        """BC-consistent (n_blocks, d, d) velocity coupling blocks:
+        Dirichlet component rows/columns zeroed, identity on the masked
+        diagonal (the assembled twin of the PC-side Auu operator)."""
+        if isinstance(vals, dict):
+            vals = vals["coo"]
+        d = self.dim
+        v = vals[:, :d, :d]
+        mask = bc_mask_u.reshape(self.n_nodes, d)
+        v = torch.where(mask[self._block_row][:, :, None], 0.0, v)
+        v = torch.where(mask[self._block_col][:, None, :], 0.0, v)
+        eye = torch.eye(d, dtype=v.dtype, device=v.device)
+        add = mask.to(v.dtype)[:, :, None] * eye[None]
+        v[self._diag_pos] = v[self._diag_pos] + add
+        return v
+
+    def linear_parents(self):
+        """Vertex-embedding transfer data for a weighted p-level (P2+);
+        None for P1, where nodes are the vertices."""
+        V = self.form.V
+        return None if V.degree <= 1 else V.linear_parents()
+
+    def uu_amg(self, fine_smoother=None, kcycle=None, cheby=None,
+               wcycle=None):
+        """Block-aggregation-MG hierarchy on the velocity node graph,
+        built once and cached; rebuilt only when `fine_smoother` (an
+        optional RASPrecond for the finest level) is another object."""
+        if (self._uu_amg_h is None
+                or self._uu_amg_h.fine_smoother is not fine_smoother):
+            from .amg import BlockAMG
+
+            self._uu_amg_h = BlockAMG(
+                self.block_row_np, self.block_col_np, self.n_nodes,
+                d=self.dim, fine_smoother=fine_smoother,
+                linear_parents=self.linear_parents(), device=self.device,
+            )
+        self._uu_amg_h.set_cycle(kcycle=kcycle, cheby=cheby, wcycle=wcycle)
+        return self._uu_amg_h
+
+    def uu_ras(self, s: int = 16, overlap: int = 4):
+        """RAS preconditioner over contiguous Hilbert node windows for
+        the velocity block; the same object per (s, overlap)."""
+        key = (int(s), int(overlap))
+        if self._uu_ras_key != key:
+            from .ras import RASPrecond
+
+            self._uu_ras_obj = RASPrecond(
+                self.block_row_np, self.block_col_np, self.n_nodes,
+                d=self.dim, s=key[0], overlap=key[1], device=self.device,
+            )
+            self._uu_ras_key = key
+        return self._uu_ras_obj
 
     def apply_p_coupled(self, vals, v_p):
         """One fused pass for the SELFP Schur action: returns

@@ -58,6 +58,23 @@ class SuperMaps:
         g = self.g
         return (self.pair_slot * g + row % g) * g + col % g
 
+    def block_positions_uniform(self, row: np.ndarray, col: np.ndarray,
+                                d: int) -> np.ndarray:
+        """Flat positions for pure (d x d) blocks (all rows are
+        components of the same field): local node a, component i sits at
+        superblock row a*d + i. Returns (nnz, d, d) int64."""
+        g = self.g
+        gd = g * d
+        a = (row % g)[:, None]
+        b = (col % g)[:, None]
+        comp = np.arange(d)[None, :]
+        roff = a * d + comp
+        coff = b * d + comp
+        return (
+            (self.pair_slot[:, None, None] * gd + roff[:, :, None]) * gd
+            + coff[:, None, :]
+        )
+
     def block_positions(self, row: np.ndarray, col: np.ndarray, d: int
                         ) -> np.ndarray:
         """Flat positions of all (d+1)x(d+1) node-block scalar entries in

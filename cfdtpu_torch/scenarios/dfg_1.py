@@ -15,7 +15,6 @@ float32 on CUDA and float64 on the CPU.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..geom.dfg import generate_dfg_mesh
 from ..spaces import BoundaryCondition
@@ -140,11 +139,11 @@ class DFG1Benchmark(Scenario):
             for block in form._facet_blocks:
                 if block["name"] != "natural_correction":
                     continue
-                dm_u, ru_f = form._block_residual(
+                _, ru_f = form._block_residual(
                     block, s.u_sol, s.p_sol, aux, prm
                 )
-                ru = ru - torch.zeros_like(ru).index_add(
-                    0, dm_u.reshape(-1), ru_f.reshape(-1, ru.shape[1]))
+                ru = ru - block["scatter_u"](
+                    ru_f.reshape(-1, ru.shape[1]).contiguous())
             obs = s.V.facet_closure_dofs(
                 self.mesh.tagged_facets(self.obstacle_marker)
             )

@@ -2,8 +2,9 @@
 
 The counterpart of cfdtpu/solvers/stabilized_schur.py for the
 configuration this port covers: the assembled node-BSR operator
-(supernode layout), the Schur fieldsplit preconditioner with the amg_p
-inner method, flexible GMRES inside Newton with line search, and the
+(supernode layout), the Schur fieldsplit preconditioner with the
+AMG-family inner methods of la/schur.py (amg_p, amg_up, ras_up,
+rasamg_up, amg_sup, rasamg_sup), flexible GMRES inside Newton with line search, and the
 pc_lag_steps build/reuse split that carries the operator and
 preconditioner state across time steps. Unsupported option values raise
 NotImplementedError rather than being replaced silently.
@@ -74,6 +75,8 @@ class Solver(SolverBase):
         pc_amg_kcycle: bool = False,
         pc_amg_wcycle: bool = False,
         pc_amg_cheby: int = 0,
+        pc_ras_size: int = 16,
+        pc_ras_overlap: int = 4,
         pc_lag_steps: int = 1,
         stats_every: int = 1,
         supernode_g: int = 4,
@@ -113,6 +116,8 @@ class Solver(SolverBase):
         self.supernode_g = int(supernode_g)
         self.pc_amg_pairwise = bool(pc_amg_pairwise)
         self.pc_amg_smooth = int(pc_amg_smooth)
+        self.pc_ras_size = int(pc_ras_size)
+        self.pc_ras_overlap = int(pc_ras_overlap)
         self.predictor = predictor
         self.pc_type = pc_type
         self.pc_inner_u = int(pc_inner_u)
@@ -245,18 +250,26 @@ class Solver(SolverBase):
         bc_mask_p = bc_mask[n_u * dim:] if has_bc_p else None
 
         # assembled node-BSR operator, static SELFP sparsity and the AMG
-        # hierarchy: numpy, built once
+        # hierarchies (and the RAS window maps): numpy, built once
         nodebsr = NodeBSR(form, supernode_g=self.supernode_g)
         nodebsr.sp_structure()
         nodebsr.sp_amg(pairwise=self.pc_amg_pairwise,
                        n_smooth=self.pc_amg_smooth)
+        ras_opts = (self.pc_ras_size, self.pc_ras_overlap)
+        method = self.pc_inner_method
+        if method in ("amg_up", "amg_sup"):
+            nodebsr.uu_amg()
+        elif method == "ras_up":
+            nodebsr.uu_ras(*ras_opts)
+        elif method in ("rasamg_up", "rasamg_sup"):
+            nodebsr.uu_amg(fine_smoother=nodebsr.uu_ras(*ras_opts))
         self._nodebsr = nodebsr
         pc_inner_p = 10 if self.pc_inner_p is None else self.pc_inner_p
         pc_pin = pin_pressure and not has_bc_p
         pc_kw = dict(
             m_u=self.pc_inner_u, m_p=pc_inner_p,
             full=self.pc_schur_fact == "full", bc_mask_p=bc_mask_p,
-            inner_method=self.pc_inner_method,
+            inner_method=method, ras_opts=ras_opts,
         )
 
         def project(dx):

@@ -76,7 +76,9 @@ def test_kernels_match_plain_and_count(sc):
     sargs = (vals["coo"], nb._sp_e1, nb._sp_e2, nb._sp_K, inv)
     _close(selfp_triple(*sargs), selfp_triple_plain(*sargs))
     torch.cuda.synchronize()
-    assert all(n > 0 for n in kernels.counts().values())
+    n = kernels.counts()
+    assert all(n[k] > 0 for k in ("ns_cell_residual_p1", "sup_spmv",
+                                  "ell_sum", "selfp_triple"))
 
 
 def test_step_on_card_matches_cpu(sc):
@@ -96,3 +98,56 @@ def test_step_on_card_matches_cpu(sc):
     assert out[0][:2] == out[1][:2]
     rel = np.linalg.norm(out[0][2] - out[1][2]) / np.linalg.norm(out[1][2])
     assert rel < 1e-9
+
+
+def test_new_kernels_match_plain_and_count(sc):
+    """K5 patch_spmv and K6 ras_apply (plain and with its add epilogue)
+    against their plain versions, in float64 and float32."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.patch_spmv import patch_spmv, patch_spmv_plain
+    from cfdtpu_torch.kernels.ras_apply import ras_apply, ras_apply_plain
+
+    s = sc.solver
+    nb = s._nodebsr
+    rng = np.random.default_rng(1)
+    kernels.reset_counts()
+    for dt, tol in ((torch.float64, RTOL), (torch.float32, 1e-5)):
+        x = torch.as_tensor(rng.standard_normal((64, 128)), dtype=dt,
+                            device="cuda")
+        vals = torch.as_tensor(rng.standard_normal((64, 128, 8)), dtype=dt,
+                               device="cuda")
+        idx = torch.as_tensor(rng.integers(0, 128, (64, 128, 8)),
+                              dtype=torch.int32, device="cuda")
+        got, ref = patch_spmv(x, vals, idx), patch_spmv_plain(x, vals, idx)
+        assert float((got - ref).abs().max()) <= tol * float(
+            ref.abs().max())
+        for so in ((32, 4), (16, 4), (7, 3)):
+            ras = nb.uu_ras(*so)
+            inv = torch.as_tensor(rng.standard_normal(
+                (ras.n_sub, ras.m, ras.m)), dtype=dt, device="cuda")
+            v = torch.as_tensor(rng.standard_normal(nb.n_u_flat), dtype=dt,
+                                device="cuda")
+            for base in (None, v * 0.5):
+                got = ras_apply(inv, v, ras._win, ras.s, ras.o, ras.d, base)
+                ref = ras_apply_plain(inv, v, ras._win, ras.s, ras.o, ras.d,
+                                      base)
+                assert float((got - ref).abs().max()) <= tol * float(
+                    ref.abs().max())
+    torch.cuda.synchronize()
+    assert kernels.counts()["patch_spmv"] == 2
+    assert kernels.counts()["ras_apply"] == 12
+
+
+def test_residual_bitwise_repeatable():
+    """Two float32 residual calls on one state are bitwise equal (the
+    facet term is a K2 reduction, not an atomic index_add)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+
+    s = DFG1Benchmark("stabilized_schur", dt=0.05, T=1.0, res_scale=1.0,
+                      dtype="float32", device="cuda").solver
+    u, up, p = _state(s, seed=3)
+    a = s.form.residual(u, p, (up,), s.params())
+    b = s.form.residual(u, p, (up,), s.params())
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

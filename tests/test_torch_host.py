@@ -123,9 +123,11 @@ def test_port_never_imports_jax(tmp_path):
         "import sys\n"
         "from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark\n"
         "import cfdtpu_torch.__main__, cfdtpu_torch.simulation\n"
-        "import cfdtpu_torch.io.state\n"
+        "import cfdtpu_torch.io.state, cfdtpu_torch.la.ras\n"
+        "import cfdtpu_torch.scripts.gather_micro\n"
         "sc = DFG1Benchmark('stabilized_schur', dt=0.05, T=0.05,\n"
-        "                   res_scale=2.5, device='cpu')\n"
+        "                   res_scale=2.5, device='cpu',\n"
+        "                   pc_inner_method='rasamg_sup', pc_inner_u=0)\n"
         "sc.solver.solveStep()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'cfdtpu')]\n"
@@ -162,7 +164,7 @@ def test_auto_dtype_by_device():
 
 
 @pytest.mark.parametrize("kw", [
-    {"pc_inner_method": "rasamg_sup"},
+    {"pc_inner_method": "chebyshev_p"},
     {"pc_type": "lsc"},
     {"operator_format": "element"},
     {"supernode_g": 1},
