@@ -1,94 +1,352 @@
-// K1 sup_spmv: supernode-blocked ELL SpMV with fused epilogues.
+// K1 sup_spmv: supernode-blocked ELL SpMV with fused epilogues, for Hopper.
 //
-// Replaces the jnp gather + batched einsum of the cfdtpu operator
-// applies: la/nodebsr.py NodeBSR.apply_element_matrices,
-// apply_sub_block and apply_p_coupled; la/superell.py sup_matvec;
-// la/amg.py AMG._matvec; and, through the epilogue modes, the l1-Jacobi
-// smoothing update and the pre-restriction residual of AMG.v_cycle.
+// Replaces the jnp gather + batched einsum of cfdtpu's operator applies:
+//   la/nodebsr.py:258  NodeBSR.apply_element_matrices (full operator)
+//   la/nodebsr.py:277  NodeBSR.apply_sub_block (uu / up / pu / pp views)
+//   la/nodebsr.py:586  NodeBSR.apply_p_coupled (the (g*bs, g) p column)
+//   la/amg.py:447      AMG._matvec, and through the epilogues the
+//                      l1-Jacobi update and residual of AMG.v_cycle
+//   la/amg.py:629      BlockAMG's level matvec (width g*d)
+//   la/superell.py:125 sup_matvec
+// and, at width 1, the product of scripts/gather_micro.py.
 //
 //   y[s, r] = sum_{k<Kg} sum_{c<C} A[s, k, r, c] * X[cols[s, k], c]
-//   out[i]  = y.flat[i]                     mode 0
-//           = b[i] - y.flat[i]              mode 1 (residual)
-//           = x[i] + omega*(b[i]-y.flat[i])/d[i]   mode 2 (l1-Jacobi)
-//   for i = s*R + r < n_out.
+//   out[pos(s, r)] = y                                 mode 0
+//                  = b[pos] - y                        mode 1 (residual)
+//                  = x[pos] + omega*(b[pos]-y)/d[pos]  mode 2 (l1-Jacobi)
 //
-// A is any strided (ns, Kg, R, C) view, so the uu/up/pu/p-coupled
-// sub-blocks of one (ns, Kg, 12, 12) value array are applied in place,
-// never copied. X is the (ns+1, C) supernode-row array; row ns is a
-// written zero sentinel that padded ELL slots (cols == ns) point at.
+// X is never built. It is read from the solver's flat vector(s): one
+// vector x0 of w0 = C values per supernode, or two (u at width w0 = g*d,
+// p at width C - w0), and an index past a vector's length, or the
+// padded slot cols == ns, reads zero. The output is one flat vector, or
+// two regions of it split at row R0 of each supernode: rows r < R0 go to
+// out[s*R0 + r] (< n0), rows r >= R0 to out[n0 + s*(R-R0) + r-R0] (< n1).
+// So each apply is one launch into one torch.empty, with no padded
+// supernode-row array, concatenation or slicing around it.
 //
-// Bound: device memory. Every matrix value is read exactly once per
-// apply (the full 106k-DOF operator is 76.5 MB in f32, ~23 us at
-// 3.35 TB/s) and the arithmetic is one FMA per value. Design: one thread
-// per output row (s, r), looping over k and c; the <= 12-wide gathered
-// X row is shared by the R threads of a supernode and served from L1,
-// and the epilogue saves the separate read-modify-write passes the
-// smoother and residual would otherwise make. Coalescing of the value
-// stream (threads of one supernode read rows 12 values apart) is left
-// for a later tuned version.
+// Bound: device memory, at every site. Each matrix value is read once
+// and used in one FMA: 0.5 flop per byte in float32, 0.25 in float64,
+// hundreds of times below the H100's ridge, so tensor cores cannot help;
+// the design is about bytes in flight, parallelism and launches.
+//   full operator (8857, 15, 12, 12) f32: 76.5 MB of values (77.9 MB with
+//     cols, x and y), 23 us at 3.35 TB/s; its strided views read only
+//     their own rows (uu 34 MB);
+//   BlockAMG L0 (4429, 13, 16, 16) 59 MB, SELFP AMG L0 (4429, 22, 8, 8)
+//     24.9 MB: the same stream at widths 16 and 8;
+//   BlockAMG L1/L2, SELFP L1 (0.6-6 MB): too few bytes to fill the card,
+//     bound by latency: how many loads are in flight and how long each
+//     row's dependent chain is;
+//   width 1 (gather_micro, P*L rows, K = 8): values + cols + x + y.
+//
+// Design, against those two bounds (the launch plan is chosen on the
+// host, kernels/sup_spmv.py launch_plan):
+// - Coalesced 16-byte value stream. A lane reads 16-byte chunks of a row
+//   (float4 in f32, double2 in f64) with evict-first loads; the CV lanes
+//   of a row cover its C columns and the lanes of neighbouring rows are
+//   neighbours, so each warp load is whole rows of a block tile,
+//   neighbouring lanes on neighbouring addresses. A strided view (uu, up,
+//   pu, pp, the p column) reads only its own rows.
+// - Bytes in flight. A lane issues the loads of kUnroll blocks (values
+//   and column indices, then the gathered x) before it sums any, and the
+//   grid is persistent, sized from the occupancy calculator times the SM
+//   count. Copying the values through a shared-memory ring (cp.async,
+//   2-3 stages, a whole supernode slab per stage, then the rows summed
+//   from shared memory) measured slower on the H100 at every large site
+//   (full operator 51.6 us against 35 us here): the block barriers and
+//   the serial x phase cost more than the ring saved.
+// - The gather of x is what separates the stream from the 2.5 TB/s a
+//   plain read of the same values reaches (full operator: 31 us without
+//   the x loads, 39 us with one x load per value chunk). So a lane sums
+//   RPL = 2 rows of one supernode (r0 and r0 + R/2) where the card keeps
+//   enough lanes: each x chunk it gathers serves both rows.
+// - Parallelism for the small levels: KS lanes split a row's Kg blocks
+//   (the j-th takes k = j, j + KS, ...), raised on the host until the
+//   card has enough lanes, so a lane's chain is 2-6 blocks instead of
+//   the 176-192 products of one thread per row. The partial sums meet in
+//   a fixed xor-shuffle tree: two calls are bitwise equal, with no
+//   atomics (each row has one owner).
+// - x and y in the solver's flat layouts (above), and the residual and
+//   l1-Jacobi epilogues, so an apply is one launch.
+// A narrow row whose values are not 16-byte chunks (width 1) takes the
+// same kernel with one value per lane (VEC = 1).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
+constexpr int kThreads = 256;
+// blocks whose loads a lane issues together: 4 in 16-byte chunks (times
+// RPL rows), 8 at one value per lane
+template <int VEC>
+constexpr int kUnroll = VEC == 1 ? 8 : 4;
+
 template <typename T>
-__global__ void sup_spmv_kernel(
-    const T* __restrict__ A, int64_t sA0, int64_t sA1, int64_t sA2,
-    int64_t sA3, const int* __restrict__ cols, const T* __restrict__ X,
-    int64_t ldx, int64_t Kg, int64_t R, int64_t C, T* __restrict__ out,
-    int64_t n_out, int mode, const T* __restrict__ b,
-    const T* __restrict__ x, const T* __restrict__ d, T omega) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  const int64_t s = i / R;
-  const int64_t r = i - s * R;
-  const T* Arow = A + s * sA0 + r * sA2;
-  const int* crow = cols + s * Kg;
-  T acc = T(0);
-  for (int64_t k = 0; k < Kg; ++k) {
-    const int64_t col = __ldg(crow + k);
-    const T* xr = X + col * ldx;
-    const T* a = Arow + k * sA1;
-    for (int64_t c = 0; c < C; ++c) {
-      acc += __ldg(a + c * sA3) * __ldg(xr + c);
+struct Args {
+  const T* A;
+  int64_t sA0, sA1, sA2;  // the last stride is 1
+  const int* cols;
+  int ns, Kg, R, C;
+  const T* x0;
+  int64_t m0;
+  int w0, xa0;  // xa: the segment's alignment in bytes (16, 8 or 0)
+  const T* x1;
+  int64_t m1;
+  int xa1;
+  T* out;
+  int64_t n0;
+  int R0;
+  int64_t n1;
+  int mode;
+  const T* b;
+  const T* d;
+  T omega;
+  int CV, KS, lg;  // chunks per row, k splits, log2 of lanes per row set
+  int n_lanes;     // (ns * R / RPL) << lg
+};
+
+template <typename T, int VEC>
+struct Chunk {
+  T v[VEC];
+};
+
+// VEC contiguous values, 16-byte aligned when VEC > 1; STREAM: read once
+// (evict-first), else through the read-only cache
+template <typename T, int VEC, bool STREAM>
+__device__ __forceinline__ Chunk<T, VEC> load_chunk(const T* p) {
+  Chunk<T, VEC> c;
+  if constexpr (VEC == 1) {
+    c.v[0] = STREAM ? __ldcs(p) : __ldg(p);
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 f = STREAM ? __ldcs(reinterpret_cast<const float4*>(p))
+                            : __ldg(reinterpret_cast<const float4*>(p));
+    c.v[0] = f.x;
+    c.v[1] = f.y;
+    c.v[2] = f.z;
+    c.v[3] = f.w;
+  } else {
+    const double2 f = STREAM ? __ldcs(reinterpret_cast<const double2*>(p))
+                             : __ldg(reinterpret_cast<const double2*>(p));
+    c.v[0] = f.x;
+    c.v[1] = f.y;
+  }
+  return c;
+}
+
+// X[col, c0 : c0 + VEC] from the flat segment(s); zero past an end and
+// for the padded slot. For VEC > 1 the host guarantees w0 % VEC == 0, so
+// a chunk never straddles the two segments.
+template <typename T, int VEC>
+__device__ __forceinline__ Chunk<T, VEC> load_x(const Args<T>& p, int col,
+                                                int c0) {
+  Chunk<T, VEC> c;
+  if (col < 0 || col >= p.ns) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) c.v[e] = T(0);
+    return c;
+  }
+  const T* base = p.x0;
+  int64_t i = (int64_t)col * p.w0 + c0, m = p.m0;
+  int al = p.xa0;
+  if (c0 >= p.w0) {
+    base = p.x1;
+    i = (int64_t)col * (p.C - p.w0) + (c0 - p.w0);
+    m = p.m1;
+    al = p.xa1;
+  }
+  if (VEC > 1 && al >= 16 && i + VEC <= m) {
+    return load_chunk<T, VEC, false>(base + i);
+  }
+  if constexpr (VEC == 4) {  // f32 at 8 bytes: two float2
+    if (al == 8 && i + VEC <= m) {
+      const float2 lo = __ldg(reinterpret_cast<const float2*>(base + i));
+      const float2 hi = __ldg(reinterpret_cast<const float2*>(base + i + 2));
+      c.v[0] = lo.x;
+      c.v[1] = lo.y;
+      c.v[2] = hi.x;
+      c.v[3] = hi.y;
+      return c;
     }
   }
-  if (mode == 1) {
-    acc = b[i] - acc;
-  } else if (mode == 2) {
-    acc = x[i] + omega * (b[i] - acc) / d[i];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) c.v[e] = i + e < m ? __ldg(base + i + e) : T(0);
+  return c;
+}
+
+// the epilogue: row r of supernode s to its place in the flat output
+template <typename T>
+__device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
+                                          T acc) {
+  int64_t pos;
+  bool ok;
+  if (r < p.R0) {
+    pos = (int64_t)s * p.R0 + r;
+    ok = pos < p.n0;
+  } else {
+    const int64_t li = (int64_t)s * (p.R - p.R0) + (r - p.R0);
+    ok = li < p.n1;
+    pos = p.n0 + li;
   }
-  out[i] = acc;
+  if (!ok) return;
+  T y = acc;
+  if (p.mode == 1) {
+    y = p.b[pos] - acc;
+  } else if (p.mode == 2) {
+    y = p.x0[pos] + p.omega * (p.b[pos] - acc) / p.d[pos];
+  }
+  p.out[pos] = y;
+}
+
+// A lane sums RPL rows of one supernode, r0 + j*R/RPL (j < RPL), over its
+// share of the blocks and of the columns: each gathered x chunk serves
+// RPL rows.
+template <typename T, int VEC, int RPL>
+__global__ void __launch_bounds__(kThreads)
+    sup_spmv_kernel(const Args<T> p) {
+  const int G = 1 << p.lg;
+  const int Kg = p.Kg, KS = p.KS, Rq = p.R / RPL;
+  for (int t0 = blockIdx.x * kThreads; t0 < p.n_lanes;
+       t0 += gridDim.x * kThreads) {
+    const int t = t0 + threadIdx.x;  // the whole block takes each step
+    const int set = t >> p.lg, g = t & (G - 1);
+    const int ks = g / p.CV, c0 = (g - ks * p.CV) * VEC;
+    const int s = set / Rq, r0 = set - s * Rq;
+    T acc[RPL];
+#pragma unroll
+    for (int j = 0; j < RPL; ++j) acc[j] = T(0);
+    if (t < p.n_lanes && ks < KS) {
+      const T* a = p.A + s * p.sA0 + r0 * p.sA2 + c0;
+      const int64_t sj = Rq * p.sA2;
+      const int* cl = p.cols + (int64_t)s * Kg;
+      constexpr int U = kUnroll<VEC>;
+      for (int kb = ks; kb < Kg; kb += U * KS) {
+        Chunk<T, VEC> av[U][RPL];
+        int cv[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int k = kb + u * KS;
+          if (k < Kg) {
+            cv[u] = __ldg(cl + k);
+#pragma unroll
+            for (int j = 0; j < RPL; ++j) {
+              av[u][j] = load_chunk<T, VEC, true>(a + k * p.sA1 + j * sj);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (kb + u * KS < Kg) {
+            const Chunk<T, VEC> xv = load_x<T, VEC>(p, cv[u], c0);
+#pragma unroll
+            for (int j = 0; j < RPL; ++j) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) {
+                acc[j] = fma(av[u][j].v[e], xv.v[e], acc[j]);
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPL; ++j) {
+      for (int off = G >> 1; off > 0; off >>= 1) {
+        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+      }
+    }
+    if (g == 0 && t < p.n_lanes) {
+#pragma unroll
+      for (int j = 0; j < RPL; ++j) store_row(p, s, r0 + j * Rq, acc[j]);
+    }
+  }
+}
+
+template <typename T, int VEC, int RPL>
+int launch(const Args<T>& a, cudaStream_t st) {
+  const auto fn = sup_spmv_kernel<T, VEC, RPL>;
+  // resident blocks on the card, per instantiation (one card per process)
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = per_sm * sms;
+  }
+  const int grid = std::min<int64_t>((a.n_lanes + kThreads - 1) / kThreads,
+                                     resident);
+  fn<<<grid, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* A, int64_t sA0, int64_t sA1, int64_t sA2,
+        const void* cols, int ns, int Kg, int R, int C, const void* x0,
+        int64_t m0, int w0, int xa0, const void* x1, int64_t m1, int xa1,
+        void* out, int64_t n0, int R0, int64_t n1, int mode, const void* b,
+        const void* d, double omega, int vec, int rpl, int CV, int KS,
+        int lg, void* stream) {
+  Args<T> a;
+  a.A = static_cast<const T*>(A);
+  a.sA0 = sA0;
+  a.sA1 = sA1;
+  a.sA2 = sA2;
+  a.cols = static_cast<const int*>(cols);
+  a.ns = ns;
+  a.Kg = Kg;
+  a.R = R;
+  a.C = C;
+  a.x0 = static_cast<const T*>(x0);
+  a.m0 = m0;
+  a.w0 = w0;
+  a.xa0 = xa0;
+  a.x1 = static_cast<const T*>(x1);
+  a.m1 = m1;
+  a.xa1 = xa1;
+  a.out = static_cast<T*>(out);
+  a.n0 = n0;
+  a.R0 = R0;
+  a.n1 = n1;
+  a.mode = mode;
+  a.b = static_cast<const T*>(b);
+  a.d = static_cast<const T*>(d);
+  a.omega = static_cast<T>(omega);
+  a.CV = CV;
+  a.KS = KS;
+  a.lg = lg;
+  a.n_lanes = (int)(((int64_t)ns * (R / rpl)) << lg);
+  const auto st = static_cast<cudaStream_t>(stream);
+  constexpr int V = 16 / sizeof(T);
+  if (vec == 1 && rpl == 1) return launch<T, 1, 1>(a, st);
+  if (vec != V) return (int)cudaErrorInvalidValue;
+  if (rpl == 1) return launch<T, V, 1>(a, st);
+  if (rpl == 2) return launch<T, V, 2>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int cfd_sup_spmv(
-    const void* A, int64_t sA0, int64_t sA1, int64_t sA2, int64_t sA3,
-    const void* cols, const void* X, int64_t ldx, int64_t ns, int64_t Kg,
-    int64_t R, int64_t C, void* out, int64_t n_out, int mode,
-    const void* b, const void* x, const void* d, double omega,
-    int is_f64, void* stream) {
-  (void)ns;
-  if (n_out <= 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  const int64_t blocks = (n_out + threads - 1) / threads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f64) {
-    sup_spmv_kernel<double><<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const double*>(A), sA0, sA1, sA2, sA3,
-        static_cast<const int*>(cols), static_cast<const double*>(X), ldx,
-        Kg, R, C, static_cast<double*>(out), n_out, mode,
-        static_cast<const double*>(b), static_cast<const double*>(x),
-        static_cast<const double*>(d), omega);
-  } else {
-    sup_spmv_kernel<float><<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const float*>(A), sA0, sA1, sA2, sA3,
-        static_cast<const int*>(cols), static_cast<const float*>(X), ldx,
-        Kg, R, C, static_cast<float*>(out), n_out, mode,
-        static_cast<const float*>(b), static_cast<const float*>(x),
-        static_cast<const float*>(d), static_cast<float>(omega));
+    const void* A, int64_t sA0, int64_t sA1, int64_t sA2, const void* cols,
+    int ns, int Kg, int R, int C, const void* x0, int64_t m0, int w0,
+    int xa0, const void* x1, int64_t m1, int xa1, void* out, int64_t n0,
+    int R0, int64_t n1, int mode, const void* b, const void* d,
+    double omega, int vec, int rpl, int CV, int KS, int lg, int is_f64,
+    void* stream) {
+  if (ns <= 0 || n0 + n1 <= 0) return (int)cudaGetLastError();
+  if (lg < 0 || lg > 5 || CV < 1 || KS < 1 || CV * KS > (1 << lg) ||
+      rpl < 1 || R % rpl || ((int64_t)ns * (R / rpl) << lg) >= (1LL << 30)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return is_f64 ? run<double>(A, sA0, sA1, sA2, cols, ns, Kg, R, C, x0, m0,
+                              w0, xa0, x1, m1, xa1, out, n0, R0, n1, mode, b,
+                              d, omega, vec, rpl, CV, KS, lg, stream)
+                : run<float>(A, sA0, sA1, sA2, cols, ns, Kg, R, C, x0, m0,
+                             w0, xa0, x1, m1, xa1, out, n0, R0, n1, mode, b,
+                             d, omega, vec, rpl, CV, KS, lg, stream);
 }

@@ -36,10 +36,12 @@ F64 = ctypes.c_double
 
 # argument signatures of the C entry points (see the .cu files)
 SIGNATURES = {
-    # A, A strides (4), cols, X, ldx, ns, Kg, R, C, out, n_out, mode,
-    # b, x, d, omega, is_f64, stream
-    "cfd_sup_spmv": [P, I64, I64, I64, I64, P, P, I64, I64, I64, I64, I64,
-                     P, I64, I32, P, P, P, F64, I32, P],
+    # A, A strides (3), cols, ns, Kg, R, C, x0, m0, w0, xa0, x1, m1, xa1,
+    # out, n0, R0, n1, mode, b, d, omega, vec, rpl, CV, KS, lg, is_f64,
+    # stream
+    "cfd_sup_spmv": [P, I64, I64, I64, P, I32, I32, I32, I32, P, I64, I32,
+                     I32, P, I64, I32, P, I64, I32, I64, I32, P, P, F64,
+                     I32, I32, I32, I32, I32, I32, P],
     # src, idx, out, n_in, n_out, K, F, is_f64, stream
     "cfd_ell_sum": [P, P, P, I64, I64, I64, I64, I32, P],
     # u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,

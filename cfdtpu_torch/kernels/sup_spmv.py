@@ -2,17 +2,30 @@
 
     y[s, r] = sum_{k<Kg} sum_{c<C} A[s, k, r, c] * X[cols[s, k], c]
 
-returned flat and cut to n_out entries (i = s*R + r < n_out), as
+A is any (ns, Kg, R, C) view — sub-blocks of one value array are passed
+as strided views, not copies. X is never built on the card: the kernel
+reads it from the solver's flat vector `x`,
+
+    X[s, c] = x[s*C + c]                       (x_split None)
+    X[s, c] = x[s*w0 + c]          for c < w0  (x_split (m0, w0): x[:m0]
+            = x[m0 + s*(C-w0) + c-w0]  else     at width w0, x[m0:] at C-w0)
+
+where an index past a segment's length, and the padded slot cols == ns,
+read zero. The result is one flat vector of n_out entries,
+
+    out[s*R + r]                   (y_split None, s*R + r < n_out)
+    out[s*R0 + r]        for r < R0 (y_split (n0, R0): the first n0
+    out[n0 + s*(R-R0) + r-R0] else   entries, then the rest)
+
+returned as
     mode "y":        y
     mode "residual": b - y
-    mode "jacobi":   x + omega * (b - y) / d
-
-A is any (ns, Kg, R, C) view — sub-blocks of one value array are passed
-as strided views, not copies. X is the (ns+1, C) supernode-row array
-whose row ns is a zero sentinel (padded slots have cols == ns).
+    mode "jacobi":   x + omega * (b - y) / d   (x is the gathered vector)
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -23,13 +36,36 @@ from ._common import (check_float, check_index, check_same_device, is_f64,
 MODES = {"y": 0, "residual": 1, "jacobi": 2}
 _COUNT = COUNTERS["sup_spmv"]
 
+UNROLL_SCALAR = 8  # kUnroll<1> of the kernel: blocks a lane loads at once
+LANES_WANTED = 3 * 2 ** 14  # lanes that keep an H100's 132 SMs busy
 
-def sup_spmv_plain(A, cols, X, n_out, mode="y", b=None, x=None, d=None,
-                   omega=0.0):
-    """The plain PyTorch version (gather + batched einsum), the same
-    computation as cfdtpu's jnp operator applies."""
-    xg = X[cols.long()]  # (ns, Kg, C)
-    y = torch.einsum("skrc,skc->sr", A, xg).reshape(-1)[:n_out]
+
+def _pad_rows(v, ns: int, width: int):
+    """v (m,) -> (ns+1, width) supernode rows: zero-padded to ns*width,
+    plus the zero sentinel row ns that padded slots point at."""
+    xp = torch.zeros(((ns + 1) * width,), dtype=v.dtype, device=v.device)
+    xp[: v.shape[0]] = v
+    return xp.reshape(ns + 1, width)
+
+
+def sup_spmv_plain(A, cols, x, n_out, mode="y", b=None, d=None, omega=0.0,
+                   x_split=None, y_split=None):
+    """The plain PyTorch version: the padded supernode rows, the gather
+    and the batched einsum, as cfdtpu's jnp operator applies do."""
+    ns, _, R, C = A.shape
+    if x_split is None:
+        X = _pad_rows(x, ns, C)
+    else:
+        m0, w0 = x_split
+        X = torch.cat([_pad_rows(x[:m0], ns, w0),
+                       _pad_rows(x[m0:], ns, C - w0)], dim=1)
+    y = torch.einsum("skrc,skc->sr", A, X[cols.long()])
+    if y_split is None:
+        y = y.reshape(-1)[:n_out]
+    else:
+        n0, R0 = y_split
+        y = torch.cat([y[:, :R0].reshape(-1)[:n0],
+                       y[:, R0:].reshape(-1)[: n_out - n0]])
     if mode == "residual":
         return b - y
     if mode == "jacobi":
@@ -37,51 +73,141 @@ def sup_spmv_plain(A, cols, X, n_out, mode="y", b=None, x=None, d=None,
     return y
 
 
-def _check(A, cols, X, n_out, mode, b, x, d):
+class Plan(NamedTuple):
+    """How the kernel covers one call. A lane sums `rpl` (1 or 2) rows of
+    one supernode (r0 + j*R/rpl), so each x chunk it gathers serves them;
+    each such row set is owned by `lanes` lanes (a power of 2, at most a
+    warp): `cv` of them cover the C columns in chunks of `vec` values (16
+    bytes, or 1 value), times `ks` that split the Kg blocks (the j-th
+    takes k = j, j + ks, ...). Lanes beyond cv * ks add zero."""
+
+    vec: int
+    cv: int
+    ks: int
+    lanes: int
+    rpl: int
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def launch_plan(A, x_split=None) -> Plan:
+    """The kernel's launch plan for the value array (view) A; a plain
+    function of A's shape, strides, dtype and address and of x's split
+    width. Raises ValueError for a strided view that is not 16-byte
+    aligned (a view is read in 16-byte pieces, its own rows only)."""
+    ns, Kg, R, C = A.shape
+    sz = A.element_size()
+    st = A.stride()
+    aligned = ((C * sz) % 16 == 0 and st[3] == 1
+               and all((s * sz) % 16 == 0 for s in st[:3])
+               and A.data_ptr() % 16 == 0)
+    require(aligned or A.is_contiguous(),
+            f"sup_spmv: the strided view (shape {tuple(A.shape)}, strides "
+            f"{st}, offset {A.storage_offset()}) is not 16-byte aligned")
+    vec = 16 // sz
+    if not aligned or (x_split is not None and x_split[1] % vec):
+        vec = 1
+    cv = C // vec
+    require(cv <= 32, f"sup_spmv: rows of {C} values are wider than a warp")
+    rows = ns * R
+    if vec == 1:  # one value a lane: each lane's blocks in one round
+        lanes = min(32, _pow2_at_least(cv * -(-Kg // UNROLL_SCALAR)))
+        rpl = 1
+    else:  # two lanes per column chunk, and each x chunk over two rows
+        lanes = min(32, _pow2_at_least(cv * min(2, Kg)))
+        rpl = 2 if R % 2 == 0 and rows // 2 * lanes >= LANES_WANTED else 1
+    # the small levels: split the blocks until the card has enough lanes
+    while (lanes < 32 and lanes // cv < Kg
+           and rows // rpl * lanes < LANES_WANTED):
+        lanes *= 2
+    require(rows // rpl * lanes < 2 ** 30,
+            f"sup_spmv: {rows} rows are too many")
+    return Plan(vec, cv, min(lanes // cv, Kg), lanes, rpl)
+
+
+def _check(A, cols, x, n_out, mode, b, d, x_split, y_split):
     require(mode in MODES, f"sup_spmv: unknown mode {mode!r}")
     require(A.dim() == 4, "sup_spmv: A must be (ns, Kg, R, C)")
     ns, Kg, R, C = A.shape
     check_float("A", A)
-    check_float("X", X, A.dtype)
+    check_float("x", x, A.dtype)
     check_index("cols", cols)
     require(tuple(cols.shape) == (ns, Kg),
             f"sup_spmv: cols {tuple(cols.shape)} != {(ns, Kg)}")
-    require(X.dim() == 2 and tuple(X.shape) == (ns + 1, C),
-            f"sup_spmv: X {tuple(X.shape)} != {(ns + 1, C)}")
-    require(X.is_contiguous(), "sup_spmv: X must be contiguous")
-    require(0 <= n_out <= ns * R, f"sup_spmv: n_out {n_out} > {ns * R}")
-    need = {"y": (), "residual": ("b",), "jacobi": ("b", "x", "d")}[mode]
-    for name, t in (("b", b), ("x", x), ("d", d)):
+    require(x.dim() == 1 and x.is_contiguous(),
+            "sup_spmv: x must be a contiguous flat vector")
+    if x_split is None:
+        require(x.shape[0] <= ns * C, f"sup_spmv: x longer than {ns * C}")
+    else:
+        m0, w0 = x_split
+        require(0 < w0 < C and 0 <= m0 <= min(x.shape[0], ns * w0)
+                and x.shape[0] - m0 <= ns * (C - w0),
+                f"sup_spmv: x_split {x_split} does not fit x "
+                f"({x.shape[0]},) and C={C}")
+    if y_split is None:
+        require(0 <= n_out <= ns * R, f"sup_spmv: n_out {n_out} > {ns * R}")
+    else:
+        n0, R0 = y_split
+        require(0 < R0 < R and 0 <= n0 <= ns * R0
+                and 0 <= n_out - n0 <= ns * (R - R0),
+                f"sup_spmv: y_split {y_split} does not fit n_out {n_out} "
+                f"and R={R}")
+    if mode == "jacobi":
+        require(x_split is None and y_split is None and R == C
+                and x.shape[0] == n_out,
+                "sup_spmv: mode jacobi needs a square A and x of n_out")
+    need = {"y": (), "residual": ("b",), "jacobi": ("b", "d")}[mode]
+    for name, t in (("b", b), ("d", d)):
         if name in need:
             require(t is not None, f"sup_spmv: mode {mode} needs {name}")
             check_float(name, t, A.dtype)
             require(tuple(t.shape) == (n_out,) and t.is_contiguous(),
                     f"sup_spmv: {name} must be contiguous ({n_out},)")
-    check_same_device(("A", A), ("cols", cols), ("X", X), ("b", b),
-                      ("x", x), ("d", d))
+    check_same_device(("A", A), ("cols", cols), ("x", x), ("b", b),
+                      ("d", d))
 
 
-def sup_spmv(A, cols, X, n_out=None, mode="y", b=None, x=None, d=None,
-             omega=0.0):
+def sup_spmv(A, cols, x, n_out=None, mode="y", b=None, d=None, omega=0.0,
+             x_split=None, y_split=None):
     if n_out is None:
         n_out = A.shape[0] * A.shape[2]
-    _check(A, cols, X, n_out, mode, b, x, d)
+    _check(A, cols, x, n_out, mode, b, d, x_split, y_split)
     if not on_cuda(A):
-        return sup_spmv_plain(A, cols, X, n_out, mode, b, x, d, omega)
+        return sup_spmv_plain(A, cols, x, n_out, mode, b, d, omega, x_split,
+                              y_split)
+    return _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
+                   launch_plan(A, x_split))
+
+
+def _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
+            plan: Plan):
+    """One kernel launch into one torch.empty, with the given plan."""
     from ._build import check, library
 
     ns, Kg, R, C = A.shape
+    m0, w0 = (x.shape[0], C) if x_split is None else x_split
+    n0, R0 = (n_out, R) if y_split is None else y_split
     out = torch.empty((n_out,), dtype=A.dtype, device=A.device)
-    lib = library()
     m = MODES[mode]
+    x0 = x.data_ptr()
+    x1 = x0 + m0 * x.element_size()
+    # each segment's alignment: read in 16-byte pieces at 16, in pairs of
+    # 8-byte pieces at 8
+    xa0, xa1 = ((16 if p % 16 == 0 else 8 if p % 8 == 0 else 0)
+                if plan.vec > 1 else 0 for p in (x0, x1))
     with torch.cuda.device(A.device):
-        rc = lib.cfd_sup_spmv(
-            A.data_ptr(), *A.stride(), cols.data_ptr(), X.data_ptr(),
-            X.stride(0), ns, Kg, R, C, out.data_ptr(), n_out, m,
-            b.data_ptr() if m >= 1 else None,
-            x.data_ptr() if m == 2 else None,
-            d.data_ptr() if m == 2 else None,
-            float(omega), is_f64(A), stream_handle(A),
+        rc = library().cfd_sup_spmv(
+            A.data_ptr(), *A.stride()[:3], cols.data_ptr(), ns, Kg, R, C,
+            x0, m0, w0, xa0, x1, x.shape[0] - m0, xa1, out.data_ptr(), n0,
+            R0, n_out - n0, m, b.data_ptr() if m >= 1 else None,
+            d.data_ptr() if m == 2 else None, float(omega), plan.vec,
+            plan.rpl, plan.cv, plan.ks, plan.lanes.bit_length() - 1,
+            is_f64(A), stream_handle(A),
         )
     _COUNT.n += 1
     check(rc, "sup_spmv")

@@ -27,7 +27,7 @@ import torch
 
 from ..kernels.sup_spmv import sup_spmv
 from ..utils.geometry import SortedScatter
-from .superell import SuperMaps, place, sup_rows
+from .superell import SuperMaps, place
 
 
 def build_aggregates(row, col, n: int, pairwise: bool = False
@@ -242,10 +242,8 @@ class AMG:
         """Level-k y = A x (K1), or with its epilogue: mode "residual"
         gives b - A x, mode "jacobi" gives x + omega (b - A x) / d."""
         maps, _ = self.sup[k]
-        return sup_spmv(sup_vals, maps.sup_cols,
-                        sup_rows(x, maps.ns, maps.g), n_out=maps.n,
-                        mode=mode, b=b, x=x if mode == "jacobi" else None,
-                        d=d, omega=self.omega)
+        return sup_spmv(sup_vals, maps.sup_cols, x, n_out=maps.n,
+                        mode=mode, b=b, d=d, omega=self.omega)
 
     def _l1_diag_sup(self, k, sup_vals):
         """l1-Jacobi smoothing diagonal d_i = sum_j |A_ij| (a plain
@@ -344,11 +342,8 @@ class BlockAMG(AMG):
         """Level-k (m*d,) block matvec (K1 at width g*d), with K1's
         residual / l1-Jacobi epilogues as in AMG._matvec."""
         maps, _ = self.sup[k]
-        gd = maps.g * self.d
-        return sup_spmv(sup_vals, maps.sup_cols,
-                        sup_rows(x, maps.ns, gd), n_out=maps.n * self.d,
-                        mode=mode, b=b, x=x if mode == "jacobi" else None,
-                        d=dg, omega=self.omega)
+        return sup_spmv(sup_vals, maps.sup_cols, x, n_out=maps.n * self.d,
+                        mode=mode, b=b, d=dg, omega=self.omega)
 
     def _l1_diag_block(self, k, sup_vals):
         maps, _ = self.sup[k]

@@ -25,7 +25,7 @@ import torch
 from ..kernels.selfp_triple import selfp_triple
 from ..kernels.sup_spmv import sup_spmv
 from ..utils.geometry import SortedScatter, det_and_inv
-from .superell import SuperMaps, place, sup_rows
+from .superell import SuperMaps, place
 
 
 class NodeBSR:
@@ -160,49 +160,22 @@ class NodeBSR:
         d = self.dim
         return torch.cat([yn[:, :d].reshape(-1), yn[:, d]])
 
-    # -- supernode-row construction (pad + sentinel) ----------------------
-    def _sup_rows_u(self, v_u):
-        """u flat (n*d,) -> (ns+1, g*d) supernode rows (+ zero sentinel)."""
-        return sup_rows(v_u, self._sup.ns, self.g * self.dim)
-
-    def _sup_rows_p(self, v_p):
-        return sup_rows(v_p, self._sup.ns, self.g)
-
-    def _sup_rows(self, v_flat):
-        return torch.cat(
-            [self._sup_rows_u(v_flat[: self.n_u_flat]),
-             self._sup_rows_p(v_flat[self.n_u_flat:])], dim=1
-        )
-
-    def _from_sup_u(self, y_u):
-        """(ns, g*d) -> u flat (n*d,)."""
-        return y_u.reshape(-1)[: self.n_nodes * self.dim]
-
-    def _from_sup_p(self, y_p):
-        return y_p.reshape(-1)[: self.n_nodes]
-
+    # -- operator applies: one K1 launch each, on the flat vectors ---------
     def apply_element_matrices(self, vals, _A_blocks, v_flat):
-        gd = self.g * self.dim
-        A = vals["sup"]
-        y = sup_spmv(A, self._sup.sup_cols, self._sup_rows(v_flat))
-        y = y.reshape(self._sup.ns, A.shape[2])
-        return torch.cat(
-            [self._from_sup_u(y[:, :gd]), self._from_sup_p(y[:, gd:])]
-        )
+        gd, n_u = self.g * self.dim, self.n_u_flat
+        return sup_spmv(vals["sup"], self._sup.sup_cols, v_flat,
+                        n_out=v_flat.shape[0], x_split=(n_u, gd),
+                        y_split=(n_u, gd))
 
     def apply_sub_block(self, vals, _A_blocks, v, which: str):
         gd = self.g * self.dim
         rs = slice(0, gd) if which[0] == "u" else slice(gd, None)
         cs = slice(0, gd) if which[1] == "u" else slice(gd, None)
-        rows = (
-            self._sup_rows_u(v) if which[1] == "u"
-            else self._sup_rows_p(v)
-        )
         n_out = (self.n_nodes * self.dim if which[0] == "u"
                  else self.n_nodes)
         # strided view of the sub-block: no copy of the values
-        return sup_spmv(vals["sup"][:, :, rs, cs], self._sup.sup_cols,
-                        rows, n_out=n_out)
+        return sup_spmv(vals["sup"][:, :, rs, cs], self._sup.sup_cols, v,
+                        n_out=n_out)
 
     # -- explicit SELFP Schur matrix ---------------------------------------
     def sp_structure(self):
@@ -379,11 +352,10 @@ class NodeBSR:
         """One fused pass for the SELFP Schur action: returns
         (Aup v_p, App v_p) from a single gather over the whole p block
         column (one K1 launch on the (.., g*bs, g) column view)."""
-        gd = self.g * self.dim
-        A = vals["sup"][:, :, :, gd:]
-        y = sup_spmv(A, self._sup.sup_cols, self._sup_rows_p(v_p))
-        y = y.reshape(self._sup.ns, A.shape[2])
-        return self._from_sup_u(y[:, :gd]), self._from_sup_p(y[:, gd:])
+        gd, n_u = self.g * self.dim, self.n_u_flat
+        y = sup_spmv(vals["sup"][:, :, :, gd:], self._sup.sup_cols, v_p,
+                     n_out=n_u + self.n_nodes, y_split=(n_u, gd))
+        return y[:n_u], y[n_u:]
 
     def jacobian_diagonal(self, vals, _A_blocks):
         if isinstance(vals, dict):

@@ -3,8 +3,8 @@
 The counterpart of cfdtpu/la/superell.py: g consecutive (Hilbert-
 ordered) node ids form one supernode; coupled supernode pairs own dense
 (g*bs, g*bs) blocks in an ELL layout (ns, Kg, ., .), and a matvec
-gathers (g*bs)-wide rows of the supernode-major x. The maps are built
-in numpy exactly as in cfdtpu; the matvec is kernel K1
+gathers (g*bs)-wide rows of x straight from its flat layout. The maps
+are built in numpy exactly as in cfdtpu; the matvec is kernel K1
 (kernels/sup_spmv.py).
 
 Row layout inside a superblock (matching the solver's flat dof layout
@@ -113,15 +113,6 @@ def place_scalar(maps: SuperMaps, row, col, vals):
                  (maps.ns, maps.Kg, g, g))
 
 
-def sup_rows(x, ns: int, width: int):
-    """x (m,) -> the (ns+1, width) supernode-row array: x zero-padded to
-    ns*width, plus the zero sentinel row ns."""
-    xp = torch.zeros(((ns + 1) * width,), dtype=x.dtype, device=x.device)
-    xp[: x.shape[0]] = x
-    return xp.reshape(ns + 1, width)
-
-
 def sup_matvec(maps: SuperMaps, vals_sup, x):
     """y = A x for scalar x (n,), vals_sup (ns, Kg, g, g)."""
-    return sup_spmv(vals_sup, maps.sup_cols, sup_rows(x, maps.ns, maps.g),
-                    n_out=maps.n)
+    return sup_spmv(vals_sup, maps.sup_cols, x, n_out=maps.n)

@@ -49,23 +49,19 @@ def patch_inputs(P, K, device="cpu"):
 
 def k1_operands(x, vals, idx):
     """The patch SpMV as a K1 (sup_spmv) operand set at width 1:
-    A (P*L, K, 1, 1), cols (P*L, K) = p*L + idx, X the (P*L + 1, 1)
-    supernode-row array with its zero sentinel row."""
-    from ..la.superell import sup_rows
-
+    A (P*L, K, 1, 1), cols (P*L, K) = p*L + idx, and x flat (P*L,)."""
     P, Lp, K = vals.shape
     cols = (torch.arange(P, dtype=torch.int32, device=idx.device)[:, None,
                                                                    None]
             * Lp + idx).reshape(P * Lp, K).contiguous()
     A = vals.reshape(P * Lp, K, 1, 1)
-    return A, cols, sup_rows(x.reshape(-1), P * Lp, 1)
+    return A, cols, x.reshape(-1)
 
 
 def patch_spmv_k1(x, vals, idx):
     from ..kernels.sup_spmv import sup_spmv
 
-    A, cols, X = k1_operands(x, vals, idx)
-    return sup_spmv(A, cols, X, n_out=x.numel()).reshape(x.shape)
+    return sup_spmv(*k1_operands(x, vals, idx)).reshape(x.shape)
 
 
 def _rel_err(got, ref):
@@ -94,13 +90,13 @@ def patch_spmv_bench(P, K, device):
     x, vals, idx = patch_inputs(P, K, device)
     ref = patch_spmv_plain(x, vals, idx)
     y5 = patch_spmv(x, vals, idx)
-    A, cols, X = k1_operands(x, vals, idx)
-    y1 = sup_spmv(A, cols, X, n_out=x.numel()).reshape(x.shape)
+    k1 = k1_operands(x, vals, idx)
+    y1 = sup_spmv(*k1).reshape(x.shape)
     torch.cuda.synchronize()
     err5, err1 = _rel_err(y5, ref), _rel_err(y1, ref)
     ok = err5 <= RTOL and err1 <= RTOL
     t5 = cuda_ms(lambda: patch_spmv(x, vals, idx)) * 1e-3
-    t1 = cuda_ms(lambda: sup_spmv(A, cols, X, n_out=x.numel())) * 1e-3
+    t1 = cuda_ms(lambda: sup_spmv(*k1)) * 1e-3
     tp = cuda_ms(lambda: patch_spmv_plain(x, vals, idx)) * 1e-3
     nbytes = vals.numel() * 4 + idx.numel() * 4 + 2 * x.numel() * 4
     ng = P * L * K

@@ -1,4 +1,5 @@
-"""Device time of a CUDA call, measured with CUDA events."""
+"""Device time of a CUDA call, measured with CUDA events, and the device
+activities it issues, read from torch.profiler."""
 
 from __future__ import annotations
 
@@ -37,3 +38,24 @@ def cuda_ms(fn, n: int = 25, warmup: int = 3) -> float:
         evs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def device_kernels(fn) -> list[str]:
+    """Names of the device activities (kernels, copies, fills) one fn()
+    call issues, from torch.profiler's CUDA trace, in launch order. One
+    warm-up call first, so that a kernel's build is not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_kernels traces a CUDA card; none is "
+                           "available")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(prof.events(),
+                                   key=lambda e: e.time_range.start)
+            if e.device_type == DeviceType.CUDA]

@@ -19,17 +19,25 @@ Run from the root of a checkout. Phases, each raising on failure:
    ||kernel - plain||_inf <= 1e-5 ||plain||_inf (float32: the sums run
    in another order), and timed (median device time of 25
    CUDA-event-timed calls, kernel and plain, host dispatch excluded).
-   The same checks run in float64 at res_scale 1.0 with 1e-12.
+   The same checks run in float64 at res_scale 1.0 with 1e-12. Every
+   K1 site is also called twice and must be bitwise equal, and prints
+   the bytes it must move (k1_bytes: values of the view, column indices,
+   x, y and the epilogue's b and d), its TB/s and its share of 3.35 TB/s.
+   Then, under torch.profiler, each operator apply the solver calls
+   (NodeBSR.apply_element_matrices, apply_sub_block, apply_p_coupled,
+   AMG._matvec, BlockAMG._matvec_block) must issue one device kernel, K1.
 4. determinism: two float32 form.residual calls on one state are
    bitwise equal.
 5. path A, the rasamg_sup slice (the configuration bench.py runs):
-   Scenario.solve drives 10 float32 steps from rest (Schur/rasamg_sup,
+   Scenario.solve drives 14 float32 steps from rest (Schur/rasamg_sup,
    pc_inner_u=0, pc_inner_p=5, RAS windows of 32 with overlap 4, chord
    Newton, pc_lag_steps=4, stats_every=4, ksp_restart=20, dt=0.05),
    steps 1-6 warm-up and 7-10 measured, with the launch counters reset
-   just before; every step must converge with a finite state, no linear
+   just before; steps 11-14 run under torch.profiler (K1's device time
+   and calls, cudaLaunchKernel and cudaMemcpyAsync calls, the card's
+   idle share). Every step must converge with a finite state, no linear
    solve may hit ksp_max_it, and K1, K2, K3, K4 and K6 must have
-   launched.
+   launched in steps 1-10.
 6. the amg_p slice (the solver's default inner method): 8 float32 steps
    from rest, steps 5-8 measured, the same checks for K1-K4.
 7. parity: float64 at res_scale 1.0, 2 steps through the kernels on the
@@ -162,7 +170,6 @@ def kernel_sites(torch, np, sc, seed=0):
     from cfdtpu_torch.kernels.selfp_triple import (selfp_triple,
                                                    selfp_triple_plain)
     from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
-    from cfdtpu_torch.la.superell import sup_rows
     from cfdtpu_torch.scripts import gather_micro
 
     s = sc.solver
@@ -191,44 +198,42 @@ def kernel_sites(torch, np, sc, seed=0):
     rand = (lambda *shape: s.tensor(rng.standard_normal(shape)))
 
     sites = []
+
+    def k1(label, A, cols, x, n_out, **kw):
+        """A K1 site: kernel and plain version on the same flat operands,
+        and the bytes the call must move (K1_BYTES)."""
+        nbytes = k1_bytes(A, x, n_out, kw.get("mode", "y"))
+        sites.append(("sup_spmv", label,
+                      lambda: sup_spmv(A, cols, x, n_out, **kw),
+                      lambda: sup_spmv_plain(A, cols, x, n_out, **kw),
+                      nbytes))
+
     cols = nb._sup.sup_cols
     gd = nb.g * nb.dim
-    v = rand(nb.n_u_flat + nb.n_nodes)
-    X = nb._sup_rows(v)
-    Xu = nb._sup_rows_u(v[: nb.n_u_flat])
-    Xp = nb._sup_rows_p(v[nb.n_u_flat:])
     n_u, n_p = nb.n_u_flat, nb.n_nodes
+    v = rand(n_u + n_p)
+    vu, vp = v[:n_u], v[n_u:]
     S = vals["sup"]
-    for label, A, Xs, n_out in (
-        ("K1 full operator", S, X, None),
-        ("K1 uu", S[:, :, :gd, :gd], Xu, n_u),
-        ("K1 up", S[:, :, :gd, gd:], Xp, n_u),
-        ("K1 pu", S[:, :, gd:, :gd], Xu, n_p),
-        ("K1 p-coupled", S[:, :, :, gd:], Xp, None),
-    ):
-        n = n_out if n_out is not None else A.shape[0] * A.shape[2]
-        sites.append(("sup_spmv", label,
-                      lambda A=A, Xs=Xs, n=n: sup_spmv(A, cols, Xs, n),
-                      lambda A=A, Xs=Xs, n=n: sup_spmv_plain(A, cols, Xs, n)))
+    k1("K1 full operator", S, cols, v, n_u + n_p, x_split=(n_u, gd),
+       y_split=(n_u, gd))
+    k1("K1 uu", S[:, :, :gd, :gd], cols, vu, n_u)
+    k1("K1 up", S[:, :, :gd, gd:], cols, vp, n_u)
+    k1("K1 pu", S[:, :, gd:, :gd], cols, vu, n_p)
+    k1("K1 pp", S[:, :, gd:, gd:], cols, vp, n_p)
+    k1("K1 p-coupled", S[:, :, :, gd:], cols, vp, n_u + n_p,
+       y_split=(n_u, gd))
 
-    def k1_levels(tag, lvls, sup, width_of, omega):
+    def k1_levels(tag, lvls, sup, omega):
         for k, (ev, d) in enumerate(lvls):
-            maps = sup[k][0]
             m = d.shape[0]
             x, b = rand(m), rand(m)
-            Xk = sup_rows(x, maps.ns, width_of(maps))
             for mode in ("y", "residual", "jacobi"):
-                kw = dict(mode=mode, b=b, x=x, d=d, omega=omega)
-                sites.append((
-                    "sup_spmv", f"K1 {tag} L{k} {mode} {tuple(ev.shape)}",
-                    lambda ev=ev, Xk=Xk, m=m, kw=kw, c=maps.sup_cols:
-                        sup_spmv(ev, c, Xk, m, **kw),
-                    lambda ev=ev, Xk=Xk, m=m, kw=kw, c=maps.sup_cols:
-                        sup_spmv_plain(ev, c, Xk, m, **kw)))
+                k1(f"K1 {tag} L{k} {mode} {tuple(ev.shape)}", ev,
+                   sup[k][0].sup_cols, x, m, mode=mode, b=b, d=d,
+                   omega=omega)
 
-    k1_levels("amg", levels, amg.sup, lambda maps: maps.g, amg.omega)
-    k1_levels("block-amg", blevels, bamg.sup,
-              lambda maps: maps.g * bamg.d, bamg.omega)
+    k1_levels("amg", levels, amg.sup, amg.omega)
+    k1_levels("block-amg", blevels, bamg.sup, bamg.omega)
 
     def k2(label, scat, shape):
         src = rand(scat.n_in, *shape)
@@ -236,7 +241,7 @@ def kernel_sites(torch, np, sc, seed=0):
         log(f"[kernels] {label}: src {tuple(src.shape)} -> {scat.n_out} "
             f"rows, K={scat.K}")
         sites.append(("ell_sum", label, lambda: ell_sum(src, idx),
-                      lambda: ell_sum_plain(src, idx)))
+                      lambda: ell_sum_plain(src, idx), None))
 
     k2("K2 residual u", f._scatter_u, (2,))
     k2("K2 residual p", f._scatter_p, ())
@@ -254,34 +259,46 @@ def kernel_sites(torch, np, sc, seed=0):
             f.tabs, prm["rho"], prm["mu"], prm["dt"], prm["f"], f.eps)
     sites.append(("ns_cell_residual_p1", "K3 cell residual",
                   lambda: ns_cell_residual_p1(*args),
-                  lambda: ns_cell_residual_plain(*args)))
+                  lambda: ns_cell_residual_plain(*args), None))
     inv = rand(nb.n_nodes, nb.dim)
     coo_v = vals["coo"]
     sargs = (coo_v, nb._sp_e1, nb._sp_e2, nb._sp_K, inv)
     sites.append(("selfp_triple", "K4 selfp triples",
                   lambda: selfp_triple(*sargs),
-                  lambda: selfp_triple_plain(*sargs)))
+                  lambda: selfp_triple_plain(*sargs), None))
 
     for P, K in gather_micro.PATCH_SHAPES:
         xp, vp, ip = (t.to(s.dtype) if t.is_floating_point() else t
                       for t in gather_micro.patch_inputs(P, K, s.device))
-        A1, c1, X1 = gather_micro.k1_operands(xp, vp, ip)
         sites.append(("patch_spmv", f"K5 patch P={P} K={K}",
                       lambda a=(xp, vp, ip): patch_spmv(*a),
-                      lambda a=(xp, vp, ip): patch_spmv_plain(*a)))
-        sites.append(("sup_spmv", f"K1 width 1 patch P={P} K={K}",
-                      lambda a=(A1, c1, X1): sup_spmv(*a),
-                      lambda a=(xp, vp, ip): patch_spmv_plain(*a)
-                      .reshape(-1)))
+                      lambda a=(xp, vp, ip): patch_spmv_plain(*a), None))
+        k1(f"K1 width 1 patch P={P} K={K}",
+           *gather_micro.k1_operands(xp, vp, ip), xp.numel())
 
     rx, rb = rand(nb.n_u_flat), rand(nb.n_u_flat)
     rargs = (ras_inv, rx, ras._win, ras.s, ras.o, ras.d)
     sites.append(("ras_apply", "K6 ras apply", lambda: ras_apply(*rargs),
-                  lambda: ras_apply_plain(*rargs)))
+                  lambda: ras_apply_plain(*rargs), None))
     sites.append(("ras_apply", "K6 ras apply + x",
                   lambda: ras_apply(*rargs, base=rb),
-                  lambda: ras_apply_plain(*rargs, base=rb)))
+                  lambda: ras_apply_plain(*rargs, base=rb), None))
     return sites
+
+
+HBM_TBPS = 3.35  # an H100 SXM's device memory, TB/s (data sheet)
+
+
+def k1_bytes(A, x, n_out, mode):
+    """K1_BYTES, the bytes one K1 call must move: the values of the view
+    (ns*Kg*R*C), the column indices (ns*Kg int32), the gathered vector x
+    and the output y once each, plus b (residual, jacobi) and d (jacobi)
+    read by the epilogue."""
+    ns, Kg, R, C = A.shape
+    sz = A.element_size()
+    epi = {"y": 0, "residual": 1, "jacobi": 2}[mode]
+    return (ns * Kg * R * C * sz + ns * Kg * 4 + x.numel() * sz
+            + (1 + epi) * n_out * sz)
 
 
 def flat_outputs(out):
@@ -289,12 +306,13 @@ def flat_outputs(out):
 
 
 def phase_kernels(torch, np, sc, tol, timed):
-    """Compare every kernel site with its plain version; returns
-    {site: (kernel name, max_abs_err, ms, plain_ms)}."""
+    """Compare every kernel site with its plain version, and each K1 site
+    with a second call of itself (bitwise); returns {site: (kernel name,
+    max_abs_err, ms, plain_ms, bytes)}."""
     from cfdtpu_torch.utils.cudatime import cuda_ms
 
     rows = {}
-    for name, label, kern, plain in kernel_sites(torch, np, sc):
+    for name, label, kern, plain, nbytes in kernel_sites(torch, np, sc):
         got, ref = flat_outputs(kern()), flat_outputs(plain())
         torch.cuda.synchronize()
         err = 0.0
@@ -307,12 +325,63 @@ def phase_kernels(torch, np, sc, tol, timed):
                     f"{label}: |kernel - plain|_inf {e:.3e} > "
                     f"{tol:g} * {scale:.3e}")
             err = max(err, e)
+        if name == "sup_spmv":
+            again = flat_outputs(kern())
+            require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                    f"{label}: two calls are not bitwise equal")
         ms = cuda_ms(kern) if timed else float("nan")
         pms = cuda_ms(plain) if timed else float("nan")
-        rows[label] = (name, err, ms, pms)
+        rows[label] = (name, err, ms, pms, nbytes)
+        rate = ""
+        if nbytes is not None:
+            tbps = nbytes / (ms * 1e-3) / 1e12 if timed else float("nan")
+            rate = (f"  {nbytes / 1e6:.2f} MB {tbps:.3f} TB/s "
+                    f"{100 * tbps / HBM_TBPS:.1f}% of {HBM_TBPS} TB/s; "
+                    "two calls bitwise equal")
         log(f"[kernels] {label:44s} max_abs_err {err:.3e}  "
-            f"kernel {ms:.4f} ms  plain {pms:.4f} ms")
+            f"kernel {ms:.4f} ms  plain {pms:.4f} ms{rate}")
     return rows
+
+
+def phase_one_launch(torch, np, sc):
+    """Each operator apply the solver calls is one device kernel: K1,
+    with no fill, copy or concatenation around it (torch.profiler)."""
+    from cfdtpu_torch.utils.cudatime import device_kernels
+
+    s = sc.solver
+    nb = s._nodebsr
+    u, up, p = developed_state(torch, np, s, 3)
+    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
+    amg, bamg = nb.sp_amg(), nb.uu_amg(
+        fine_smoother=nb.uu_ras(s.pc_ras_size, s.pc_ras_overlap))
+    lv, _ = amg.build(nb.sp_vals(vals))
+    blv, _, _ = bamg.build(nb.uu_vals(vals, bc_mask_u(torch, np, s)))
+    rng = np.random.default_rng(5)
+    rand = (lambda n: s.tensor(rng.standard_normal(n)))
+    n_u, n_p = nb.n_u_flat, nb.n_nodes
+    v, vm, vb = rand(n_u + n_p), rand(lv[0][1].shape[0]), rand(n_u)
+    calls = {
+        "NodeBSR.apply_element_matrices":
+            lambda: nb.apply_element_matrices(vals, (), v),
+        "NodeBSR.apply_sub_block uu":
+            lambda: nb.apply_sub_block(vals, (), v[:n_u], "uu"),
+        "NodeBSR.apply_p_coupled":
+            lambda: nb.apply_p_coupled(vals, v[n_u:]),
+        "AMG._matvec L0 jacobi":
+            lambda: amg._matvec(0, lv[0][0], vm, mode="jacobi", b=vm,
+                                d=lv[0][1]),
+        "BlockAMG._matvec_block L0 residual":
+            lambda: bamg._matvec_block(0, blv[0][0], vb, mode="residual",
+                                       b=vb),
+    }
+    out = {}
+    for label, fn in calls.items():
+        names = device_kernels(fn)
+        log(f"[one launch] {label}: device activities {names}")
+        require(len(names) == 1 and "sup_spmv" in names[0],
+                f"{label} issued {names}, not one K1 kernel")
+        out[label] = names
+    return out
 
 
 def phase_determinism(torch, np, sc, trials=5):
@@ -345,10 +414,12 @@ def phase_determinism(torch, np, sc, trials=5):
 
 
 # ----------------------------------------------------------------------
-def run_steps(sc, out_dir, steps):
+def run_steps(sc, out_dir, steps, on_step=None):
     """Drive the scenario's time loop (Scenario.solve) for `steps`
     steps; returns per-step [(newton, ksp, ksp_max, wall_s, converged)].
-    Step 1's wall time includes the loop's output set-up."""
+    Step 1's wall time includes the loop's output set-up. on_step(i) is
+    called after step i, once the card is idle, outside the step's
+    wall time."""
     import torch
 
     s = sc.solver
@@ -361,7 +432,9 @@ def run_steps(sc, out_dir, steps):
         st = s.step_stats
         rec.append((st["newton_iters"], st["ksp_iters"], st["ksp_max"],
                     now - last[0], st["converged"]))
-        last[0] = now
+        if on_step is not None:
+            on_step(len(rec))
+        last[0] = time.perf_counter()
 
     sc.T = (steps - 0.5) * sc.dt  # t accumulates in floats: stop between
     sc.solve(out_dir, afterStepCallback=after_step)
@@ -369,9 +442,60 @@ def run_steps(sc, out_dir, steps):
     return rec
 
 
-def phase_slice(torch, np, sc, out_dir, tag, steps, required):
+class StepProfile:
+    """torch.profiler over the steps after `start` (from on_step(start)
+    to on_step(stop)): K1's device time and calls, all device activity,
+    the host's cudaLaunchKernel and cudaMemcpyAsync calls, and the share
+    of the window's wall time in which the card was idle."""
+
+    def __init__(self, start, stop):
+        self.start, self.stop = start, stop
+        self.prof = None
+        self.t0 = 0.0
+        self.result = None
+
+    def __call__(self, i):
+        from torch.profiler import ProfilerActivity, profile
+
+        if i == self.start:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif i == self.stop:
+            wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+            self.result = self._read(wall)
+
+    def _read(self, wall):
+        from torch.autograd import DeviceType
+
+        dev, api = [], {"cudaLaunchKernel": 0, "cudaMemcpyAsync": 0}
+        for e in self.prof.events():
+            if e.device_type == DeviceType.CUDA:
+                dev.append((e.time_range.start, e.time_range.end, e.name))
+            elif e.name in api:
+                api[e.name] += 1
+        k1 = [b - a for a, b, n in dev if "sup_spmv" in n]
+        busy, end = 0.0, float("-inf")  # union of the device intervals
+        for a, b, _ in sorted(dev):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return {"steps": f"{self.start + 1}-{self.stop}",
+                "profiled_wall_s": wall, "k1_device_ms": sum(k1) / 1e3,
+                "k1_calls": len(k1), "device_busy_ms": busy / 1e3,
+                "device_activities": len(dev),
+                "cudaLaunchKernel": api["cudaLaunchKernel"],
+                "cudaMemcpyAsync": api["cudaMemcpyAsync"],
+                "idle_share": 1.0 - busy / 1e6 / wall}
+
+
+def phase_slice(torch, np, sc, out_dir, tag, steps, required,
+                profile_steps=0):
     """Drive `steps` steps from rest with the launch counters reset just
-    before; the last 4 (one pc_lag_steps period) are measured."""
+    before; the last 4 (one pc_lag_steps period) are measured. With
+    profile_steps, that many more steps follow under StepProfile."""
     from cfdtpu_torch import kernels
 
     s = sc.solver
@@ -379,15 +503,23 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    rec = run_steps(sc, out_dir, steps)
-    launches = kernels.counts()
+    launches = {}
+    prof = StepProfile(steps, steps + profile_steps)
+
+    def on_step(i):
+        if i == steps:
+            launches.update(kernels.counts())
+        if profile_steps:
+            prof(i)
+
+    rec = run_steps(sc, out_dir, steps + profile_steps, on_step)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     ndof = s.V.num_global_dofs + s.Q.num_global_dofs
     for i, (n, k, kmax, w, _) in enumerate(rec, 1):
         log(f"[{tag}] step {i}: newton {n} ksp {k} (max per solve {kmax}) "
             f"wall {w:.4f} s")
-    win = rec[-4:]
+    win = rec[steps - 4:steps]
     wall = sum(r[3] for r in win)
     sps = 4 / wall
     ksp = sum(r[1] for r in win)
@@ -398,8 +530,13 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required):
         f"{steps - 3}-{steps}; {sum(r[0] for r in win)} Newton and {ksp} "
         f"KSP there, {1e3 * wall / ksp:.2f} ms per KSP iteration; "
         f"c_D {500 * fd:.6f} c_L {500 * fl:.6f} (line), "
-        f"c_D {500 * fdr:.6f} c_L {500 * flr:.6f} (reaction), dp {dp:.6f}; "
-        f"peak memory {peak / 2**20:.1f} MiB; launches {launches}")
+        f"c_D {500 * fdr:.6f} c_L {500 * flr:.6f} (reaction), dp {dp:.6f} "
+        f"at step {len(rec)}; peak memory {peak / 2**20:.1f} MiB; launches "
+        f"in steps 1-{steps} {launches}")
+    if profile_steps:
+        log(f"[{tag}] torch.profiler over steps {prof.result['steps']} "
+            f"(Newton/KSP {sum(r[0] for r in rec[steps:])}/"
+            f"{sum(r[1] for r in rec[steps:])}): {prof.result}")
     require(all(r[4] for r in rec), "a step did not converge")
     u = s.u_sol.cpu().numpy()
     p = s.p_sol.cpu().numpy()
@@ -414,7 +551,7 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required):
                       "ms_per_ksp": 1e3 * wall / ksp,
                       "steps": rec, "c_D": 500 * fd, "c_L": 500 * fl,
                       "c_D_reaction": 500 * fdr, "c_L_reaction": 500 * flr,
-                      "dp": dp}
+                      "dp": dp, "profile": prof.result}
 
 
 def phase_parity(torch, np, tmp, kw, tag):
@@ -537,6 +674,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sc = scenario(0.3, "float32", 4, RASAMG_KW)
         rows = phase_kernels(torch, np, sc, 1e-5, timed=True)
+        one_launch = phase_one_launch(torch, np, sc)
         sc64 = scenario(1.0, "float64", 1, RASAMG_KW)
         phase_kernels(torch, np, sc64, 1e-12, timed=False)
         del sc64
@@ -544,7 +682,7 @@ def main(argv=None):
 
         launches_a, slice_a = phase_slice(
             torch, np, sc, os.path.join(tmp, "slice_a"), "rasamg_sup", 10,
-            PATH_A_KERNELS)
+            PATH_A_KERNELS, profile_steps=4)
         del sc
         sc_p = scenario(0.3, "float32", 4, SLICE_KW)
         launches_p, slice_p = phase_slice(
@@ -561,7 +699,7 @@ def main(argv=None):
     launches = {"A": launches_a, "B": gm["launches"]}
     entries = []
     for name, (src, replaces, site, path) in SOURCES.items():
-        _, err, ms, pms = rows[site]
+        _, err, ms, pms, _ = rows[site]
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "site": site, "path": PATHS[path],
@@ -578,6 +716,7 @@ def main(argv=None):
                        "slice_amg_p": slice_p, "launches_amg_p": launches_p,
                        "launches": launches, "parity": parity,
                        "determinism": determinism, "gather_micro": gm,
+                       "one_launch": one_launch,
                        "kernels": entries}, fh, indent=1, default=str)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -63,11 +63,13 @@ def test_kernels_match_plain_and_count(sc):
                     ns_cell_residual_plain(*args)):
         _close(g, r)
     vals = nb.assemble(*f.element_jacobians(u, p, (up,), prm))
-    X = nb._sup_rows(s.tensor(np.ones(nb.n_u_flat + nb.n_nodes)))
+    v = s.tensor(np.ones(nb.n_u_flat + nb.n_nodes))
     cols = nb._sup.sup_cols
-    _close(sup_spmv(vals["sup"], cols, X),
-           sup_spmv_plain(vals["sup"], cols, X,
-                          vals["sup"].shape[0] * vals["sup"].shape[2]))
+    split = (nb.n_u_flat, nb.g * nb.dim)
+    _close(sup_spmv(vals["sup"], cols, v, v.shape[0], x_split=split,
+                    y_split=split),
+           sup_spmv_plain(vals["sup"], cols, v, v.shape[0], x_split=split,
+                          y_split=split))
     src = s.tensor(np.arange(nb._assemble_scatter.n_in * 9.0)
                    .reshape(-1, 9))
     idx = nb._assemble_scatter.ell_idx
@@ -136,6 +138,91 @@ def test_new_kernels_match_plain_and_count(sc):
     torch.cuda.synchronize()
     assert kernels.counts()["patch_spmv"] == 2
     assert kernels.counts()["ras_apply"] == 12
+
+
+# K1's shape classes: name -> (parent width, rows, columns, x split width,
+# output split row), as in tests/test_torch_sup_spmv.py
+K1_CASES = {
+    "full 12x12 two segments": (12, slice(None), slice(None), 8, 8),
+    "12x12 one segment": (12, slice(None), slice(None), None, None),
+    "uu 8x8 view of 12": (12, slice(0, 8), slice(0, 8), None, None),
+    "up 8x4 view": (12, slice(0, 8), slice(8, None), None, None),
+    "pu 4x8 view": (12, slice(8, None), slice(0, 8), None, None),
+    "pp 4x4 view": (12, slice(8, None), slice(8, None), None, None),
+    "p-coupled 12x4 view": (12, slice(None), slice(8, None), None, 8),
+    "amg 8x8": (8, slice(None), slice(None), None, None),
+    "block-amg 16x16": (16, slice(None), slice(None), None, None),
+    "width 1": (1, slice(None), slice(None), None, None),
+}
+
+
+@pytest.mark.parametrize("ns", [600, 6000])
+@pytest.mark.parametrize("name", list(K1_CASES))
+def test_k1_shape_grid_matches_plain_and_repeats(name, ns):
+    """K1 against its plain version at every shape class, in float64
+    (1e-12) and float32 (1e-5), in each mode the class takes; two calls
+    are bitwise equal. 600 supernodes take the small levels' plans (the
+    blocks split over lanes), 6000 the large sites' (two rows per lane);
+    padded slots, short vectors and short outputs are in every case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+
+    g, rs, cs, xs, ys = K1_CASES[name]
+    kg = 9
+    rng = np.random.default_rng(11)
+    kernels.reset_counts()
+    n_calls = 0
+    for dt, tol in ((torch.float64, RTOL), (torch.float32, 1e-5)):
+        def dev(a):
+            return torch.as_tensor(a, dtype=dt, device="cuda")
+
+        A = dev(rng.standard_normal((ns, kg, g, g)))[:, :, rs, cs]
+        R, C = A.shape[2], A.shape[3]
+        c = rng.integers(0, ns, (ns, kg))
+        c[:, -2:] = ns
+        cols = torch.as_tensor(c, dtype=torch.int32, device="cuda")
+        xsplit = None if xs is None else (ns * xs - 5, xs)
+        ysplit = None if ys is None else (ns * ys - 5, ys)
+        m = ns * C - 7 if xs is None else ns * C - 12
+        n_out = ns * R - 7 if ys is None else ns * R - 12
+        square = xs is None and ys is None and R == C
+        if square:
+            m = n_out
+        x, b = dev(rng.standard_normal(m)), dev(rng.standard_normal(n_out))
+        d = dev(1.0 + rng.random(n_out))
+        for mode in ("y", "residual", "jacobi") if square else ("y",):
+            kw = dict(mode=mode, b=b, d=d, omega=0.67, x_split=xsplit,
+                      y_split=ysplit)
+            got = sup_spmv(A, cols, x, n_out, **kw)
+            again = sup_spmv(A, cols, x, n_out, **kw)
+            ref = sup_spmv_plain(A, cols, x, n_out, **kw)
+            n_calls += 2
+            _close_tol(got, ref, tol)
+            assert torch.equal(got, again)
+    torch.cuda.synchronize()
+    assert kernels.counts()["sup_spmv"] == n_calls
+
+
+def _close_tol(got, ref, tol):
+    err = float((got - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), err
+
+
+def test_apply_is_one_device_kernel(sc):
+    """NodeBSR.apply_element_matrices issues exactly one device kernel,
+    K1: no fill, copy or concatenation around it (torch.profiler)."""
+    from cfdtpu_torch.utils.cudatime import device_kernels
+
+    s = sc.solver
+    nb = s._nodebsr
+    u, up, p = _state(s, seed=4)
+    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
+    v = s.tensor(np.random.default_rng(4).standard_normal(
+        nb.n_u_flat + nb.n_nodes))
+    names = device_kernels(lambda: nb.apply_element_matrices(vals, (), v))
+    assert len(names) == 1 and "sup_spmv" in names[0], names
 
 
 def test_residual_bitwise_repeatable():
