@@ -2,7 +2,10 @@
 
     python -m cfdtpu_torch simulate --simulation dfg_1 \\
         --solver stabilized_schur --T 0.1 --dt 0.05 --name run \\
-        --res_scale 0.3 --device cuda [--key value ...]
+        --res_scale 0.3 [--device cpu] [--key value ...]
+
+It runs on the CUDA card unless --device cpu is given; with no card and
+no --device it prints the error and exits with 1.
 
 Unknown --key value pairs are literal-eval'd and forwarded through
 Simulation -> Scenario -> Solver constructors, each layer keeping only
@@ -102,9 +105,9 @@ _SIMULATE_FLAGS = [
     ("--p_grade", dict(type=int, default=None,
                        help="Polynomial degree for velocity and pressure "
                             "spaces (default: 1)")),
-    ("--device", dict(default="cpu",
-                      help="torch device: cpu or cuda (cuda without a "
-                           "card is an error)")),
+    ("--device", dict(default="cuda",
+                      help="torch device: cuda (the default; without a "
+                           "card it is an error) or cpu")),
 ]
 
 

@@ -42,8 +42,8 @@ SIGNATURES = {
     "cfd_sup_spmv": [P, I64, I64, I64, P, I32, I32, I32, I32, P, I64, I32,
                      I32, P, I64, I32, P, I64, I32, I64, I32, P, P, F64,
                      I32, I32, I32, I32, I32, I32, P],
-    # src, idx, out, n_in, n_out, K, F, is_f64, stream
-    "cfd_ell_sum": [P, P, P, I64, I64, I64, I64, I32, P],
+    # src, row_ptr, pos, out, n_out, F, G, loads, is_f64, stream
+    "cfd_ell_sum": [P, P, P, P, I64, I64, I32, I32, I32, P],
     # u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
     # rho, mu, dt, f0, f1, eps, ru_e, rp_e, is_f64, stream
     "cfd_ns_cell_residual_p1": [P, P, P, P, P, P, P, P, P, I64, I64,
@@ -53,8 +53,10 @@ SIGNATURES = {
     "cfd_selfp_triple": [P, P, P, P, P, P, I64, I64, I32, P],
     # x, vals, idx, y, P, L, K, is_f64, stream
     "cfd_patch_spmv": [P, P, P, P, I64, I64, I64, I32, P],
-    # inv, x, win, base, out, n, d, s, o, w, n_sub, is_f64, stream
-    "cfd_ras_apply": [P, P, P, P, P, I64, I64, I64, I64, I64, I64, I32, P],
+    # inv, x, base, out, n, d, s, o, per_block, blocks, bulk, is_f64, stream
+    "cfd_ras_apply": [P, P, P, P, I64, I64, I64, I64, I64, I64, I32, I32, P],
+    # stream (csrc/empty.cu: the launch floor, not a kernel of the port)
+    "cfd_empty": [P],
 }
 
 _lib = None

@@ -9,8 +9,10 @@ Sarkis' restricted variant).
 
 The window maps are built in numpy exactly as in cfdtpu. The placement
 of the blocks into the windows and the batched inverse are plain torch
-(torch.linalg.inv; cfdtpu calls jnp.linalg.inv). The apply is kernel K6
-(kernels/ras_apply.py).
+(torch.linalg.inv; cfdtpu calls jnp.linalg.inv). Only the owned rows of
+each inverse are kept, (n_sub, s*d, m) contiguous: the apply reads no
+other row. The apply is kernel K6 (kernels/ras_apply.py); the windows
+are contiguous node ranges, so it needs no gather map.
 """
 
 from __future__ import annotations
@@ -110,12 +112,10 @@ class RASPrecond:
         self._src = torch.as_tensor(kept % (len(row) * d * d),
                                     device=device)
 
-        # gather index (n_sub, w) with an n-sentinel for padding nodes,
-        # and the per-row validity (padding rows become identity)
+        # per-row validity of the window nodes (padding rows become
+        # identity)
         win = (np.arange(n_sub)[:, None] * s - o + np.arange(w)[None, :])
         invalid = (win < 0) | (win >= n)
-        win = np.where(invalid, n, win)
-        self._win = torch.as_tensor(win.astype(np.int32), device=device)
         inv_rows = np.repeat(invalid, d, axis=1)  # (n_sub, m)
         self._eye_add = torch.as_tensor(inv_rows.astype(np.float32),
                                         device=device)
@@ -124,7 +124,8 @@ class RASPrecond:
     def build(self, uu_vals):
         """uu_vals: (nnz, d, d) masked velocity blocks aligned with the
         (row, col) graph (NodeBSR.uu_vals: Dirichlet rows/cols zeroed,
-        identity diagonal). Returns the window inverses (n_sub, m, m)."""
+        identity diagonal). Returns the owned rows of the window inverses,
+        (n_sub, s*d, m): rows o*d .. (o+s)*d of cfdtpu's (n_sub, m, m)."""
         m = self.m
         A = place(self._dst, uu_vals.reshape(-1)[self._src], self._total,
                   (self.n_sub, m, m))
@@ -132,13 +133,13 @@ class RASPrecond:
         eye = self._eye_add.to(A.dtype)
         A = A + eye[:, :, None] * torch.eye(m, dtype=A.dtype,
                                             device=A.device)[None]
-        # row-major for K6 (the batched inverse may come back with each
-        # matrix stored column-major)
-        return torch.linalg.inv(A).contiguous()
+        # the owned rows, row-major for K6 (the batched inverse may come
+        # back with each matrix stored column-major)
+        o, sd = self.o * self.d, self.s * self.d
+        return torch.linalg.inv(A)[:, o:o + sd, :].contiguous()
 
     # -- apply ------------------------------------------------------------
     def apply(self, inv, x, base=None):
         """x: (n*d,) flat velocity vector -> RAS-preconditioned vector
         (plus `base` when given: the smoother's x + RAS(r))."""
-        return ras_apply(inv, x, self._win, self.s, self.o, self.d,
-                         base=base)
+        return ras_apply(inv, x, self.s, self.o, self.d, base=base)

@@ -8,8 +8,9 @@ Post-processing writes drag_lift.txt (c_D = 500 F_D, c_L = 500 F_L),
 drag_lift_reaction.txt and pressure_diff.txt from probes at
 (0.15, 0.2) / (0.25, 0.2).
 
-`device` selects where the solver runs; dtype="auto" resolves to
-float32 on CUDA and float64 on the CPU.
+`device` selects where the solver runs: the CUDA card by default
+(no card is an error), device="cpu" for the CPU. dtype="auto" resolves
+to float32 on CUDA and float64 on the CPU.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ class DFG1Benchmark(Scenario):
         res_min=None,
         res_max=None,
         dtype="auto",
-        device="cpu",
+        device=None,
         **solver_kwargs,
     ):
         self._mesh = None

@@ -3,8 +3,9 @@
 The counterpart of cfdtpu/solvers/base.py: holds the dt/rho/mu/f
 constants, the velocity/pressure spaces V/Q, the state tensors
 u_sol/p_sol/u_prev/p_prev and the residuals, and the wall-shear-stress
-output. State lives as torch tensors on `device`, in `dtype` (the
-mesh's dtype unless given).
+output. State lives as torch tensors on `device` (the CUDA card unless the
+caller passes device="cpu"), in `dtype` (the mesh's dtype unless
+given).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class SolverBase(ABC):
         mu: float,
         f,
         initial_velocity: Callable | None = None,
-        device="cpu",
+        device=None,
         dtype=None,
     ):
         self.mesh = mesh

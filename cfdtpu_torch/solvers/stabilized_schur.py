@@ -80,7 +80,7 @@ class Solver(SolverBase):
         pc_lag_steps: int = 1,
         stats_every: int = 1,
         supernode_g: int = 4,
-        device="cpu",
+        device=None,
         dtype=None,
         **kwargs,
     ):

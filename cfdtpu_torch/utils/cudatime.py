@@ -8,21 +8,44 @@ import time
 
 import torch
 
+# bytes written between timed calls by cuda_ms(flush_l2=True): more than
+# twice an H100's 50 MB L2, so the call finds none of its inputs there
+FLUSH_BYTES = 128 * 2**20
 
-def cuda_ms(fn, n: int = 25, warmup: int = 3) -> float:
+
+def _flush(buf) -> None:
+    """Write the buffer, then read back its first half: the L2 ends up
+    holding clean lines of the buffer, as it holds clean operator values
+    in the solver, and the timed call pays no write-back of the
+    buffer's dirty lines."""
+    buf.fill_(1)
+    buf[: buf.numel() // 2].sum()
+
+
+def cuda_ms(fn, n: int = 25, warmup: int = 3, flush_l2: bool = False
+            ) -> float:
     """Median device milliseconds of one fn() call over n calls.
 
     Each call is bracketed by CUDA events. The device is first held busy
     (torch.cuda._sleep) for longer than the host needs to queue all n
     calls, so the events see only device execution, not the host-side
-    dispatch of the Python wrapper."""
+    dispatch of the Python wrapper. With flush_l2, a FLUSH_BYTES buffer
+    is written (and half of it read back, _flush) before each call,
+    outside its events, so the call reads its inputs from device memory
+    (cold L2), as it does in the solver when a larger operator stream
+    runs between two of its calls."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_ms measures a CUDA card; none is available")
+    # allocated per call, so that no later peak-memory reading holds it
+    buf = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+           if flush_l2 else None)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
+    if flush_l2:
+        _flush(buf)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     # ~2e9 cycles per second at H100 clocks; 3x margin over the enqueue
@@ -30,6 +53,8 @@ def cuda_ms(fn, n: int = 25, warmup: int = 3) -> float:
     evs = []
     torch.cuda._sleep(cycles)
     for _ in range(n):
+        if flush_l2:
+            _flush(buf)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -38,6 +63,22 @@ def cuda_ms(fn, n: int = 25, warmup: int = 3) -> float:
         evs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def empty_ms(n: int = 25) -> float:
+    """cuda_ms of an empty kernel launched through the kernel library's
+    C interface, as the port's kernels are: the floor that a small call
+    site can approach."""
+    from ..kernels._build import check, library
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("empty_ms measures a CUDA card; none is available")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        check(library().cfd_empty(stream), "empty")
+
+    return cuda_ms(launch, n=n)
 
 
 def device_kernels(fn) -> list[str]:
@@ -59,3 +100,30 @@ def device_kernels(fn) -> list[str]:
     return [e.name for e in sorted(prof.events(),
                                    key=lambda e: e.time_range.start)
             if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, n: int = 20, tries: int = 3) -> float | None:
+    """Device milliseconds of one fn() call, from torch.profiler's CUDA
+    trace: the summed durations of the device activities that n calls
+    issue, over n. Unlike cuda_ms it leaves out the launch and the
+    events around it (the empty kernel's cuda_ms), and sees the L2 warm
+    from the calls before. A trace whose activities are no positive
+    multiple of n has lost some (the profiler can drop records of a
+    short trace): it is taken again, up to `tries` times, then None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms traces a CUDA card; none is available")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        if us and len(us) % n == 0:
+            return sum(us) / 1e3 / n
+    return None

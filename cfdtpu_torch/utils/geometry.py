@@ -4,9 +4,9 @@ det_and_inv: explicit cofactor formulas for the 1x1/2x2/3x3 element
 Jacobians (as cfdtpu/utils/geometry.py), written with torch.stack so
 torch.func can vmap and differentiate through them.
 
-SortedScatter: cfdtpu's ELL index build (an (n_out, K) layout of source
-positions, padded with n_in); the reduction is kernel K2
-(kernels/ell_sum.py).
+SortedScatter: cfdtpu's sorted scatter, kept in CSR form (destination
+offsets and source positions in sorted order); the reduction is kernel
+K2 (kernels/ell_sum.py).
 """
 
 from __future__ import annotations
@@ -67,14 +67,16 @@ def det_and_inv(J):
 
 
 class SortedScatter:
-    """Scatter-add of contributions into n_out destinations, laid out as
-    an ELL gather (n_out, K) into the source and reduced over K by
+    """Scatter-add of contributions into n_out destinations, reduced by
     kernel K2 — deterministic, no atomics.
 
-    The ELL index build is cfdtpu's (utils/geometry.py SortedScatter).
-    cfdtpu switches to a sorted segment_sum above K = 32 contributions
-    per destination; K2 takes any K, so the port keeps the ELL layout
-    for every K (the AMG coarse entries gather up to ~250).
+    The layout is CSR: `row_ptr` (n_out + 1) offsets into `pos`, the
+    source positions sorted by destination (cfdtpu's stable argsort in
+    utils/geometry.py SortedScatter), so no slot is padded. cfdtpu pads
+    each destination to K slots (an ELL gather, `ell_idx`) and switches
+    to a sorted segment_sum above K = 32; both sum the same
+    contributions, and K2 takes any K (the AMG coarse entries gather up
+    to ~250).
     """
 
     def __init__(self, index_array, n_out: int, device="cpu"):
@@ -87,34 +89,36 @@ class SortedScatter:
         def _build():
             perm = np.argsort(flat, kind="stable")
             cnt = np.bincount(flat, minlength=n_out)
-            K = int(cnt.max()) if len(cnt) else 1
-            starts = np.cumsum(cnt) - cnt
-            slot = np.empty(self.n_in, dtype=np.int64)
-            slot[perm] = (
-                flat[perm] * K
-                + (np.arange(self.n_in) - np.repeat(starts, cnt))
-            )
-            idx = np.full(n_out * K, self.n_in, dtype=np.int64)
-            idx[slot] = np.arange(self.n_in)
             return {
-                "K": np.int64(K),
-                "ell_idx": idx.reshape(n_out, K).astype(np.int32),
+                "K": np.int64(cnt.max() if len(cnt) else 1),
+                "row_ptr": np.concatenate([[0], np.cumsum(cnt)])
+                .astype(np.int32),
+                "pos": perm.astype(np.int32),
             }
 
-        # the sort/slot construction is a pure function of (flat, n_out):
-        # disk-cached for large maps (small ones rebuild faster than they
-        # hash). Its own cache family: above K = 32 cfdtpu caches another
-        # layout under "scatter".
+        # the sort is a pure function of (flat, n_out): disk-cached for
+        # large maps (small ones rebuild faster than they hash), in a
+        # cache family of its own (cfdtpu caches other layouts under
+        # "scatter")
         if flat.size >= (1 << 20):
-            got = cached_arrays("scatter_ell", (flat, n_out), _build)
+            got = cached_arrays("scatter_csr", (flat, n_out), _build)
         else:
             got = _build()
         self.K = int(got["K"])
-        self.ell_idx = torch.as_tensor(got["ell_idx"], device=device)
+        self.row_ptr = torch.as_tensor(got["row_ptr"], device=device)
+        self.pos = torch.as_tensor(got["pos"], device=device)
+
+    @property
+    def ell_idx(self):
+        """cfdtpu's padded (n_out, K) ELL index of this scatter (n_in
+        marks a padded slot), built from the CSR layout on demand."""
+        from ..kernels.ell_sum import ell_index
+
+        return ell_index(self.row_ptr, self.pos, self.n_in, self.K)
 
     def __call__(self, vals_flat):
         """vals_flat: (N, ...) contributions in the index array's
         flattened order; returns (n_out, ...) sums."""
         from ..kernels.ell_sum import ell_sum
 
-        return ell_sum(vals_flat, self.ell_idx)
+        return ell_sum(vals_flat, self.row_ptr, self.pos, self.K)

@@ -17,12 +17,25 @@ Run from the root of a checkout. Phases, each raising on failure:
    block transfers and facet-residual scatter (K2), the RAS windows (K6)
    and the gather_micro shapes (K5, beside K1 at width 1):
    ||kernel - plain||_inf <= 1e-5 ||plain||_inf (float32: the sums run
-   in another order), and timed (median device time of 25
-   CUDA-event-timed calls, kernel and plain, host dispatch excluded).
-   The same checks run in float64 at res_scale 1.0 with 1e-12. Every
-   K1 site is also called twice and must be bitwise equal, and prints
-   the bytes it must move (k1_bytes: values of the view, column indices,
-   x, y and the epilogue's b and d), its TB/s and its share of 3.35 TB/s.
+   in another order), and called twice, bitwise equal. Each site is
+   timed (median device time of 25 CUDA-event-timed calls, host
+   dispatch excluded) warm and cold (a 128 MiB buffer written before
+   each call, outside its events, so the L2 holds none of its inputs):
+   the kernel, its plain version and its library yardstick, one
+   PyTorch call computing the same function that the port never calls
+   (K1: torch.sparse_bsr_tensor @ x over the same blocks, CSR over
+   the same entries where the blocks are not square or 1 x 1; K2:
+   index_add_; K5: a CSR sparse product; K6: torch.bmm of the owned
+   inverse rows with pre-gathered windows, the gather left out; K3 and
+   K4: none); and the kernel's and the yardstick's device time alone
+   (utils/cudatime.device_ms: torch.profiler's trace of 20 warm calls,
+   without the launch that the event-timed times carry). Each site
+   prints its bound: the bytes it must move and the operations it does
+   (the *_bytes functions, K3_OPS_PER_POINT), over 3.35 TB/s and 67
+   TFLOP/s, the larger of the two, and its share of the cold time. An
+   empty kernel, launched the same way, is timed first as the floor of
+   the small sites. The same checks run in float64 at res_scale 1.0
+   with 1e-12, untimed.
    Then, under torch.profiler, each operator apply the solver calls
    (NodeBSR.apply_element_matrices, apply_sub_block, apply_p_coupled,
    AMG._matvec, BlockAMG._matvec_block) must issue one device kernel, K1.
@@ -33,10 +46,11 @@ Run from the root of a checkout. Phases, each raising on failure:
    pc_inner_u=0, pc_inner_p=5, RAS windows of 32 with overlap 4, chord
    Newton, pc_lag_steps=4, stats_every=4, ksp_restart=20, dt=0.05),
    steps 1-6 warm-up and 7-10 measured, with the launch counters reset
-   just before; steps 11-14 run under torch.profiler (K1's device time
-   and calls, cudaLaunchKernel and cudaMemcpyAsync calls, the card's
-   idle share). Every step must converge with a finite state, no linear
-   solve may hit ksp_max_it, and K1, K2, K3, K4 and K6 must have
+   just before; steps 11-14 run under torch.profiler (each port
+   kernel's calls and device ms, the largest other device activities,
+   cudaLaunchKernel and cudaMemcpyAsync calls, the card's idle share).
+   Every step must converge with a finite state, no linear solve may
+   hit ksp_max_it, and K1, K2, K3, K4 and K6 must have
    launched in steps 1-10.
 6. the amg_p slice (the solver's default inner method): 8 float32 steps
    from rest, steps 5-8 measured, the same checks for K1-K4.
@@ -50,10 +64,14 @@ Run from the root of a checkout. Phases, each raising on failure:
    version; it launches K5.
 9. CLI: `python -m cfdtpu_torch simulate ... --device cuda` exits 0 and
    writes simulation_params.txt, norms.txt and v.pvd, with the default
-   inner method and with the rasamg_sup flags.
+   inner method and with the rasamg_sup flags; and the rasamg_sup run
+   once more without --device, which must take the card.
 
-The second-to-last line is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}.
+The second-to-last line is {"kernels": [...]} (per kernel at its
+headline site: launches on path A or B, max_abs_err, the cold ms,
+plain_ms and library_ms, bound_ms and bound_by, the warm ms, the
+device time alone, and its calls and device ms in the profiled window),
+the last {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -158,15 +176,20 @@ def bc_mask_u(torch, np, s):
 
 
 def kernel_sites(torch, np, sc, seed=0):
-    """(kernel name, site label, kernel call, plain call) at the shapes
-    the two paths give each kernel. `sc` runs the rasamg_sup solver,
-    whose node-BSR holds both the SELFP AMG and the velocity BlockAMG
-    with its RAS windows."""
-    from cfdtpu_torch.kernels.ell_sum import ell_sum, ell_sum_plain
+    """One dict per kernel call site at the shapes the two paths give
+    each kernel: name, label, kern and plain (the kernel's wrapper and
+    its plain version on the same inputs), bytes and flops (what the call
+    must move and compute, from its shapes: the *_BYTES functions below),
+    and lib, one PyTorch call computing the same function (the library
+    yardstick; None where no single call does), which the port never
+    calls. `sc` runs the rasamg_sup solver, whose node-BSR holds both the
+    SELFP AMG and the velocity BlockAMG with its RAS windows."""
+    from cfdtpu_torch.kernels.ell_sum import ell_plan, ell_sum, ell_sum_plain
     from cfdtpu_torch.kernels.ns_cell_residual import (
         ns_cell_residual_p1, ns_cell_residual_plain)
     from cfdtpu_torch.kernels.patch_spmv import patch_spmv, patch_spmv_plain
-    from cfdtpu_torch.kernels.ras_apply import ras_apply, ras_apply_plain
+    from cfdtpu_torch.kernels.ras_apply import (ras_apply, ras_apply_plain,
+                                                ras_plan, ras_windows)
     from cfdtpu_torch.kernels.selfp_triple import (selfp_triple,
                                                    selfp_triple_plain)
     from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
@@ -189,8 +212,9 @@ def kernel_sites(torch, np, sc, seed=0):
     n_bad = int((~torch.isfinite(ras_inv)).reshape(ras.n_sub, -1)
                 .any(dim=1).sum())
     log(f"[kernels] RAS: {ras.n_sub} windows of m={ras.m} (s={ras.s}, "
-        f"o={ras.o}), n_cand={ras._n_cand}, {len(ras._dst)} placed "
-        f"values; windows with a non-finite inverse: {n_bad}")
+        f"o={ras.o}), owned rows kept {tuple(ras_inv.shape)}, "
+        f"n_cand={ras._n_cand}, {len(ras._dst)} placed values; windows "
+        f"with a non-finite inverse: {n_bad}")
     require(n_bad == 0, f"{n_bad} RAS window inverses are not finite")
     log(f"[kernels] BlockAMG levels (nodes): "
         f"{[m.n for m, _ in bamg.sup]}; layouts (ns, Kg, g*d, g*d): "
@@ -199,14 +223,42 @@ def kernel_sites(torch, np, sc, seed=0):
 
     sites = []
 
+    def add(name, label, kern, plain, nbytes, flops, lib=None):
+        sites.append(dict(name=name, label=label, kern=kern, plain=plain,
+                          bytes=nbytes, flops=flops, lib=lib))
+
     def k1(label, A, cols, x, n_out, **kw):
-        """A K1 site: kernel and plain version on the same flat operands,
-        and the bytes the call must move (K1_BYTES)."""
-        nbytes = k1_bytes(A, x, n_out, kw.get("mode", "y"))
-        sites.append(("sup_spmv", label,
-                      lambda: sup_spmv(A, cols, x, n_out, **kw),
-                      lambda: sup_spmv_plain(A, cols, x, n_out, **kw),
-                      nbytes))
+        """A K1 site: kernel and plain version on the same flat operands;
+        yardstick torch.sparse_bsr_tensor(...) @ x over the same blocks
+        (the padded slots point at one extra zero block column), or, for
+        the views with blocks that are not square and for 1 x 1 blocks,
+        which BSR products refuse, torch.sparse_csr_tensor(...) @ x over
+        the same entries."""
+        ns, Kg, R, C = A.shape
+
+        def lib():
+            dev = A.device
+            xd = torch.ones((ns + 1) * C, dtype=A.dtype, device=dev)
+            if R == C > 1:
+                mat = torch.sparse_bsr_tensor(
+                    torch.arange(0, ns * Kg + 1, Kg, device=dev),
+                    cols.reshape(-1).long(),
+                    A.reshape(ns * Kg, R, C).contiguous(),
+                    size=(ns * R, (ns + 1) * C))
+            else:
+                ccol = (cols.long()[:, None, :, None] * C
+                        + torch.arange(C, device=dev)).expand(ns, R, Kg, C)
+                mat = torch.sparse_csr_tensor(
+                    torch.arange(0, ns * R * Kg * C + 1, Kg * C, device=dev),
+                    ccol.reshape(-1),
+                    A.permute(0, 2, 1, 3).reshape(-1).contiguous(),
+                    size=(ns * R, (ns + 1) * C))
+            return lambda: mat @ xd
+
+        add("sup_spmv", label, lambda: sup_spmv(A, cols, x, n_out, **kw),
+            lambda: sup_spmv_plain(A, cols, x, n_out, **kw),
+            k1_bytes(A, x, n_out, kw.get("mode", "y")),
+            2 * ns * Kg * R * C, lib)
 
     cols = nb._sup.sup_cols
     gd = nb.g * nb.dim
@@ -236,12 +288,28 @@ def kernel_sites(torch, np, sc, seed=0):
     k1_levels("block-amg", blevels, bamg.sup, bamg.omega)
 
     def k2(label, scat, shape):
+        """A K2 site; yardstick zeros.index_add_(0, dst, src) with dst
+        the scatter's destination of each source row."""
         src = rand(scat.n_in, *shape)
-        idx = scat.ell_idx
+        rp, pos, K = scat.row_ptr, scat.pos, scat.K
+        F = int(np.prod(shape)) if shape else 1
+        cnt = (rp[1:] - rp[:-1]).long()
         log(f"[kernels] {label}: src {tuple(src.shape)} -> {scat.n_out} "
-            f"rows, K={scat.K}")
-        sites.append(("ell_sum", label, lambda: ell_sum(src, idx),
-                      lambda: ell_sum_plain(src, idx), None))
+            f"rows, mean {scat.n_in / max(scat.n_out, 1):.2f} and largest "
+            f"{K} contributions, (lanes per output, loads per round) "
+            f"{ell_plan(scat.n_out, F, scat.n_in, K)}")
+
+        def lib():
+            dst = torch.empty(scat.n_in, dtype=torch.long, device=src.device)
+            dst[pos.long()] = torch.repeat_interleave(
+                torch.arange(scat.n_out, device=src.device), cnt)
+            buf = torch.zeros((scat.n_out,) + tuple(shape), dtype=src.dtype,
+                              device=src.device)
+            return lambda: buf.index_add_(0, dst, src)
+
+        add("ell_sum", label, lambda: ell_sum(src, rp, pos, K),
+            lambda: ell_sum_plain(src, rp, pos, K),
+            k2_bytes(src, rp, pos), scat.n_in * F, lib)
 
     k2("K2 residual u", f._scatter_u, (2,))
     k2("K2 residual p", f._scatter_p, ())
@@ -257,36 +325,72 @@ def kernel_sites(torch, np, sc, seed=0):
 
     args = (u, up, p, f.dofmap_u, f.dofmap_p, f.cell_coords, f.cell_h,
             f.tabs, prm["rho"], prm["mu"], prm["dt"], prm["f"], f.eps)
-    sites.append(("ns_cell_residual_p1", "K3 cell residual",
-                  lambda: ns_cell_residual_p1(*args),
-                  lambda: ns_cell_residual_plain(*args), None))
+    ru_e, rp_e = ns_cell_residual_p1(*args)
+    add("ns_cell_residual_p1", "K3 cell residual",
+        lambda: ns_cell_residual_p1(*args),
+        lambda: ns_cell_residual_plain(*args),
+        k3_bytes(args[:8], (ru_e, rp_e)),
+        K3_OPS_PER_POINT * f.cell_h.shape[0] * f.tabs.qw.shape[0])
     inv = rand(nb.n_nodes, nb.dim)
     coo_v = vals["coo"]
     sargs = (coo_v, nb._sp_e1, nb._sp_e2, nb._sp_K, inv)
-    sites.append(("selfp_triple", "K4 selfp triples",
-                  lambda: selfp_triple(*sargs),
-                  lambda: selfp_triple_plain(*sargs), None))
+    add("selfp_triple", "K4 selfp triples", lambda: selfp_triple(*sargs),
+        lambda: selfp_triple_plain(*sargs), k4_bytes(*sargs),
+        3 * nb.dim * nb._sp_e1.shape[0])
 
     for P, K in gather_micro.PATCH_SHAPES:
         xp, vp, ip = (t.to(s.dtype) if t.is_floating_point() else t
                       for t in gather_micro.patch_inputs(P, K, s.device))
-        sites.append(("patch_spmv", f"K5 patch P={P} K={K}",
-                      lambda a=(xp, vp, ip): patch_spmv(*a),
-                      lambda a=(xp, vp, ip): patch_spmv_plain(*a), None))
+
+        def lib(xp=xp, vp=vp, ip=ip):
+            Pp, L, Kp = vp.shape
+            col = (torch.arange(Pp, device=ip.device)[:, None, None] * L
+                   + ip.long()).reshape(-1)
+            csr = torch.sparse_csr_tensor(
+                torch.arange(0, Pp * L * Kp + 1, Kp, device=ip.device), col,
+                vp.reshape(-1), size=(Pp * L, Pp * L))
+            xf = xp.reshape(-1)
+            return lambda: csr @ xf
+
+        add("patch_spmv", f"K5 patch P={P} K={K}",
+            lambda a=(xp, vp, ip): patch_spmv(*a),
+            lambda a=(xp, vp, ip): patch_spmv_plain(*a),
+            sum(t.numel() * t.element_size() for t in (xp, vp, ip))
+            + xp.numel() * xp.element_size(), 2 * vp.numel(), lib)
         k1(f"K1 width 1 patch P={P} K={K}",
            *gather_micro.k1_operands(xp, vp, ip), xp.numel())
 
     rx, rb = rand(nb.n_u_flat), rand(nb.n_u_flat)
-    rargs = (ras_inv, rx, ras._win, ras.s, ras.o, ras.d)
-    sites.append(("ras_apply", "K6 ras apply", lambda: ras_apply(*rargs),
-                  lambda: ras_apply_plain(*rargs), None))
-    sites.append(("ras_apply", "K6 ras apply + x",
-                  lambda: ras_apply(*rargs, base=rb),
-                  lambda: ras_apply_plain(*rargs, base=rb), None))
+    rargs = (ras_inv, rx, ras.s, ras.o, ras.d)
+    plan = ras_plan(rx.shape[0], ras.s * ras.d, ras.m,
+                    ras_inv.element_size(), ras_inv.data_ptr(),
+                    torch.cuda.get_device_properties(
+                        rx.device).multi_processor_count)
+    log(f"[kernels] K6 plan (rows per block, blocks, bulk copies): {plan}")
+
+    def lib():
+        xw = ras_windows(rx, ras.n_sub, ras.s, ras.o,
+                         ras.d).contiguous()[:, :, None]
+        return lambda: torch.bmm(ras_inv, xw)
+
+    for label, base in (("K6 ras apply", None), ("K6 ras apply + x", rb)):
+        add("ras_apply", label,
+            lambda b=base: ras_apply(*rargs, base=b),
+            lambda b=base: ras_apply_plain(*rargs, base=b),
+            k6_bytes(ras_inv, rx, base), 2 * ras_inv.numel(), lib)
     return sites
 
 
 HBM_TBPS = 3.35  # an H100 SXM's device memory, TB/s (data sheet)
+FP32_TFLOPS = 67.0  # its float32 rate outside the tensor cores (data sheet)
+# K3's operations per cell and quadrature point, counted from
+# csrc/ns_cell_residual.cu (each add, multiply, division, square root,
+# min and max as one)
+K3_OPS_PER_POINT = 343
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def k1_bytes(A, x, n_out, mode):
@@ -301,18 +405,71 @@ def k1_bytes(A, x, n_out, mode):
             + (1 + epi) * n_out * sz)
 
 
+def k2_bytes(src, row_ptr, pos):
+    """K2: every source row once (pos lists each once), the CSR offsets
+    and positions, and the output."""
+    n_out = row_ptr.shape[0] - 1
+    return (nbytes(src, row_ptr, pos)
+            + n_out * (src.numel() // max(src.shape[0], 1))
+            * src.element_size())
+
+
+def k3_bytes(inputs, outputs):
+    """K3: u, u_prev, p, the dofmaps, cell coordinates and sizes, the
+    basis tables, and the element residuals once each."""
+    u, up, p, dmu, dmp, coords, h, tabs = inputs
+    return nbytes(u, up, p, dmu, dmp, coords, h, tabs.qw, tabs.phi_u,
+                  tabs.dphi_u, *outputs)
+
+
+def k4_bytes(vals, e1, e2, kcol, inv):
+    """K4: the 2d values of each node block that the product reads (row d
+    and column d, not the uu part), the three index arrays, the inverse
+    diagonal and the output."""
+    d = inv.shape[1]
+    return (vals.shape[0] * 2 * d * vals.element_size()
+            + nbytes(e1, e2, kcol, inv) + e1.shape[0] * vals.element_size())
+
+
+def k6_bytes(inv, x, base):
+    """K6: the owned inverse rows, x, the output and (mode 1) base."""
+    return nbytes(inv, x, base) + nbytes(x)
+
+
+def bound_ms(n_bytes, flops):
+    """(least time in ms, "bytes" or "operations"): bytes at HBM_TBPS,
+    operations at FP32_TFLOPS, the larger of the two."""
+    tb = n_bytes / (HBM_TBPS * 1e12) * 1e3
+    to = flops / (FP32_TFLOPS * 1e12) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def flat_outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
 
 def phase_kernels(torch, np, sc, tol, timed):
-    """Compare every kernel site with its plain version, and each K1 site
-    with a second call of itself (bitwise); returns {site: (kernel name,
-    max_abs_err, ms, plain_ms, bytes)}."""
-    from cfdtpu_torch.utils.cudatime import cuda_ms
+    """Compare every kernel site with its plain version, and with a
+    second call of itself (bitwise). With `timed`, time the kernel, the
+    plain version and the library yardstick with a warm L2 and with the
+    L2 flushed before each call (cuda_ms(flush_l2=True)); returns
+    {site: row dict}."""
+    from cfdtpu_torch.utils.cudatime import cuda_ms, device_ms
+
+    def both(fn):
+        if not timed or fn is None:
+            return None, None
+        return cuda_ms(fn), cuda_ms(fn, flush_l2=True)
+
+    def dev(fn):
+        return None if not timed or fn is None else device_ms(fn)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
 
     rows = {}
-    for name, label, kern, plain, nbytes in kernel_sites(torch, np, sc):
+    for st in kernel_sites(torch, np, sc):
+        label, kern, plain = st["label"], st["kern"], st["plain"]
         got, ref = flat_outputs(kern()), flat_outputs(plain())
         torch.cuda.synchronize()
         err = 0.0
@@ -325,21 +482,47 @@ def phase_kernels(torch, np, sc, tol, timed):
                     f"{label}: |kernel - plain|_inf {e:.3e} > "
                     f"{tol:g} * {scale:.3e}")
             err = max(err, e)
-        if name == "sup_spmv":
-            again = flat_outputs(kern())
-            require(all(torch.equal(g, a) for g, a in zip(got, again)),
-                    f"{label}: two calls are not bitwise equal")
-        ms = cuda_ms(kern) if timed else float("nan")
-        pms = cuda_ms(plain) if timed else float("nan")
-        rows[label] = (name, err, ms, pms, nbytes)
-        rate = ""
-        if nbytes is not None:
-            tbps = nbytes / (ms * 1e-3) / 1e12 if timed else float("nan")
-            rate = (f"  {nbytes / 1e6:.2f} MB {tbps:.3f} TB/s "
-                    f"{100 * tbps / HBM_TBPS:.1f}% of {HBM_TBPS} TB/s; "
-                    "two calls bitwise equal")
-        log(f"[kernels] {label:44s} max_abs_err {err:.3e}  "
-            f"kernel {ms:.4f} ms  plain {pms:.4f} ms{rate}")
+        again = flat_outputs(kern())
+        require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                f"{label}: two calls are not bitwise equal")
+        row = dict(name=st["name"], max_abs_err=err, bytes=st["bytes"],
+                   flops=st["flops"])
+        row["bound_ms"], row["bound_by"] = bound_ms(st["bytes"], st["flops"])
+        row["warm_ms"], row["ms"] = both(kern)
+        row["device_ms"] = dev(kern)
+        row["plain_warm_ms"], row["plain_ms"] = both(plain)
+        lib, note = None, ""
+        if timed and st["lib"] is not None:
+            try:
+                lib = st["lib"]()
+                lib()
+                torch.cuda.synchronize()
+            except (RuntimeError, NotImplementedError, TypeError) as e:
+                lib, note = None, f"  library: none ({str(e)[:80]})"
+        row["library_warm_ms"], row["library_ms"] = both(lib)
+        row["library_device_ms"] = dev(lib)
+        rows[label] = row
+        if timed:
+            share = row["bound_ms"] / row["ms"]
+            tbps = st["bytes"] / (row["ms"] * 1e-3) / 1e12
+            lib_s = ("none" if row["library_ms"] is None else
+                     f"{row['library_warm_ms']:.4f}/{row['library_ms']:.4f}"
+                     f" (device {fmt(row['library_device_ms'])})")
+            dev_pct = (None if not row["device_ms"] else
+                       100 * row["bound_ms"] / row["device_ms"])
+            dev_share = ("" if dev_pct is None else
+                         f", bound = {dev_pct:.1f}% of it")
+            log(f"[kernels] {label:44s} err {err:.2e} kernel warm/cold "
+                f"{row['warm_ms']:.4f}/{row['ms']:.4f} ms (device "
+                f"{fmt(row['device_ms'])}{dev_share})  plain "
+                f"{row['plain_warm_ms']:.4f}/{row['plain_ms']:.4f}  library "
+                f"{lib_s}  bound {row['bound_ms']:.4f} ({row['bound_by']}: "
+                f"{st['bytes'] / 1e6:.3f} MB, {st['flops'] / 1e6:.2f} "
+                f"MFLOP) = {100 * share:.1f}% of cold, {tbps:.3f} TB/s; "
+                f"bitwise repeatable{note}")
+        else:
+            log(f"[kernels] {label:44s} max_abs_err {err:.3e}; bitwise "
+                "repeatable")
     return rows
 
 
@@ -444,9 +627,10 @@ def run_steps(sc, out_dir, steps, on_step=None):
 
 class StepProfile:
     """torch.profiler over the steps after `start` (from on_step(start)
-    to on_step(stop)): K1's device time and calls, all device activity,
-    the host's cudaLaunchKernel and cudaMemcpyAsync calls, and the share
-    of the window's wall time in which the card was idle."""
+    to on_step(stop)): each port kernel's calls and device time (matched
+    by its name in COUNTERS), the other device activities' (the largest
+    by name), the host's cudaLaunchKernel and cudaMemcpyAsync calls, and
+    the share of the window's wall time in which the card was idle."""
 
     def __init__(self, start, stop):
         self.start, self.stop = start, stop
@@ -470,21 +654,37 @@ class StepProfile:
     def _read(self, wall):
         from torch.autograd import DeviceType
 
+        from cfdtpu_torch.kernels import COUNTERS
+
         dev, api = [], {"cudaLaunchKernel": 0, "cudaMemcpyAsync": 0}
         for e in self.prof.events():
             if e.device_type == DeviceType.CUDA:
                 dev.append((e.time_range.start, e.time_range.end, e.name))
             elif e.name in api:
                 api[e.name] += 1
-        k1 = [b - a for a, b, n in dev if "sup_spmv" in n]
+        kernels = {name: [0, 0.0] for name in COUNTERS}
+        other = {}
+        for a, b, n in dev:
+            name = next((k for k in COUNTERS if k in n), None)
+            slot = (kernels[name] if name is not None
+                    else other.setdefault(n[:60], [0, 0.0]))
+            slot[0] += 1
+            slot[1] += (b - a) / 1e3
         busy, end = 0.0, float("-inf")  # union of the device intervals
         for a, b, _ in sorted(dev):
             if b > end:
                 busy += b - max(a, end)
                 end = b
+        top = sorted(other.items(), key=lambda kv: -kv[1][1])[:8]
         return {"steps": f"{self.start + 1}-{self.stop}",
-                "profiled_wall_s": wall, "k1_device_ms": sum(k1) / 1e3,
-                "k1_calls": len(k1), "device_busy_ms": busy / 1e3,
+                "profiled_wall_s": wall,
+                "kernels": {k: {"calls": c, "device_ms": t}
+                            for k, (c, t) in kernels.items()},
+                "other_calls": sum(c for c, _ in other.values()),
+                "other_device_ms": sum(t for _, t in other.values()),
+                "other_largest": {k: {"calls": c, "device_ms": t}
+                                  for k, (c, t) in top},
+                "device_busy_ms": busy / 1e3,
                 "device_activities": len(dev),
                 "cudaLaunchKernel": api["cudaLaunchKernel"],
                 "cudaMemcpyAsync": api["cudaMemcpyAsync"],
@@ -534,9 +734,22 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
         f"at step {len(rec)}; peak memory {peak / 2**20:.1f} MiB; launches "
         f"in steps 1-{steps} {launches}")
     if profile_steps:
-        log(f"[{tag}] torch.profiler over steps {prof.result['steps']} "
+        res = prof.result
+        log(f"[{tag}] torch.profiler over steps {res['steps']} "
             f"(Newton/KSP {sum(r[0] for r in rec[steps:])}/"
-            f"{sum(r[1] for r in rec[steps:])}): {prof.result}")
+            f"{sum(r[1] for r in rec[steps:])}): wall "
+            f"{res['profiled_wall_s']:.4f} s, device busy "
+            f"{res['device_busy_ms']:.4f} ms in "
+            f"{res['device_activities']} activities, idle share "
+            f"{res['idle_share']:.4f}, cudaLaunchKernel "
+            f"{res['cudaLaunchKernel']}, cudaMemcpyAsync "
+            f"{res['cudaMemcpyAsync']}")
+        for name, kv in res["kernels"].items():
+            log(f"[{tag}] window kernel {name}: {kv['calls']} calls, "
+                f"{kv['device_ms']:.4f} device ms")
+        log(f"[{tag}] window other device activities: "
+            f"{res['other_calls']} calls, {res['other_device_ms']:.4f} ms; "
+            f"largest {res['other_largest']}")
     require(all(r[4] for r in rec), "a step did not converge")
     u = s.u_sol.cpu().numpy()
     p = s.p_sol.cpu().numpy()
@@ -616,12 +829,15 @@ def phase_gather_micro():
     return got
 
 
-def phase_cli(tmp, name, flags=()):
+def phase_cli(tmp, name, flags=(), device="cuda"):
+    """The CLI as a user runs it; device None leaves out --device, and
+    the run must then take the card by default."""
     out = os.path.join(tmp, f"cli_{name}")
+    dev = [] if device is None else ["--device", device]
     cmd = [sys.executable, "-m", "cfdtpu_torch", "simulate",
            "--simulation", "dfg_1", "--solver", "stabilized_schur",
            "--T", "0.1", "--dt", "0.05", "--res_scale", "1.0",
-           "--device", "cuda", "--output_dir", out, *flags]
+           *dev, "--output_dir", out, *flags]
     env = dict(os.environ, PYTHONPATH=HERE)
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
@@ -633,6 +849,8 @@ def phase_cli(tmp, name, flags=()):
     for fname in ("simulation_params.txt", "norms.txt", "v.pvd"):
         require(os.path.exists(os.path.join(runs[0], fname)),
                 f"CLI did not write {fname}")
+    require("'device': 'cuda'" in res.stdout,
+            f"CLI {name} did not run on the card:\n{tail}")
     log(f"[cli {name}] ok in {time.perf_counter() - t0:.1f} s: "
         + " | ".join(ln for ln in res.stdout.splitlines()
                      if ln.startswith(("Solver converged", "Drag", "Lift",
@@ -671,6 +889,11 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f} s")
         return sc
 
+    from cfdtpu_torch.utils.cudatime import empty_ms
+
+    floor_ms = empty_ms()
+    log(f"[kernels] empty kernel through the library's C interface: "
+        f"{floor_ms:.4f} ms (the floor of a small site)")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sc = scenario(0.3, "float32", 4, RASAMG_KW)
         rows = phase_kernels(torch, np, sc, 1e-5, timed=True)
@@ -695,16 +918,24 @@ def main(argv=None):
         gm = phase_gather_micro()
         phase_cli(tmp, "amg_p")
         phase_cli(tmp, "rasamg_sup", RASAMG_FLAGS)
+        phase_cli(tmp, "rasamg_sup_default_device", RASAMG_FLAGS,
+                  device=None)
 
     launches = {"A": launches_a, "B": gm["launches"]}
+    window = slice_a["profile"]["kernels"]
     entries = []
     for name, (src, replaces, site, path) in SOURCES.items():
-        _, err, ms, pms, _ = rows[site]
+        r = rows[site]
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "site": site, "path": PATHS[path],
-            "launches": launches[path][name], "max_abs_err": err, "ms": ms,
-            "plain_ms": pms,
+            "launches": launches[path][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "warm_ms": r["warm_ms"], "device_ms": r["device_ms"],
+            "window_calls": window[name]["calls"],
+            "window_device_ms": window[name]["device_ms"],
         })
     log(f"[done] chip_smoke command time "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -712,7 +943,8 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
         with open(args.report, "w") as fh:
-            json.dump({"card": smi, "sites": rows, "slice_rasamg_sup": slice_a,
+            json.dump({"card": smi, "empty_kernel_ms": floor_ms,
+                       "sites": rows, "slice_rasamg_sup": slice_a,
                        "slice_amg_p": slice_p, "launches_amg_p": launches_p,
                        "launches": launches, "parity": parity,
                        "determinism": determinism, "gather_micro": gm,

@@ -1,0 +1,94 @@
+"""The port's entry points default to the CUDA card and never fall back
+to the CPU: resolve_device(None), the solver and scenario constructors
+without `device`, and the CLI without --device. On a machine with no
+card (or with the card hidden) each of them raises or exits non-zero
+before any work is done; the CPU runs only when asked for.
+"""
+
+import inspect
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from cfdtpu_torch import kernels
+from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+from cfdtpu_torch.solvers.base import SolverBase
+from cfdtpu_torch.solvers.stabilized_schur import Solver
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_default_is_the_card(no_card, monkeypatch):
+    from cfdtpu_torch.utils import resolve_device, resolve_dtype
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_dtype("auto")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("cls", [SolverBase, Solver, DFG1Benchmark])
+def test_constructor_device_defaults_to_none(cls):
+    assert inspect.signature(cls.__init__).parameters["device"].default \
+        is None
+
+
+def test_scenario_without_device_raises(no_card):
+    kernels.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DFG1Benchmark("stabilized_schur", dt=0.05, T=0.05, res_scale=2.5)
+    assert kernels.counts() == {name: 0 for name in kernels.COUNTERS}
+
+
+def test_cli_default_device_is_cuda():
+    from cfdtpu_torch.__main__ import build_parser
+
+    args, _ = build_parser().parse_known_args(
+        ["simulate", "--simulation", "dfg_1", "--solver",
+         "stabilized_schur", "--T", "0.05", "--dt", "0.05"])
+    assert args.device == "cuda"
+
+
+def test_cli_without_device_exits_nonzero(tmp_path):
+    """`python -m cfdtpu_torch simulate` with no --device and no card
+    (CUDA_VISIBLE_DEVICES empty) exits 1 at construction: no step runs
+    and no run directory is written."""
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "cfdtpu_torch", "simulate",
+           "--simulation", "dfg_1", "--solver", "stabilized_schur",
+           "--T", "0.05", "--dt", "0.05", "--res_scale", "2.5",
+           "--output_dir", str(out)]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0, res.stdout + res.stderr
+    assert "CUDA is not available" in res.stdout + res.stderr
+    assert "Solver converged" not in res.stdout
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("timer", ["cuda_ms", "device_ms", "empty_ms"])
+def test_timers_refuse_a_machine_without_a_card(no_card, timer):
+    """The timers measure the card: with none they raise, and nothing
+    is timed on the CPU in its place."""
+    from cfdtpu_torch.utils import cudatime
+
+    fn = getattr(cudatime, timer)
+    with pytest.raises(RuntimeError, match="none is available"):
+        fn() if timer == "empty_ms" else fn(lambda: None)

@@ -70,10 +70,10 @@ def test_kernels_match_plain_and_count(sc):
                     y_split=split),
            sup_spmv_plain(vals["sup"], cols, v, v.shape[0], x_split=split,
                           y_split=split))
-    src = s.tensor(np.arange(nb._assemble_scatter.n_in * 9.0)
-                   .reshape(-1, 9))
-    idx = nb._assemble_scatter.ell_idx
-    _close(ell_sum(src, idx), ell_sum_plain(src, idx))
+    scat = nb._assemble_scatter
+    src = s.tensor(np.arange(scat.n_in * 9.0).reshape(-1, 9))
+    csr = (scat.row_ptr, scat.pos, scat.K)
+    _close(ell_sum(src, *csr), ell_sum_plain(src, *csr))
     inv = s.tensor(np.ones((nb.n_nodes, 2)))
     sargs = (vals["coo"], nb._sp_e1, nb._sp_e2, nb._sp_K, inv)
     _close(selfp_triple(*sargs), selfp_triple_plain(*sargs))
@@ -129,10 +129,10 @@ def test_new_kernels_match_plain_and_count(sc):
                 (ras.n_sub, ras.m, ras.m)), dtype=dt, device="cuda")
             v = torch.as_tensor(rng.standard_normal(nb.n_u_flat), dtype=dt,
                                 device="cuda")
+            inv = inv[:, ras.o * ras.d:(ras.o + ras.s) * ras.d].contiguous()
             for base in (None, v * 0.5):
-                got = ras_apply(inv, v, ras._win, ras.s, ras.o, ras.d, base)
-                ref = ras_apply_plain(inv, v, ras._win, ras.s, ras.o, ras.d,
-                                      base)
+                got = ras_apply(inv, v, ras.s, ras.o, ras.d, base)
+                ref = ras_apply_plain(inv, v, ras.s, ras.o, ras.d, base)
                 assert float((got - ref).abs().max()) <= tol * float(
                     ref.abs().max())
     torch.cuda.synchronize()
@@ -238,3 +238,120 @@ def test_residual_bitwise_repeatable():
     a = s.form.residual(u, p, (up,), s.params())
     b = s.form.residual(u, p, (up,), s.params())
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _dev_tol(dt):
+    return torch.float64 if dt == "f64" else torch.float32, (
+        RTOL if dt == "f64" else 1e-5)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("n_sub", [1, 37, 1108])
+def test_k6_grid_matches_plain_and_repeats(n_sub, dt):
+    """K6 at the bench's window shape (s=32, o=4, d=2), at an odd one
+    (s=7, o=3: rows of 26 values) and at d=1 (rows of 13), whose rows
+    are no multiple of 16 bytes, so the block copies them with its
+    threads instead of bulk copies; the last window padded (n = n_sub*s
+    - 5 nodes), in both modes: within the tolerance of its plain
+    version, two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.ras_apply import ras_apply, ras_apply_plain
+
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(n_sub)
+    kernels.reset_counts()
+    calls = 0
+    for s, o, d in ((32, 4, 2), (7, 3, 2), (7, 3, 1)):
+        n = max(n_sub * s - 5, 1)
+        m = (s + 2 * o) * d
+
+        def dev(*shape):
+            return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                                   device="cuda")
+
+        inv, x, base = dev(n_sub, s * d, m), dev(n * d), dev(n * d)
+        for b in (None, base):
+            got = ras_apply(inv, x, s, o, d, b)
+            again = ras_apply(inv, x, s, o, d, b)
+            calls += 2
+            _close_tol(got, ras_apply_plain(inv, x, s, o, d, b), tol)
+            assert torch.equal(got, again)
+    torch.cuda.synchronize()
+    assert kernels.counts()["ras_apply"] == calls
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("F", [1, 2, 4])
+@pytest.mark.parametrize("K", [1, 9, 33, 250])
+def test_k2_grid_matches_plain_and_repeats(K, F, dt):
+    """K2 on a random map whose largest row has K contributions (one row
+    of K, the rest 0..min(K, 12), some empty), F features per row: the
+    short-row plan (K <= 16) and the lane-split plans, against the plain
+    version; two calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.ell_sum import ell_sum, ell_sum_plain
+    from cfdtpu_torch.utils.geometry import SortedScatter
+
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(K * 10 + F)
+    n_out = 5000
+    cnt = rng.integers(0, min(K, 12) + 1, n_out)
+    cnt[rng.integers(n_out)] = K
+    flat = rng.permutation(np.repeat(np.arange(n_out), cnt))
+    scat = SortedScatter(flat, n_out, device="cuda")
+    assert scat.K == K
+    src = torch.as_tensor(rng.standard_normal((len(flat),) + (F,) * (F > 1)),
+                          dtype=dtype, device="cuda")
+    kernels.reset_counts()
+    csr = (scat.row_ptr, scat.pos, scat.K)
+    got, again = ell_sum(src, *csr), ell_sum(src, *csr)
+    _close_tol(got, ell_sum_plain(src, *csr), tol)
+    assert torch.equal(got, again)
+    torch.cuda.synchronize()
+    assert kernels.counts()["ell_sum"] == 2
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_k2_k6_call_sites_match_plain_and_repeat(sc, dt):
+    """K2 at every SortedScatter of the rasamg_sup solver (residual u and
+    p, facet, assembly, SELFP, the AMG and block-AMG restricts and
+    coarsens at every level) and K6 on the RAS windows of the bench
+    (s=32, o=4), in both modes: within the tolerance of the plain
+    version, two calls bitwise equal."""
+    from cfdtpu_torch.kernels.ell_sum import ell_sum, ell_sum_plain
+    from cfdtpu_torch.kernels.ras_apply import ras_apply, ras_apply_plain
+
+    dtype, tol = _dev_tol(dt)
+    s = sc.solver
+    f, nb = s.form, s._nodebsr
+    ras = nb.uu_ras(32, 4)
+    amg, bamg = nb.sp_amg(), nb.uu_amg(fine_smoother=ras)
+    scats = [(f._scatter_u, (2,)), (f._scatter_p, ()),
+             (f._facet_blocks[0]["scatter_u"], (2,)),
+             (nb._assemble_scatter, (9,)), (nb._sp_scatter, ())]
+    scats += [(getattr(lv, a), ()) for lv in amg.levels
+              for a in ("_restrict", "_coarsen")]
+    scats += [(lv._restrict, (2,)) for lv in bamg.levels]
+    scats += [(lv._coarsen, (2, 2)) for lv in bamg.levels]
+    rng = np.random.default_rng(5)
+
+    def dev(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device="cuda")
+
+    for scat, shape in scats:
+        src = dev(scat.n_in, *shape)
+        csr = (scat.row_ptr, scat.pos, scat.K)
+        got, again = ell_sum(src, *csr), ell_sum(src, *csr)
+        _close_tol(got, ell_sum_plain(src, *csr), tol)
+        assert torch.equal(got, again)
+    inv = dev(ras.n_sub, ras.s * ras.d, ras.m)
+    x = dev(nb.n_u_flat)
+    for b in (None, x * 0.5):
+        got = ras_apply(inv, x, ras.s, ras.o, ras.d, b)
+        _close_tol(got, ras_apply_plain(inv, x, ras.s, ras.o, ras.d, b), tol)
+        assert torch.equal(got, ras_apply(inv, x, ras.s, ras.o, ras.d, b))

@@ -184,7 +184,7 @@ def test_ell_sum_scatters(case, name):
     rng = np.random.default_rng(11)
     shape = (tsc.n_in,) + ((width,) if width else ())
     vals = rng.standard_normal(shape)
-    got = ell_sum_plain(T(vals), tsc.ell_idx)
+    got = ell_sum_plain(T(vals), tsc.row_ptr, tsc.pos, tsc.K)
     if name == "amg_restrict":
         ref = ja.levels[0].restrict(jnp.asarray(vals))
     elif name == "amg_coarsen":
