@@ -1,139 +1,467 @@
-// K3 ns_cell_residual_p1: fused stabilized Navier-Stokes cell residual.
+// K3: the stabilized Navier-Stokes cell kernel, residual and Jacobian.
 //
 // Replaces the vmapped Crank-Nicolson-midpoint cell kernel of cfdtpu's
-// forms/navier_stokes.py StabilizedNSForm (_make_cell_kernel, as used by
-// residual()): the Galerkin momentum/continuity terms plus SUPG, PSPG and
-// LSIC, with tau taken from u_prev so it stays frozen through the Newton
-// linearisation. P1 triangles only (dim 2, degree 1, no Hessian term):
-// the velocity, pressure and geometry bases are the same P1 basis.
+// forms/navier_stokes.py StabilizedNSForm (_make_cell_kernel), which
+// serves residual() and, through jax.vmap(jax.jacfwd(.)),
+// element_jacobians(): the Galerkin momentum and continuity terms plus
+// SUPG, PSPG and LSIC, with tau taken from u_prev so that it stays
+// frozen through the Newton linearisation. P1 triangles only (dim 2,
+// degree 1, no Hessian term): velocity, pressure and geometry share
+// one P1 basis and one dofmap.
 //
-// One thread per cell: it gathers u, u_prev and p at its three vertices
-// through the dofmap (fusing the gather the jnp version does as a
-// separate pass), loops over the quadrature points, and writes the
-// element residuals ru_e (nc, 3, 2) and rp_e (nc, 3) that ell_sum (K2)
-// then reduces to the nodes.
+// The physics is written once, in cell_body, a template on its number
+// type N. ns_cell_residual_p1 runs it with N = T. ns_cell_jacobian_p1
+// runs it with N = Dual<T, 3>: three lanes a cell, lane j carrying the
+// tangents along u(j, 0), u(j, 1) and p(j), three columns of the (9, 9)
+// block in cfdtpu's flat element layout [u(b, i) row-major, then p(b)].
+// tau and tau_LSIC depend on u_prev alone and stay plain numbers.
 //
-// Bound: launch latency. At 70,095 cells the kernel moves ~10 MB and
-// does a few hundred flops per cell, so it runs in microseconds; what
-// the design saves is the dozens of separate elementwise and einsum
-// launches of the unfused version. The guard t1 = h / max(2|u_prev|, eps)
-// keeps tau finite at rest (|u_prev| = 0), exactly as the jnp kernel.
+// The residual: one lane a cell. At 70,095 cells that is 17 warps a
+// multiprocessor in a single wave, so the kernel's time is the sum of
+// its phases: the launch, two dependent round trips (the dofmap, then
+// nine gathers through it, all in flight together), the arithmetic
+// (bound by instruction issue: 863 operations a lane) and the stores.
+// What the design does about the arithmetic:
+//  - a P1 triangle is affine (dphi is the same at every point: the
+//    host checks it once, CellTabs.create), so the geometry, the
+//    physical gradients and everything that depends on them alone
+//    (grad u, grad p, div u, the viscous stress) leave the point loop;
+//  - the terms that meet grad v (stress, SUPG, LSIC, PSPG) are summed
+//    over the points as a 2 x 2 and a 2-vector and contracted with the
+//    gradients once, after the loop;
+//  - per point no division is left: 1/h and 1/det are taken once a
+//    cell, 1/dt, 4/dt^2, 1/rho and 1/(6 nu) on the host, tau is one
+//    reciprocal square root, and in float32 |u_prev|, 1/h and 1/det
+//    come from the special-function unit (2 ulp; float64 is exact).
+// What it does not do: stage dofmap, coordinates and outputs through
+// shared memory. Measured on an H100 (device time alone), a variant
+// that loaded and stored one (cell, vertex) slot a lane at neighbouring
+// addresses and exchanged them through shared memory took 5.6 us
+// against 4.7 us for the strided accesses below (8-byte vectors, 12 and
+// 24 bytes apart): the L1 absorbs the stride, a lane goes on as soon as
+// its own loads are back instead of waiting at a barrier for its
+// block's, and the staging's instructions cost more than the sectors it
+// saves. Three lanes a cell sharing the points took 7.2 us (two waves
+// of blocks instead of one).
+// The guard max(2|u_prev|, eps) keeps tau finite at rest, as in cfdtpu.
+// A lane sums its points in order: two calls are bitwise equal.
+//
+// The Jacobian writes 81 values a cell (23 MB at 70,095 cells): each
+// block stages its 32 blocks of 81 in shared memory, a lane writing its
+// three columns, and copies them out as one contiguous run of 16-byte
+// stores. The three vertices of a cell are loaded once, one (cell,
+// vertex) slot a lane, and shared by its lanes through shared memory.
+// Three directions a lane share one evaluation of the values among
+// three tangents: measured on an H100, 23.1 us alone against 32.1 us
+// for one direction a lane on nine lanes a cell. Its arithmetic (the
+// body three times a cell, value and three tangents) takes about as
+// long as its bytes.
+//
+// Operations, counted from this file with each add, multiply, min, max,
+// reciprocal and reciprocal square root as one (chip_smoke.py holds the
+// same numbers): the residual, 161 a cell outside the loop (geometry
+// 49, gradients 71, 1/h and the t3 term 5, the contraction 36) and 117
+// a point. The Jacobian needs these values once a cell and, for each of
+// a cell's three lanes, the tangent work that is not structurally zero
+// (of the three tangents of u at a point only one is ever non-zero, p
+// has none along u, and so on down the body): 117 outside the loop
+// (gradients 18, the contraction 99) and 148 a point (u, p at the point
+// 5, the strong residual and inertia 34, the isotropic part 3, S 56, P
+// 12, continuity 2, the sums over the test functions 36). The dual
+// numbers as written do more: every lane takes the values again and
+// every tangent in full (4 operations for a sum of duals or a dual
+// times a plain number, 10 for a product of duals), 398 outside the
+// loop and 405 a point, and the compiler removes what it can prove zero.
 
-#include <cuda_runtime.h>
 #include <cstdint>
+
+#include "element.cuh"
 
 namespace {
 
+constexpr int MAXQ = 16;        // quadrature points held in shared memory
+constexpr int RES_CELLS = 128;  // residual: cells (lanes) a block
+constexpr int JAC_CELLS = 32;   // Jacobian: cells a block, 3 lanes each
+
 template <typename T>
-__global__ void ns_cell_residual_p1_kernel(
+struct CellParams {
+  T rho, irho, mu, idt, f0, f1, eps;
+  T a2sq;    // (2 / dt)^2 = t2^-2
+  T nu4;     // 4 nu: t3^-1 = 4 nu / h^2
+  T inv6nu;  // Re_h / 3 = |u| h / (6 nu)
+};
+
+template <typename T>
+CellParams<T> make_params(double rho, double mu, double dt, double f0,
+                          double f1, double eps) {
+  CellParams<T> q;
+  q.rho = (T)rho;
+  q.irho = (T)(1.0 / rho);
+  q.mu = (T)mu;
+  q.idt = (T)(1.0 / dt);
+  q.f0 = (T)f0;
+  q.f1 = (T)f1;
+  q.eps = (T)eps;
+  q.a2sq = (T)(4.0 / (dt * dt));
+  q.nu4 = (T)(4.0 * mu / rho);
+  q.inv6nu = (T)(rho / (6.0 * mu));
+  return q;
+}
+
+__device__ __forceinline__ float inv_sqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double inv_sqrt(double x) { return 1.0 / sqrt(x); }
+// |v| of a 2-vector from its square s: in float32 by the
+// special-function unit (2 ulp; exact at s = 0), in float64 exactly
+__device__ __forceinline__ float norm_of(float s) {
+  return s * rsqrtf(fmaxf(s, 1e-30f));
+}
+__device__ __forceinline__ double norm_of(double s) { return sqrt(s); }
+
+// the reference tabulations, copied to shared memory by each block
+template <typename T>
+struct Tabs {
+  T phi[MAXQ * 3];
+  T dphi[MAXQ * 6];
+  T qw[MAXQ];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_tabs(Tabs<T>& tb, const T* phi,
+                                          const T* dphi, const T* qw,
+                                          int nq) {
+  for (int i = threadIdx.x; i < nq * 6; i += blockDim.x) {
+    tb.dphi[i] = __ldg(dphi + i);
+    if (i < nq * 3) tb.phi[i] = __ldg(phi + i);
+    if (i < nq) tb.qw[i] = __ldg(qw + i);
+  }
+}
+
+// one vertex of one cell as a lane loads it: u, u_prev, p, X
+constexpr int VERT = 7;
+
+template <typename T>
+__device__ __forceinline__ void load_vertex(
+    int64_t lane, const T* u, const T* uprev, const T* p, const int* dofmap,
+    const T* coords, T* sv) {
+  using V2 = typename Vec2<T>::type;
+  const int64_t n = __ldg(dofmap + lane);
+  const V2 x = __ldg(reinterpret_cast<const V2*>(coords) + lane);
+  const V2 a = __ldg(reinterpret_cast<const V2*>(u) + n);
+  const V2 b = __ldg(reinterpret_cast<const V2*>(uprev) + n);
+  const T c = __ldg(p + n);
+  sv[0] = a.x;
+  sv[1] = a.y;
+  sv[2] = b.x;
+  sv[3] = b.y;
+  sv[4] = c;
+  sv[5] = x.x;
+  sv[6] = x.y;
+}
+
+template <typename T, typename N>
+struct CellState {
+  N ue[3][2];
+  N pe[3];
+  T upe[3][2];
+  T X[3][2];
+  T h;
+};
+
+template <typename T, typename N>
+__device__ __forceinline__ void read_state(const T (*sv)[VERT], T h,
+                                           CellState<T, N>& s) {
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    s.ue[v][0] = Lift<N>::of(sv[v][0]);
+    s.ue[v][1] = Lift<N>::of(sv[v][1]);
+    s.upe[v][0] = sv[v][2];
+    s.upe[v][1] = sv[v][3];
+    s.pe[v] = Lift<N>::of(sv[v][4]);
+    s.X[v][0] = sv[v][5];
+    s.X[v][1] = sv[v][6];
+  }
+  s.h = h;
+}
+
+// what depends on the physical gradients and the cell's dofs alone
+template <typename N>
+struct Grads {
+  N gum[2][2];  // grad of the midpoint velocity, [i][g] = d u_i / d x_g
+  N c[2];       // grad p - rho f
+  N div;
+  N sv[2][2];  // viscous stress mu (grad u + grad u^T)
+};
+
+template <typename T, typename N>
+__device__ __forceinline__ void gradients(const Geom<T>& g,
+                                          const CellState<T, N>& s,
+                                          const CellParams<T>& prm,
+                                          Grads<N>& G) {
+  const T f[2] = {prm.f0, prm.f1};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const N gu = s.ue[0][i] * g.gu[0][a] + s.ue[1][i] * g.gu[1][a] +
+                   s.ue[2][i] * g.gu[2][a];
+      const T gup = s.upe[0][i] * g.gu[0][a] + s.upe[1][i] * g.gu[1][a] +
+                    s.upe[2][i] * g.gu[2][a];
+      G.gum[i][a] = T(0.5) * (gu + gup);
+    }
+    G.c[i] = (s.pe[0] * g.gu[0][i] + s.pe[1] * g.gu[1][i] +
+              s.pe[2] * g.gu[2][i]) -
+             prm.rho * f[i];
+  }
+  G.div = G.gum[0][0] + G.gum[1][1];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      G.sv[i][j] = prm.mu * (G.gum[i][j] + G.gum[j][i]);
+}
+
+// What the points leave to contract with the physical gradients:
+//   ru[b][i] += sum_j S[i][j] gu[b][j],  rp[b] += sum_i P[i] gu[b][i]
+// with S = sum_q w (sigma + tau_lsic rho div(u) I + tau R (x) u_mid) and
+// P = sum_q w tau / rho R. gu is the same at every point, so the
+// contraction is taken once, after the loop.
+template <typename T, typename N>
+__device__ __forceinline__ void contract(const Geom<T>& g,
+                                         const N (&S)[2][2],
+                                         const N (&P)[2], N (&ru)[3][2],
+                                         N (&rp)[3]) {
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      ru[b][i] = ru[b][i] + (S[i][0] * g.gu[b][0] + S[i][1] * g.gu[b][1]);
+    rp[b] = rp[b] + (P[0] * g.gu[b][0] + P[1] * g.gu[b][1]);
+  }
+}
+
+// The cell residual ru[b][i], rp[b] as _make_cell_kernel computes it.
+template <typename T, typename N>
+__device__ __forceinline__ void cell_body(const CellState<T, N>& s,
+                                          const Tabs<T>& tb,
+                                          const CellParams<T>& prm, int nq,
+                                          N (&ru)[3][2], N (&rp)[3]) {
+  const N zero = Lift<N>::of(T(0));
+  N S[2][2], P[2];
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    ru[b][0] = zero;
+    ru[b][1] = zero;
+    rp[b] = zero;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    S[i][0] = zero;
+    S[i][1] = zero;
+    P[i] = zero;
+  }
+  const T f[2] = {prm.f0, prm.f1};
+  const T ih = recip(s.h);
+  const T a3 = prm.nu4 * ih * ih;
+  const T a23sq = a3 * a3 + prm.a2sq;  // t2^-2 + t3^-2
+  Geom<T> g;
+  Grads<N> G;
+  p1_geometry(s.X, tb.dphi, tb.dphi, g);
+  gradients(g, s, prm, G);
+  for (int q = 0; q < nq; ++q) {
+    const T* ph = tb.phi + q * 3;
+    const T w = tb.qw[q] * g.adet;
+
+    N uq[2], umq[2];
+    T upq[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uq[i] = s.ue[0][i] * ph[0] + s.ue[1][i] * ph[1] + s.ue[2][i] * ph[2];
+      upq[i] =
+          s.upe[0][i] * ph[0] + s.upe[1][i] * ph[1] + s.upe[2][i] * ph[2];
+      umq[i] = T(0.5) * (uq[i] + upq[i]);
+    }
+    const N pq = s.pe[0] * ph[0] + s.pe[1] * ph[1] + s.pe[2] * ph[2];
+
+    // tau_SUPG = (t1^-2 + t2^-2 + t3^-2)^(-1/2) and tau_LSIC, at u_prev
+    const T vn = norm_of(upq[0] * upq[0] + upq[1] * upq[1]);
+    const T a1 = fmax(T(2) * vn, prm.eps) * ih;  // t1^-1
+    const T tau = inv_sqrt(a1 * a1 + a23sq);
+    const T vh = vn * s.h;
+    const T tau_lsic = T(0.5) * vh * fmin(vh * prm.inv6nu, T(1));
+
+    // strong residual R and the Galerkin inertia and force
+    N tR[2], wm[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const N acc = (uq[i] - upq[i]) * prm.idt +
+                    (G.gum[i][0] * umq[0] + G.gum[i][1] * umq[1]);
+      tR[i] = tau * (prm.rho * acc + G.c[i]);
+      wm[i] = w * (prm.rho * (acc - f[i]));
+    }
+    // stress and LSIC on the diagonal, SUPG: all meet grad v
+    const N iso = (tau_lsic * prm.rho) * G.div - pq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const N sij = i == j ? G.sv[i][j] + iso : G.sv[i][j];
+        S[i][j] = S[i][j] + w * (sij + tR[i] * umq[j]);
+      }
+      P[i] = P[i] + (w * prm.irho) * tR[i];  // PSPG
+    }
+    const N wd = w * G.div;  // continuity
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      ru[b][0] = ru[b][0] + wm[0] * ph[b];
+      ru[b][1] = ru[b][1] + wm[1] * ph[b];
+      rp[b] = rp[b] + wd * ph[b];
+    }
+  }
+  contract(g, S, P, ru, rp);
+}
+
+// Residual: one lane a cell, RES_CELLS cells a block.
+template <typename T>
+__global__ void __launch_bounds__(RES_CELLS) ns_cell_residual_p1_kernel(
     const T* __restrict__ u, const T* __restrict__ uprev,
     const T* __restrict__ p, const int* __restrict__ dofmap,
     const T* __restrict__ coords, const T* __restrict__ hcell,
     const T* __restrict__ phi, const T* __restrict__ dphi,
-    const T* __restrict__ qw, int64_t nc, int64_t nq, T rho, T mu, T dt,
-    T f0, T f1, T eps, T* __restrict__ ru_e,
-    T* __restrict__ rp_e) {
-  const int64_t c = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (c >= nc) return;
-  T ue[3][2], upe[3][2], pe[3], X[3][2];
-  for (int b = 0; b < 3; ++b) {
-    const int64_t n = __ldg(dofmap + c * 3 + b);
-    ue[b][0] = u[n * 2];
-    ue[b][1] = u[n * 2 + 1];
-    upe[b][0] = uprev[n * 2];
-    upe[b][1] = uprev[n * 2 + 1];
-    pe[b] = p[n];
-    X[b][0] = coords[(c * 3 + b) * 2];
-    X[b][1] = coords[(c * 3 + b) * 2 + 1];
+    const T* __restrict__ qw, int64_t nc, int nq, CellParams<T> prm,
+    T* __restrict__ ru_e, T* __restrict__ rp_e) {
+  using V2 = typename Vec2<T>::type;
+  __shared__ Tabs<T> tb;
+  load_tabs(tb, phi, dphi, qw, nq);
+  const int64_t c = blockIdx.x * (int64_t)RES_CELLS + threadIdx.x;
+  const bool active = c < nc;
+  T sv[3][VERT];
+  T h = T(1);
+  if (active) {
+#pragma unroll
+    for (int v = 0; v < 3; ++v)
+      load_vertex(c * 3 + v, u, uprev, p, dofmap, coords, sv[v]);
+    h = __ldg(hcell + c);
   }
-  const T h = hcell[c];
-  const T nu = mu / rho;
-  const T f[2] = {f0, f1};
-  T ru[3][2] = {{T(0), T(0)}, {T(0), T(0)}, {T(0), T(0)}};
-  T rp[3] = {T(0), T(0), T(0)};
+  __syncthreads();
+  if (!active) return;
+  CellState<T, T> s;
+  read_state<T, T>(sv, h, s);
+  T ru[3][2], rp[3];
+  cell_body<T, T>(s, tb, prm, nq, ru, rp);
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    V2 o;
+    o.x = ru[v][0];
+    o.y = ru[v][1];
+    reinterpret_cast<V2*>(ru_e)[c * 3 + v] = o;
+    rp_e[c * 3 + v] = rp[v];
+  }
+}
 
-  for (int64_t q = 0; q < nq; ++q) {
-    const T* ph = phi + q * 3;
-    const T* dp = dphi + q * 6;  // (3, 2)
-    // J[g][d] = sum_v X[v][g] dphi[q][v][d]
-    T J[2][2];
-    for (int g = 0; g < 2; ++g)
-      for (int d = 0; d < 2; ++d)
-        J[g][d] = X[0][g] * dp[0 * 2 + d] + X[1][g] * dp[1 * 2 + d] +
-                  X[2][g] * dp[2 * 2 + d];
-    const T det = J[0][0] * J[1][1] - J[0][1] * J[1][0];
-    const T idet = T(1) / det;
-    T inv[2][2];  // inv[d][g] = dxi_d / dx_g
-    inv[0][0] = J[1][1] * idet;
-    inv[0][1] = -J[0][1] * idet;
-    inv[1][0] = -J[1][0] * idet;
-    inv[1][1] = J[0][0] * idet;
-    const T wdet = qw[q] * fabs(det);
+// Jacobian: three lanes a cell, lane j differentiating along the three
+// dofs of trial vertex j: columns u(j, 0), u(j, 1) and p(j)
+constexpr int JAC_ND = 3;               // tangent directions a lane
+constexpr int JAC_LPC = NLOC / JAC_ND;  // lanes a cell
 
-    T gu[3][2];  // physical basis gradients (P1: velocity = pressure)
-    for (int b = 0; b < 3; ++b)
-      for (int g = 0; g < 2; ++g)
-        gu[b][g] = dp[b * 2 + 0] * inv[0][g] + dp[b * 2 + 1] * inv[1][g];
+__device__ __forceinline__ int jac_column(int j, int k) {
+  return k < 2 ? 2 * j + k : 6 + j;
+}
 
-    T uq[2], upq[2], umq[2], gum[2][2], gp[2];
-    T pq = T(0);
-    for (int i = 0; i < 2; ++i) {
-      uq[i] = ph[0] * ue[0][i] + ph[1] * ue[1][i] + ph[2] * ue[2][i];
-      upq[i] = ph[0] * upe[0][i] + ph[1] * upe[1][i] + ph[2] * upe[2][i];
-      umq[i] = T(0.5) * (uq[i] + upq[i]);
-      for (int g = 0; g < 2; ++g) {
-        const T gu_ig = ue[0][i] * gu[0][g] + ue[1][i] * gu[1][g] +
-                        ue[2][i] * gu[2][g];
-        const T gup_ig = upe[0][i] * gu[0][g] + upe[1][i] * gu[1][g] +
-                         upe[2][i] * gu[2][g];
-        gum[i][g] = T(0.5) * (gu_ig + gup_ig);
+template <typename T>
+__global__ void __launch_bounds__(JAC_CELLS * JAC_LPC)
+    ns_cell_jacobian_p1_kernel(
+        const T* __restrict__ u, const T* __restrict__ uprev,
+        const T* __restrict__ p, const int* __restrict__ dofmap,
+        const T* __restrict__ coords, const T* __restrict__ hcell,
+        const T* __restrict__ phi, const T* __restrict__ dphi,
+        const T* __restrict__ qw, int64_t nc, int nq, CellParams<T> prm,
+        T* __restrict__ A) {
+  using N = Dual<T, JAC_ND>;
+  using V16 = typename Vec16<T>::type;
+  __shared__ Tabs<T> tb;
+  __shared__ T s_vert[JAC_CELLS * 3][VERT];
+  __shared__ __align__(16) T tile[JAC_CELLS * NLOC * NLOC];
+  const int t = threadIdx.x;
+  const int64_t c0 = blockIdx.x * (int64_t)JAC_CELLS;
+  load_tabs(tb, phi, dphi, qw, nq);
+  if (c0 * 3 + t < 3 * nc)  // one (cell, vertex) slot a lane
+    load_vertex(c0 * 3 + t, u, uprev, p, dofmap, coords, s_vert[t]);
+  const int cl = t / JAC_LPC;
+  const int j = t - cl * JAC_LPC;
+  const bool active = c0 + cl < nc;
+  T h = T(1);
+  if (active) h = __ldg(hcell + c0 + cl);
+  __syncthreads();
+  if (active) {
+    CellState<T, N> s;
+    read_state<T, N>(s_vert + cl * 3, h, s);
+#pragma unroll
+    for (int k = 0; k < JAC_ND; ++k) {
+      const int c = jac_column(j, k);
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        s.ue[v][0].d[k] = c == 2 * v ? T(1) : T(0);
+        s.ue[v][1].d[k] = c == 2 * v + 1 ? T(1) : T(0);
+        s.pe[v].d[k] = c == 6 + v ? T(1) : T(0);
       }
-      gp[i] = pe[0] * gu[0][i] + pe[1] * gu[1][i] + pe[2] * gu[2][i];
     }
-    pq = ph[0] * pe[0] + ph[1] * pe[1] + ph[2] * pe[2];
-    const T div_um = gum[0][0] + gum[1][1];
-
-    T R[2], mass[2], sig[2][2];
-    for (int i = 0; i < 2; ++i) {
-      const T conv = gum[i][0] * umq[0] + gum[i][1] * umq[1];
-      const T dudt = (uq[i] - upq[i]) / dt;
-      R[i] = rho * (dudt + conv) + gp[i] - rho * f[i];
-      mass[i] = rho * (dudt + conv - f[i]);
-      for (int j = 0; j < 2; ++j)
-        sig[i][j] = mu * (gum[i][j] + gum[j][i]) - (i == j ? pq : T(0));
-    }
-
-    // tau_SUPG = (t1^-2 + t2^-2 + t3^-2)^(-1/2), frozen at u_prev
-    const T vn = sqrt(upq[0] * upq[0] + upq[1] * upq[1]);
-    const T t1 = h / fmax(T(2) * vn, eps);
-    const T t2 = dt / T(2);
-    const T t3 = (h * h) / (T(4) * nu);
-    const T tau =
-        T(1) / sqrt(T(1) / (t1 * t1) + T(1) / (t2 * t2) + T(1) / (t3 * t3));
-    const T Re_h = vn * h / (T(2) * nu);
-    const T z = fmin(Re_h / T(3), T(1));
-    const T tau_lsic = vn * h * z / T(2);
-
-    for (int b = 0; b < 3; ++b) {
-      for (int i = 0; i < 2; ++i) {
-        ru[b][i] += wdet * ph[b] * mass[i];
-        ru[b][i] += wdet * (sig[i][0] * gu[b][0] + sig[i][1] * gu[b][1]);
+    N ru[3][2], rp[3];
+    cell_body<T, N>(s, tb, prm, nq, ru, rp);
+#pragma unroll
+    for (int k = 0; k < JAC_ND; ++k) {
+      T* col = tile + cl * (NLOC * NLOC) + jac_column(j, k);
+#pragma unroll
+      for (int v = 0; v < 3; ++v) {
+        col[(v * 2) * NLOC] = ru[v][0].d[k];
+        col[(v * 2 + 1) * NLOC] = ru[v][1].d[k];
+        col[(6 + v) * NLOC] = rp[v].d[k];
       }
-      rp[b] += wdet * div_um * ph[b];
-      // SUPG, LSIC, PSPG
-      const T adv = gu[b][0] * umq[0] + gu[b][1] * umq[1];
-      for (int i = 0; i < 2; ++i) {
-        ru[b][i] += wdet * tau * R[i] * adv;
-        ru[b][i] += wdet * tau_lsic * rho * div_um * gu[b][i];
-      }
-      rp[b] += wdet * tau / rho * (R[0] * gu[b][0] + R[1] * gu[b][1]);
     }
   }
-  for (int b = 0; b < 3; ++b) {
-    ru_e[(c * 3 + b) * 2] = ru[b][0];
-    ru_e[(c * 3 + b) * 2 + 1] = ru[b][1];
-    rp_e[c * 3 + b] = rp[b];
-  }
+  __syncthreads();
+  // the block's cells are one contiguous run of A; 32 cells of 81
+  // values keep each block's run 16-byte aligned
+  const int64_t left = nc - c0;
+  const int count = (int)(left < JAC_CELLS ? left : JAC_CELLS) * NLOC * NLOC;
+  constexpr int PER = 16 / (int)sizeof(T);
+  T* dst = A + c0 * (NLOC * NLOC);
+  const int nvec = count / PER;
+  for (int i = t; i < nvec; i += blockDim.x)
+    reinterpret_cast<V16*>(dst)[i] = reinterpret_cast<const V16*>(tile)[i];
+  for (int i = nvec * PER + t; i < count; i += blockDim.x) dst[i] = tile[i];
+}
+
+template <typename T>
+int launch_residual(const void* u, const void* uprev, const void* p,
+                    const void* dofmap, const void* coords, const void* h,
+                    const void* phi, const void* dphi, const void* qw,
+                    int64_t nc, int nq, const CellParams<T>& prm,
+                    void* ru_e, void* rp_e, cudaStream_t st) {
+  const int64_t blocks = (nc + RES_CELLS - 1) / RES_CELLS;
+  ns_cell_residual_p1_kernel<T><<<(unsigned)blocks, RES_CELLS, 0, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(uprev),
+      static_cast<const T*>(p), static_cast<const int*>(dofmap),
+      static_cast<const T*>(coords), static_cast<const T*>(h),
+      static_cast<const T*>(phi), static_cast<const T*>(dphi),
+      static_cast<const T*>(qw), nc, nq, prm, static_cast<T*>(ru_e),
+      static_cast<T*>(rp_e));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_jacobian(const void* u, const void* uprev, const void* p,
+                    const void* dofmap, const void* coords, const void* h,
+                    const void* phi, const void* dphi, const void* qw,
+                    int64_t nc, int nq, const CellParams<T>& prm,
+                    void* A, cudaStream_t st) {
+  const int64_t blocks = (nc + JAC_CELLS - 1) / JAC_CELLS;
+  ns_cell_jacobian_p1_kernel<T><<<(unsigned)blocks, JAC_CELLS * JAC_LPC, 0, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(uprev),
+      static_cast<const T*>(p), static_cast<const int*>(dofmap),
+      static_cast<const T*>(coords), static_cast<const T*>(h),
+      static_cast<const T*>(phi), static_cast<const T*>(dphi),
+      static_cast<const T*>(qw), nc, nq, prm, static_cast<T*>(A));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -142,29 +470,32 @@ extern "C" int cfd_ns_cell_residual_p1(
     const void* u, const void* uprev, const void* p, const void* dofmap,
     const void* coords, const void* h, const void* phi, const void* dphi,
     const void* qw, int64_t nc, int64_t nq, double rho, double mu,
-    double dt, double f0, double f1, double eps, void* ru_e,
-    void* rp_e, int is_f64, void* stream) {
+    double dt, double f0, double f1, double eps, void* ru_e, void* rp_e, int is_f64, void* stream) {
+  if (nq < 1 || nq > MAXQ) return (int)cudaErrorInvalidValue;
   if (nc <= 0) return (int)cudaGetLastError();
-  const int threads = 128;
-  const int64_t blocks = (nc + threads - 1) / threads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f64) {
-    ns_cell_residual_p1_kernel<double><<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const double*>(u), static_cast<const double*>(uprev),
-        static_cast<const double*>(p), static_cast<const int*>(dofmap),
-        static_cast<const double*>(coords), static_cast<const double*>(h),
-        static_cast<const double*>(phi), static_cast<const double*>(dphi),
-        static_cast<const double*>(qw), nc, nq, rho, mu, dt, f0, f1, eps,
-        static_cast<double*>(ru_e), static_cast<double*>(rp_e));
-  } else {
-    ns_cell_residual_p1_kernel<float><<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const float*>(u), static_cast<const float*>(uprev),
-        static_cast<const float*>(p), static_cast<const int*>(dofmap),
-        static_cast<const float*>(coords), static_cast<const float*>(h),
-        static_cast<const float*>(phi), static_cast<const float*>(dphi),
-        static_cast<const float*>(qw), nc, nq, (float)rho, (float)mu,
-        (float)dt, (float)f0, (float)f1, (float)eps,
-        static_cast<float*>(ru_e), static_cast<float*>(rp_e));
-  }
-  return (int)cudaGetLastError();
+  if (is_f64)
+    return launch_residual<double>(
+        u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, (int)nq,
+        make_params<double>(rho, mu, dt, f0, f1, eps), ru_e, rp_e, st);
+  return launch_residual<float>(
+      u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, (int)nq,
+      make_params<float>(rho, mu, dt, f0, f1, eps), ru_e, rp_e, st);
+}
+
+extern "C" int cfd_ns_cell_jacobian_p1(
+    const void* u, const void* uprev, const void* p, const void* dofmap,
+    const void* coords, const void* h, const void* phi, const void* dphi,
+    const void* qw, int64_t nc, int64_t nq, double rho, double mu,
+    double dt, double f0, double f1, double eps, void* A, int is_f64, void* stream) {
+  if (nq < 1 || nq > MAXQ) return (int)cudaErrorInvalidValue;
+  if (nc <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f64)
+    return launch_jacobian<double>(
+        u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, (int)nq,
+        make_params<double>(rho, mu, dt, f0, f1, eps), A, st);
+  return launch_jacobian<float>(
+      u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, (int)nq,
+      make_params<float>(rho, mu, dt, f0, f1, eps), A, st);
 }

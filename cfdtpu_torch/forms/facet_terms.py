@@ -5,8 +5,12 @@ DFG 2D-1 path is ported, the natural correction
 `p n·v - mu (nabla_grad u)^T n·v` on all exterior facets. A factory
 returns a per-facet kernel
     kernel(u_e, p_e, aux_e, coords_e, tabs, prm) -> r_u (nbu, dim)
-in plain torch, which the form maps over facets with torch.func.vmap
-(and differentiates with jacfwd for the element Jacobians).
+in plain torch, which torch.func.vmap maps over facets (and jacfwd
+differentiates for the element Jacobians). A kernel names its CUDA
+counterpart in its `fused` attribute, and StabilizedNSForm takes only
+kernels that have one: the natural correction is kernel K7
+(kernels/ns_facet_natural.py), whose plain version is the vmap of the
+kernel below.
 """
 
 from __future__ import annotations
@@ -39,4 +43,5 @@ def natural_correction():
         term = p_q[:, None] * n - mu * gtn
         return torch.einsum("q,qb,qi->bi", dS, tabs["phi_u"], term)
 
+    kernel.fused = "natural_correction"
     return kernel

@@ -1,15 +1,17 @@
 """SUPG/PSPG/LSIC-stabilized incompressible Navier-Stokes residual.
 
 The counterpart of cfdtpu/forms/navier_stokes.py StabilizedNSForm
-(Crank-Nicolson midpoint, equal-order Pk-Pk): the cell residual is
-kernel K3 (kernels/ns_cell_residual.py, P1 triangles on CUDA; its plain
-vmapped version elsewhere) reduced to the nodes by K2; the facet terms
-are plain torch mapped with torch.func.vmap and reduced to the nodes by
-K2 too, over one sorted scatter per facet block, so the residual is the
+(Crank-Nicolson midpoint, equal-order Pk-Pk). The cell residual and the
+exact element Jacobians are the two entry points of kernel K3
+(kernels/ns_cell_residual.py: P1 triangles on CUDA, elsewhere the plain
+vmapped cell kernel and vmap(jacfwd(.)) of it, the analogue of
+jax.vmap(jax.jacfwd(.))). The natural-correction facet term is kernel
+K7 (kernels/ns_facet_natural.py), residual and Jacobian alike; it is
+the one facet term that is ported, and add_facet_term refuses any
+other. Cell and facet contributions are reduced to the nodes by K2, the
+facets over one sorted scatter per facet block, so the residual is the
 same on every run (an index_add on CUDA sums with atomics in no fixed
 order).
-The exact element Jacobians are torch.func.vmap(jacfwd(...)) of the
-same plain kernels — the analogue of jax.vmap(jax.jacfwd(...)).
 
 Parameters `prm` are a dict of Python floats: dt, rho, mu, and the body
 force f as a tuple. Velocity u is (n_u, d); p is (n_p,).
@@ -22,8 +24,10 @@ import torch
 
 from ..assembly import FacetQuadrature
 from ..elements import LagrangeElement, quadrature
-from ..kernels.ns_cell_residual import (CellTabs, ns_cell_kernel,
+from ..kernels.ns_cell_residual import (CellTabs, ns_cell_jacobian_p1,
                                         ns_cell_residual_p1)
+from ..kernels.ns_facet_natural import (ns_facet_natural_jac_p1,
+                                        ns_facet_natural_p1)
 from ..spaces import FunctionSpace
 from ..utils import SortedScatter, det_and_inv, torch_dtype
 from .facet_terms import natural_correction
@@ -130,19 +134,6 @@ class StabilizedNSForm:
             )
 
     # ------------------------------------------------------------------
-    def _cell_kernel(self, prm):
-        """One-cell residual closure over prm for torch.func."""
-        tabs, eps = self.tabs, self.eps
-        f = torch.as_tensor(prm["f"], dtype=self.dtype, device=self.device)
-        rho, mu, dt = prm["rho"], prm["mu"], prm["dt"]
-
-        def kernel(u_e, p_e, uprev_e, coords_e, h_e):
-            return ns_cell_kernel(u_e, p_e, uprev_e, coords_e, h_e, tabs,
-                                  rho, mu, dt, f, eps)
-
-        return kernel
-
-    # ------------------------------------------------------------------
     # facet-term blocks
     # ------------------------------------------------------------------
     def add_facet_term(self, name: str, facet_indices, kernel) -> None:
@@ -151,7 +142,13 @@ class StabilizedNSForm:
         kernel(u_e, p_e, aux_e, coords_e, tabs, prm) -> r_u (nbu, dim);
         tabs = dict(phi_u (nq, nbu), dphi_u (nq, nbu, d), phi_p (nq, nbp),
         gdphi (nq, nvg, d), normal (nq, d), dS (nq,), h scalar).
+        Only the natural correction (facet_terms.natural_correction,
+        kernel K7) is ported; any other kernel raises.
         """
+        if getattr(kernel, "fused", None) != "natural_correction":
+            raise NotImplementedError(
+                f"facet term {name!r}: only the natural correction has a "
+                "kernel (K7, kernels/ns_facet_natural.py)")
         mesh = self.mesh
         facet_indices = np.asarray(facet_indices, dtype=np.int32)
         if facet_indices.size == 0:
@@ -171,15 +168,15 @@ class StabilizedNSForm:
             return torch.as_tensor(np.asarray(a).astype(np_dt), device=dev)
 
         dm_u = np.asarray(self.V.dofmap)[cells].astype(np.int64)
+        dm_p = np.asarray(self.Q.dofmap)[cells].astype(np.int64)
         block = {
             "name": name,
-            "kernel": kernel,
             "dofmap_u": torch.as_tensor(dm_u, device=dev),
+            # int32 copies for the fused kernel's gathers (K7)
+            "dofmap_u32": torch.as_tensor(dm_u.astype(np.int32), device=dev),
+            "dofmap_p32": torch.as_tensor(dm_p.astype(np.int32), device=dev),
             # deterministic facet -> node reduction (K2), cf. _scatter_u
             "scatter_u": SortedScatter(dm_u, self.V.num_dofs, device=dev),
-            "dofmap_p": torch.as_tensor(
-                np.asarray(self.Q.dofmap)[cells].astype(np.int64),
-                device=dev),
             "dofmap_flat_np": self._dmf_np[cells],
             "dofmap_flat": torch.as_tensor(
                 self._dmf_np[cells].astype(np.int64), device=dev),
@@ -198,18 +195,15 @@ class StabilizedNSForm:
         }
         self._facet_blocks.append(block)
 
+    @staticmethod
+    def _fused_args(block, u, p, aux, prm):
+        """The arguments of K7 for a facet block."""
+        return (u, aux[0], p, block["dofmap_u32"], block["dofmap_p32"],
+                block["coords"], block["tabs"], prm["mu"])
+
     def _block_residual(self, block, u, p, aux, prm):
-        dm_u = block["dofmap_u"]
-        dm_p = block["dofmap_p"]
-        aux_e = tuple(a[dm_u] for a in aux)
-        kernel = block["kernel"]
-
-        def one(ue, pe, ae, ce, tb):
-            return kernel(ue, pe, ae, ce, tb, prm)
-
-        ru_f = torch.func.vmap(one)(u[dm_u], p[dm_p], aux_e,
-                                    block["coords"], block["tabs"])
-        return dm_u, ru_f
+        return block["dofmap_u"], ns_facet_natural_p1(
+            *self._fused_args(block, u, p, aux, prm))
 
     # ------------------------------------------------------------------
     def residual(self, u, p, aux, prm):
@@ -234,41 +228,16 @@ class StabilizedNSForm:
     def element_jacobians(self, u, p, aux, prm):
         """Exact element Jacobian blocks: (A_cells (nc, nloc, nloc),
         [(dofmap_flat, A_block) per facet term])."""
-        nbu = self.V.element.ndofs
-        dim = self.dim
-        nc = self.mesh.num_cells
         (u_prev,) = aux
-        xe = torch.cat(
-            [u[self._dmu_long].reshape(nc, -1), p[self._dmp_long]], dim=1)
-        kernel = self._cell_kernel(prm)
-
-        def fk(x, upe, ce, he):
-            ru, rp = kernel(x[: nbu * dim].reshape(nbu, dim), x[nbu * dim:],
-                            upe, ce, he)
-            return torch.cat([ru.reshape(-1), rp])
-
-        A_cells = torch.func.vmap(torch.func.jacfwd(fk))(
-            xe, u_prev[self._dmu_long], self.cell_coords, self.cell_h)
-
-        nbp = self.Q.element.ndofs
+        A_cells = ns_cell_jacobian_p1(
+            u, u_prev, p, self.dofmap_u, self.dofmap_p, self.cell_coords,
+            self.cell_h, self.tabs, prm["rho"], prm["mu"], prm["dt"],
+            prm["f"], self.eps,
+        )
         A_blocks = []
         for block in self._facet_blocks:
-            dm_u = block["dofmap_u"]
-            dm_p = block["dofmap_p"]
-            xef = torch.cat([u[dm_u].reshape(len(dm_u), -1), p[dm_p]],
-                            dim=1)
-            aux_ef = tuple(a[dm_u] for a in aux)
-            fkern = block["kernel"]
-
-            def ffk(x, ae, ce, tb, _k=fkern):
-                ru = _k(x[: nbu * dim].reshape(nbu, dim), x[nbu * dim:],
-                        ae, ce, tb, prm)
-                return torch.cat([ru.reshape(-1),
-                                  torch.zeros((nbp,), dtype=ru.dtype,
-                                              device=ru.device)])
-
-            A_f = torch.func.vmap(torch.func.jacfwd(ffk))(
-                xef, aux_ef, block["coords"], block["tabs"])
+            A_f = ns_facet_natural_jac_p1(
+                *self._fused_args(block, u, p, aux, prm))
             A_blocks.append((block["dofmap_flat"], A_f))
         return A_cells, A_blocks
 

@@ -2,10 +2,14 @@
 
 K1 sup_spmv            supernode-ELL SpMV with fused epilogues
 K2 ell_sum             deterministic sorted-segment gather-reduce (CSR scatter)
-K3 ns_cell_residual_p1 fused stabilized-NS cell residual, P1 triangles
+K3 ns_cell_residual_p1 fused stabilized-NS cell residual, P1 triangles,
+   ns_cell_jacobian_p1 and its exact element Jacobian (the same cell body
+                       on forward-mode dual numbers)
 K4 selfp_triple        SELFP triple products Apu diag(Auu)^-1 Aup
 K5 patch_spmv          in-patch scalar ELL SpMV (the gather microbenchmark)
 K6 ras_apply           restricted additive Schwarz window apply (owned rows)
+K7 ns_facet_natural_p1 natural-correction facet term, P1 triangles,
+   ns_facet_natural_jac_p1 and its element Jacobian
 
 Every wrapper takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors (or raises); each launch adds one
@@ -28,7 +32,9 @@ class LaunchCounter:
 COUNTERS = {
     name: LaunchCounter(name)
     for name in ("sup_spmv", "ell_sum", "ns_cell_residual_p1",
-                 "selfp_triple", "patch_spmv", "ras_apply")
+                 "ns_cell_jacobian_p1", "selfp_triple", "patch_spmv",
+                 "ras_apply", "ns_facet_natural_p1",
+                 "ns_facet_natural_jac_p1")
 }
 
 

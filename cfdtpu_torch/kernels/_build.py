@@ -47,8 +47,14 @@ SIGNATURES = {
     # u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
     # rho, mu, dt, f0, f1, eps, ru_e, rp_e, is_f64, stream
     "cfd_ns_cell_residual_p1": [P, P, P, P, P, P, P, P, P, I64, I64,
-                                F64, F64, F64, F64, F64, F64,
-                                P, P, I32, P],
+                                F64, F64, F64, F64, F64, F64, P, P, I32, P],
+    # as above up to eps, then A_cells, is_f64, stream
+    "cfd_ns_cell_jacobian_p1": [P, P, P, P, P, P, P, P, P, I64, I64,
+                                F64, F64, F64, F64, F64, F64, P, I32, P],
+    # u, uprev, p, dofmap_u, dofmap_p, coords, phi_u, dphi_u, phi_p, gdphi,
+    # normal, dS, nf, nq, mu, jacobian, out, is_f64, stream
+    "cfd_ns_facet_natural_p1": [P, P, P, P, P, P, P, P, P, P, P, P, I64,
+                                I64, F64, I32, P, I32, P],
     # vals, e1, e2, kcol, inv_duu, contrib, nt, d, is_f64, stream
     "cfd_selfp_triple": [P, P, P, P, P, P, I64, I64, I32, P],
     # x, vals, idx, y, P, L, K, is_f64, stream

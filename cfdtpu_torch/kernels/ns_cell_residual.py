@@ -1,13 +1,18 @@
-"""K3 ns_cell_residual_p1: fused stabilized-NS cell residual
-(csrc/ns_cell_residual.cu), and the plain cell kernel it replaces.
+"""K3: the stabilized-NS cell kernel (csrc/ns_cell_residual.cu) with
+its two entry points, ns_cell_residual_p1 (element residuals) and
+ns_cell_jacobian_p1 (exact element Jacobians), and the plain cell
+kernel they replace.
 
 `ns_cell_kernel` is the per-cell Crank-Nicolson-midpoint residual of
 cfdtpu's StabilizedNSForm (forms/navier_stokes.py _make_cell_kernel),
-written for torch.func: no in-place ops and no host reads, so the form
-takes its element Jacobians as vmap(jacfwd(ns_cell_kernel)). Batched
-with vmap it is also the plain version of K3.
+written for torch.func: no in-place ops and no host reads. Batched with
+vmap it is the plain version of the residual; vmap(jacfwd(.)) of its
+flat form is the plain version of the Jacobian, as cfdtpu's
+element_jacobians takes it. On the card one CUDA cell body serves both:
+on plain numbers for the residual, on forward-mode dual numbers for the
+Jacobian.
 
-The CUDA kernel covers P1 triangles only (dim 2, degree 1: velocity,
+The CUDA kernels cover P1 triangles only (dim 2, degree 1: velocity,
 pressure and geometry share one basis, and V and Q share the dofmap).
 For any other form a CUDA tensor raises; there is no fallback.
 """
@@ -25,12 +30,17 @@ from ._common import (check_float, check_index, check_same_device, is_f64,
 from ..utils.geometry import det_and_inv
 
 _COUNT = COUNTERS["ns_cell_residual_p1"]
+_COUNT_JAC = COUNTERS["ns_cell_jacobian_p1"]
+MAX_POINTS = 16  # quadrature points the CUDA kernels hold (MAXQ)
 
 
 @dataclass
 class CellTabs:
     """Reference-cell tabulations at the quadrature points (tensors on
-    the form's device) plus `p1`: True when the CUDA kernel applies."""
+    the form's device) plus `affine`: True when the basis gradients are
+    the same at every point (a simplex with a P1 geometry), and `p1`:
+    True when the CUDA kernels apply, which take the cell's geometry
+    once, not once per point, and so need `affine` too."""
 
     qw: torch.Tensor        # (nq,)
     phi_u: torch.Tensor     # (nq, nbu)
@@ -40,13 +50,17 @@ class CellTabs:
     dphi_p: torch.Tensor    # (nq, nbp, d)
     gdphi: torch.Tensor     # (nq, nvg, d)
     p1: bool
+    affine: bool = False
 
     @staticmethod
     def create(qw, phi_u, dphi_u, d2phi_u, phi_p, dphi_p, gdphi,
                same_dofmap: bool, device, dtype) -> "CellTabs":
-        """From numpy tabulations; decides `p1` on the host, once."""
+        """From numpy tabulations; decides `p1` and `affine` on the
+        host, once."""
+        affine = all(bool(np.all(np.asarray(a) == np.asarray(a)[:1]))
+                     for a in (dphi_u, dphi_p, gdphi))
         p1 = bool(
-            same_dofmap and d2phi_u is None
+            affine and same_dofmap and d2phi_u is None
             and np.shape(dphi_u)[1:] == (3, 2)
             and np.array_equal(phi_u, phi_p)
             and np.array_equal(dphi_u, dphi_p)
@@ -58,7 +72,7 @@ class CellTabs:
                 np.asarray(a), dtype=dtype, device=device)
 
         return CellTabs(t(qw), t(phi_u), t(dphi_u), t(d2phi_u), t(phi_p),
-                        t(dphi_p), t(gdphi), p1)
+                        t(dphi_p), t(gdphi), p1, affine)
 
 
 def ns_cell_kernel(u_e, p_e, uprev_e, coords_e, h_e, tabs: CellTabs, rho,
@@ -138,53 +152,105 @@ def ns_cell_residual_plain(u, uprev, p, dofmap_u, dofmap_p, coords, h,
     return torch.func.vmap(one)(u[dmu], p[dmp], uprev[dmu], coords, h)
 
 
-def ns_cell_residual_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
-                        tabs: CellTabs, rho, mu, dt, f, eps):
-    """Element residuals (ru_e (nc, nbu, d), rp_e (nc, nbp))."""
+def ns_cell_jacobian_plain(u, uprev, p, dofmap_u, dofmap_p, coords, h,
+                           tabs: CellTabs, rho, mu, dt, f, eps):
+    """The plain version of the Jacobian: vmap(jacfwd(.)) of the cell
+    kernel in the flat element layout [u(b, i) row-major, then p(b)]."""
+    dmu, dmp = dofmap_u.long(), dofmap_p.long()
+    f_t = torch.as_tensor(f, dtype=u.dtype, device=u.device)
+    nc, nbu = dmu.shape
+    nud = nbu * u.shape[1]
+
+    def fk(x, upe, ce, he):
+        ru, rp = ns_cell_kernel(x[:nud].reshape(nbu, -1), x[nud:], upe, ce,
+                                he, tabs, rho, mu, dt, f_t, eps)
+        return torch.cat([ru.reshape(-1), rp])
+
+    xe = torch.cat([u[dmu].reshape(nc, -1), p[dmp]], dim=1)
+    return torch.func.vmap(torch.func.jacfwd(fk))(xe, uprev[dmu], coords, h)
+
+
+def _check_args(name, u, uprev, p, dofmap_u, dofmap_p, coords, h, tabs):
     check_float("u", u)
-    for name, t in (("uprev", uprev), ("p", p), ("coords", coords),
-                    ("h", h)):
-        check_float(name, t, u.dtype)
+    for key, t in (("uprev", uprev), ("p", p), ("coords", coords),
+                   ("h", h)):
+        check_float(key, t, u.dtype)
     check_index("dofmap_u", dofmap_u)
     check_index("dofmap_p", dofmap_p)
     check_same_device(("u", u), ("uprev", uprev), ("p", p),
                       ("dofmap_u", dofmap_u), ("coords", coords), ("h", h),
                       ("tabs.qw", tabs.qw))
     if not on_cuda(u):
-        return ns_cell_residual_plain(u, uprev, p, dofmap_u, dofmap_p,
-                                      coords, h, tabs, rho, mu, dt, f, eps)
+        return False
     if not tabs.p1:
         raise NotImplementedError(
-            "ns_cell_residual_p1 covers P1 triangles with a shared "
+            f"{name} covers affine P1 triangles with a shared "
             "velocity/pressure basis and dofmap only"
         )
-    from ._build import check, library
-
     nc = dofmap_u.shape[0]
-    nq = tabs.qw.shape[0]
     require(tuple(u.shape[1:]) == (2,) and tuple(uprev.shape) == u.shape,
-            "ns_cell_residual_p1: u, uprev must be (n, 2)")
+            f"{name}: u, uprev must be (n, 2)")
     require(tuple(dofmap_u.shape) == (nc, 3), "dofmap must be (nc, 3)")
     require(tuple(coords.shape) == (nc, 3, 2) and tuple(h.shape) == (nc,),
-            "ns_cell_residual_p1: coords (nc, 3, 2), h (nc,)")
-    for name, t in (("u", u), ("uprev", uprev), ("p", p),
-                    ("coords", coords), ("h", h), ("phi", tabs.phi_u),
-                    ("dphi", tabs.dphi_u), ("qw", tabs.qw)):
-        require(t.is_contiguous(), f"ns_cell_residual_p1: {name} "
-                                   "must be contiguous")
-        check_float(name, t, u.dtype)
+            f"{name}: coords (nc, 3, 2), h (nc,)")
+    require(tabs.qw.shape[0] <= MAX_POINTS,
+            f"{name}: at most {MAX_POINTS} quadrature points")
+    for key, t in (("u", u), ("uprev", uprev), ("p", p),
+                   ("coords", coords), ("h", h), ("phi", tabs.phi_u),
+                   ("dphi", tabs.dphi_u), ("qw", tabs.qw)):
+        require(t.is_contiguous(), f"{name}: {key} must be contiguous")
+        check_float(key, t, u.dtype)
+    for key, t in (("u", u), ("uprev", uprev), ("coords", coords)):
+        # read as 2-vectors (8 or 16 bytes)
+        require(t.data_ptr() % (2 * t.element_size()) == 0,
+                f"{name}: {key} must be aligned to a pair of values")
+    return True
+
+
+def _launch(fn_name, counter, outs, u, uprev, p, dofmap_u, coords, h, tabs,
+            rho, mu, dt, f, eps):
+    from ._build import check, library
+
     f0, f1 = (float(v) for v in f)
-    ru_e = torch.empty((nc, 3, 2), dtype=u.dtype, device=u.device)
-    rp_e = torch.empty((nc, 3), dtype=u.dtype, device=u.device)
     with torch.cuda.device(u.device):
-        rc = library().cfd_ns_cell_residual_p1(
+        rc = getattr(library(), "cfd_" + fn_name)(
             u.data_ptr(), uprev.data_ptr(), p.data_ptr(),
             dofmap_u.data_ptr(), coords.data_ptr(), h.data_ptr(),
             tabs.phi_u.data_ptr(), tabs.dphi_u.data_ptr(),
-            tabs.qw.data_ptr(), nc, nq, float(rho), float(mu), float(dt),
-            f0, f1, float(eps), ru_e.data_ptr(),
-            rp_e.data_ptr(), is_f64(u), stream_handle(u),
+            tabs.qw.data_ptr(), dofmap_u.shape[0], tabs.qw.shape[0],
+            float(rho), float(mu), float(dt), f0, f1, float(eps),
+            *(o.data_ptr() for o in outs), is_f64(u), stream_handle(u),
         )
-    _COUNT.n += 1
-    check(rc, "ns_cell_residual_p1")
+    counter.n += 1
+    check(rc, fn_name)
+
+
+def ns_cell_residual_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
+                        tabs: CellTabs, rho, mu, dt, f, eps):
+    """Element residuals (ru_e (nc, nbu, d), rp_e (nc, nbp))."""
+    if not _check_args("ns_cell_residual_p1", u, uprev, p, dofmap_u,
+                       dofmap_p, coords, h, tabs):
+        return ns_cell_residual_plain(u, uprev, p, dofmap_u, dofmap_p,
+                                      coords, h, tabs, rho, mu, dt, f, eps)
+    nc = dofmap_u.shape[0]
+    ru_e = torch.empty((nc, 3, 2), dtype=u.dtype, device=u.device)
+    rp_e = torch.empty((nc, 3), dtype=u.dtype, device=u.device)
+    _launch("ns_cell_residual_p1", _COUNT, (ru_e, rp_e), u, uprev, p,
+            dofmap_u, coords, h, tabs, rho, mu, dt, f, eps)
     return ru_e, rp_e
+
+
+def ns_cell_jacobian_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
+                        tabs: CellTabs, rho, mu, dt, f, eps):
+    """Exact element Jacobians A_cells (nc, nloc, nloc) of the cell
+    residual with respect to the cell's (u, p), in the flat element
+    layout [u(b, i) row-major, then p(b)]."""
+    if not _check_args("ns_cell_jacobian_p1", u, uprev, p, dofmap_u,
+                       dofmap_p, coords, h, tabs):
+        return ns_cell_jacobian_plain(u, uprev, p, dofmap_u, dofmap_p,
+                                      coords, h, tabs, rho, mu, dt, f, eps)
+    A = torch.empty((dofmap_u.shape[0], 9, 9), dtype=u.dtype,
+                    device=u.device)
+    _launch("ns_cell_jacobian_p1", _COUNT_JAC, (A,), u, uprev, p, dofmap_u,
+            coords, h, tabs, rho, mu, dt, f, eps)
+    return A

@@ -84,7 +84,10 @@ def empty_ms(n: int = 25) -> float:
 def device_kernels(fn) -> list[str]:
     """Names of the device activities (kernels, copies, fills) one fn()
     call issues, from torch.profiler's CUDA trace, in launch order. One
-    warm-up call first, so that a kernel's build is not counted."""
+    warm-up call first, so that a kernel's build is not counted. An
+    empty trace has lost its records (see device_ms): it is taken
+    again, up to three times in all; the first trace that is not empty
+    is returned as it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -93,13 +96,18 @@ def device_kernels(fn) -> list[str]:
                            "available")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in sorted(prof.events(),
-                                   key=lambda e: e.time_range.start)
-            if e.device_type == DeviceType.CUDA]
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(prof.events(),
+                                        key=lambda e: e.time_range.start)
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def device_ms(fn, n: int = 20, tries: int = 3) -> float | None:

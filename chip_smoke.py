@@ -10,9 +10,10 @@ Run from the root of a checkout. Phases, each raising on failure:
 2. build: one nvcc per cfdtpu_torch/csrc/*.cu, all started together,
    linked into cfdtpu_torch/_build/libcfdtpu_kernels.so.
 3. kernels: at the DFG 2D-1 res_scale=0.3 slice (106,275 DOF, float32)
-   every kernel (K1 sup_spmv, K2 ell_sum, K3 ns_cell_residual_p1,
-   K4 selfp_triple, K5 patch_spmv, K6 ras_apply) is held against its
-   plain PyTorch version at each of its call sites on the two paths
+   every kernel (K1 sup_spmv, K2 ell_sum, K3 ns_cell_residual_p1 and
+   ns_cell_jacobian_p1, K4 selfp_triple, K5 patch_spmv, K6 ras_apply,
+   K7 ns_facet_natural_p1 and ns_facet_natural_jac_p1) is held against
+   its plain PyTorch version at each of its call sites on the two paths
    below — including the rasamg_sup block-AMG levels (K1 at width 16),
    block transfers and facet-residual scatter (K2), the RAS windows (K6)
    and the gather_micro shapes (K5, beside K1 at width 1):
@@ -26,21 +27,27 @@ Run from the root of a checkout. Phases, each raising on failure:
    (K1: torch.sparse_bsr_tensor @ x over the same blocks, CSR over
    the same entries where the blocks are not square or 1 x 1; K2:
    index_add_; K5: a CSR sparse product; K6: torch.bmm of the owned
-   inverse rows with pre-gathered windows, the gather left out; K3 and
-   K4: none); and the kernel's and the yardstick's device time alone
+   inverse rows with pre-gathered windows, the gather left out; K3, K4
+   and K7: none); and the kernel's and the yardstick's device time alone
    (utils/cudatime.device_ms: torch.profiler's trace of 20 warm calls,
    without the launch that the event-timed times carry). Each site
    prints its bound: the bytes it must move and the operations it does
-   (the *_bytes functions, K3_OPS_PER_POINT), over 3.35 TB/s and 67
-   TFLOP/s, the larger of the two, and its share of the cold time. An
-   empty kernel, launched the same way, is timed first as the floor of
-   the small sites. The same checks run in float64 at res_scale 1.0
-   with 1e-12, untimed.
+   (the *_bytes functions, the K3_OPS and K7_OPS counts), over 3.35 TB/s
+   and 67 TFLOP/s, the larger of the two, and its share of the cold
+   time. An empty kernel, launched the same way, is timed first as the
+   floor of the small sites. The same checks run in float64 at
+   res_scale 1.0 with 1e-12, untimed.
    Then, under torch.profiler, each operator apply the solver calls
    (NodeBSR.apply_element_matrices, apply_sub_block, apply_p_coupled,
-   AMG._matvec, BlockAMG._matvec_block) must issue one device kernel, K1.
+   AMG._matvec, BlockAMG._matvec_block) must issue one device kernel, K1;
+   one form.residual call must issue K3 once, K7 once and K2 three times,
+   and one form.element_jacobians call exactly two device kernels, K3's
+   and K7's Jacobians (no vmap or jacfwd work). The device kernels of
+   both calls are printed beside those of the same calls made with the
+   plain facet term and the plain vmap(jacfwd) Jacobians, which is what
+   the form dispatched before K7 and the Jacobian kernels existed.
 4. determinism: two float32 form.residual calls on one state are
-   bitwise equal.
+   bitwise equal, and so are two element_jacobians + assemble results.
 5. path A, the rasamg_sup slice (the configuration bench.py runs):
    Scenario.solve drives 14 float32 steps from rest (Schur/rasamg_sup,
    pc_inner_u=0, pc_inner_p=5, RAS windows of 32 with overlap 4, chord
@@ -50,10 +57,10 @@ Run from the root of a checkout. Phases, each raising on failure:
    kernel's calls and device ms, the largest other device activities,
    cudaLaunchKernel and cudaMemcpyAsync calls, the card's idle share).
    Every step must converge with a finite state, no linear solve may
-   hit ksp_max_it, and K1, K2, K3, K4 and K6 must have
-   launched in steps 1-10.
+   hit ksp_max_it, and K1, K2, K3 (both entry points), K4, K6 and K7
+   (both entry points) must have launched in steps 1-10.
 6. the amg_p slice (the solver's default inner method): 8 float32 steps
-   from rest, steps 5-8 measured, the same checks for K1-K4.
+   from rest, steps 5-8 measured, the same checks for K1-K4 and K7.
 7. parity: float64 at res_scale 1.0, 2 steps through the kernels on the
    card and 2 steps through the plain versions (which the wrappers take
    only for CPU tensors, so that run is on the host), for rasamg_sup and
@@ -97,10 +104,11 @@ RASAMG_FLAGS = ["--pc_inner_method", "rasamg_sup", "--pc_inner_u", "0",
                 "--pc_inner_p", "5", "--pc_ras_size", "32",
                 "--snes_lag_jacobian", "True", "--pc_lag_steps", "4",
                 "--stats_every", "4", "--ksp_restart", "20"]
-PATH_A_KERNELS = ("sup_spmv", "ell_sum", "ns_cell_residual_p1",
-                  "selfp_triple", "ras_apply")
-AMG_P_KERNELS = ("sup_spmv", "ell_sum", "ns_cell_residual_p1",
-                 "selfp_triple")
+ELEMENT_KERNELS = ("ns_cell_residual_p1", "ns_cell_jacobian_p1",
+                   "ns_facet_natural_p1", "ns_facet_natural_jac_p1")
+PATH_A_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
+                  *ELEMENT_KERNELS)
+AMG_P_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", *ELEMENT_KERNELS)
 # name: (source, replaced TPU/XLA op, headline site, path that launches it)
 SOURCES = {
     "sup_spmv": ("cfdtpu_torch/csrc/sup_spmv.cu",
@@ -110,6 +118,9 @@ SOURCES = {
     "ns_cell_residual_p1": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
                             "cfdtpu/forms/navier_stokes.py:190",
                             "K3 cell residual", "A"),
+    "ns_cell_jacobian_p1": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
+                            "cfdtpu/forms/navier_stokes.py:384",
+                            "K3 cell jacobian", "A"),
     "selfp_triple": ("cfdtpu_torch/csrc/selfp_triple.cu",
                      "cfdtpu/la/nodebsr.py:386", "K4 selfp triples", "A"),
     "patch_spmv": ("cfdtpu_torch/csrc/patch_spmv.cu",
@@ -117,6 +128,12 @@ SOURCES = {
                    "B"),
     "ras_apply": ("cfdtpu_torch/csrc/ras_apply.cu", "cfdtpu/la/ras.py:149",
                   "K6 ras apply", "A"),
+    "ns_facet_natural_p1": ("cfdtpu_torch/csrc/ns_facet_natural.cu",
+                            "cfdtpu/forms/facet_terms.py:52",
+                            "K7 facet residual", "A"),
+    "ns_facet_natural_jac_p1": ("cfdtpu_torch/csrc/ns_facet_natural.cu",
+                                "cfdtpu/forms/navier_stokes.py:369",
+                                "K7 facet jacobian", "A"),
 }
 PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
          "B": "python -m cfdtpu_torch.scripts.gather_micro"}
@@ -186,7 +203,11 @@ def kernel_sites(torch, np, sc, seed=0):
     SELFP AMG and the velocity BlockAMG with its RAS windows."""
     from cfdtpu_torch.kernels.ell_sum import ell_plan, ell_sum, ell_sum_plain
     from cfdtpu_torch.kernels.ns_cell_residual import (
-        ns_cell_residual_p1, ns_cell_residual_plain)
+        ns_cell_jacobian_p1, ns_cell_jacobian_plain, ns_cell_residual_p1,
+        ns_cell_residual_plain)
+    from cfdtpu_torch.kernels.ns_facet_natural import (
+        ns_facet_natural_jac_p1, ns_facet_natural_jac_plain,
+        ns_facet_natural_p1, ns_facet_natural_plain)
     from cfdtpu_torch.kernels.patch_spmv import patch_spmv, patch_spmv_plain
     from cfdtpu_torch.kernels.ras_apply import (ras_apply, ras_apply_plain,
                                                 ras_plan, ras_windows)
@@ -329,8 +350,23 @@ def kernel_sites(torch, np, sc, seed=0):
     add("ns_cell_residual_p1", "K3 cell residual",
         lambda: ns_cell_residual_p1(*args),
         lambda: ns_cell_residual_plain(*args),
-        k3_bytes(args[:8], (ru_e, rp_e)),
-        K3_OPS_PER_POINT * f.cell_h.shape[0] * f.tabs.qw.shape[0])
+        k3_bytes(args[:8], (ru_e, rp_e)), k3_ops(f, K3_OPS))
+    add("ns_cell_jacobian_p1", "K3 cell jacobian",
+        lambda: ns_cell_jacobian_p1(*args),
+        lambda: ns_cell_jacobian_plain(*args),
+        k3_bytes(args[:8], (A_cells,)),
+        k3_ops(f, K3_OPS) + 3 * k3_ops(f, K3_JAC_TANGENT_OPS))
+    fb = f._facet_blocks[0]
+    fargs = f._fused_args(fb, u, p, (up,), prm)
+    nf, nqf = fb["tabs"]["dS"].shape
+    add("ns_facet_natural_p1", "K7 facet residual",
+        lambda: ns_facet_natural_p1(*fargs),
+        lambda: ns_facet_natural_plain(*fargs),
+        k7_bytes(fargs, 6), nf * (K7_OPS[0] + nqf * K7_OPS[1]))
+    add("ns_facet_natural_jac_p1", "K7 facet jacobian",
+        lambda: ns_facet_natural_jac_p1(*fargs),
+        lambda: ns_facet_natural_jac_plain(*fargs),
+        k7_bytes(fargs, 81), 9 * nf * (K7_JAC_OPS[0] + nqf * K7_JAC_OPS[1]))
     inv = rand(nb.n_nodes, nb.dim)
     coo_v = vals["coo"]
     sargs = (coo_v, nb._sp_e1, nb._sp_e2, nb._sp_K, inv)
@@ -383,10 +419,23 @@ def kernel_sites(torch, np, sc, seed=0):
 
 HBM_TBPS = 3.35  # an H100 SXM's device memory, TB/s (data sheet)
 FP32_TFLOPS = 67.0  # its float32 rate outside the tensor cores (data sheet)
-# K3's operations per cell and quadrature point, counted from
-# csrc/ns_cell_residual.cu (each add, multiply, division, square root,
-# min and max as one)
-K3_OPS_PER_POINT = 343
+# Operations (outside the point loop, per quadrature point), counted
+# from the sources with each add, multiply, reciprocal, reciprocal
+# square root, min and max as one. K3 (csrc/ns_cell_residual.cu, whose
+# header itemises both counts): the residual per cell; the Jacobian
+# needs the same values once a cell plus, for each of its three lanes
+# (three tangents each), the tangent operations whose result is not
+# structurally zero. The dual numbers as written do more (398 and 405 a
+# lane, values included): that is the implementation's count, not the
+# function's, and is not what the bound is made of. K7
+# (csrc/ns_facet_natural.cu): per facet, and per column of a facet
+# (nine lanes a facet, one tangent each; on dual numbers of n tangents
+# a sum of duals or a dual times a plain number is 1 + n and a product
+# of duals 1 + 3n).
+K3_OPS = (161, 117)
+K3_JAC_TANGENT_OPS = (117, 148)
+K7_OPS = (12, 103)
+K7_JAC_OPS = (12, 154)
 
 
 def nbytes(*ts):
@@ -415,11 +464,26 @@ def k2_bytes(src, row_ptr, pos):
 
 
 def k3_bytes(inputs, outputs):
-    """K3: u, u_prev, p, the dofmaps, cell coordinates and sizes, the
-    basis tables, and the element residuals once each."""
-    u, up, p, dmu, dmp, coords, h, tabs = inputs
-    return nbytes(u, up, p, dmu, dmp, coords, h, tabs.qw, tabs.phi_u,
+    """K3: u, u_prev, p, the dofmap (V and Q share it on the P1 path,
+    and the kernels read it once), cell coordinates and sizes, the basis
+    tables, and the outputs once each."""
+    u, up, p, dmu, _, coords, h, tabs = inputs
+    return nbytes(u, up, p, dmu, coords, h, tabs.qw, tabs.phi_u,
                   tabs.dphi_u, *outputs)
+
+
+def k3_ops(form, ops):
+    return form.cell_h.shape[0] * (ops[0] + form.tabs.qw.shape[0] * ops[1])
+
+
+def k7_bytes(fargs, out_per_facet):
+    """K7: the dofmaps, the facet cells' coordinates, the six per-facet
+    tables, the five gathered values (u, u_prev, p) of each of a
+    facet's three dofs, and the output, once each."""
+    u, _, _, dmu, dmp, coords, tabs, _ = fargs
+    keys = ("phi_u", "dphi_u", "phi_p", "gdphi", "normal", "dS")
+    return (nbytes(dmu, dmp, coords, *(tabs[k] for k in keys))
+            + dmu.shape[0] * (3 * 5 + out_per_facet) * u.element_size())
 
 
 def k4_bytes(vals, e1, e2, kcol, inv):
@@ -450,10 +514,9 @@ def flat_outputs(out):
 
 def phase_kernels(torch, np, sc, tol, timed):
     """Compare every kernel site with its plain version, and with a
-    second call of itself (bitwise). With `timed`, time the kernel, the
-    plain version and the library yardstick with a warm L2 and with the
-    L2 flushed before each call (cuda_ms(flush_l2=True)); returns
-    {site: row dict}."""
+    second call of itself (bitwise). With `timed`, time the kernel, the plain version and the library
+    yardstick with a warm L2 and with the L2 flushed before each call
+    (cuda_ms(flush_l2=True)); returns {site: row dict}."""
     from cfdtpu_torch.utils.cudatime import cuda_ms, device_ms
 
     def both(fn):
@@ -528,13 +591,19 @@ def phase_kernels(torch, np, sc, tol, timed):
 
 def phase_one_launch(torch, np, sc):
     """Each operator apply the solver calls is one device kernel: K1,
-    with no fill, copy or concatenation around it (torch.profiler)."""
+    with no fill, copy or concatenation around it; form.residual issues
+    K3 once, K7 once and K2 three times; form.element_jacobians issues
+    K3's and K7's Jacobian kernels and nothing else (torch.profiler)."""
+    from cfdtpu_torch.kernels.ns_cell_residual import ns_cell_jacobian_plain
+    from cfdtpu_torch.kernels.ns_facet_natural import (
+        ns_facet_natural_jac_plain, ns_facet_natural_plain)
     from cfdtpu_torch.utils.cudatime import device_kernels
 
     s = sc.solver
-    nb = s._nodebsr
+    f, nb = s.form, s._nodebsr
     u, up, p = developed_state(torch, np, s, 3)
-    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
+    prm = s.params()
+    vals = nb.assemble(*f.element_jacobians(u, p, (up,), prm))
     amg, bamg = nb.sp_amg(), nb.uu_amg(
         fine_smoother=nb.uu_ras(s.pc_ras_size, s.pc_ras_overlap))
     lv, _ = amg.build(nb.sp_vals(vals))
@@ -564,13 +633,54 @@ def phase_one_launch(torch, np, sc):
         require(len(names) == 1 and "sup_spmv" in names[0],
                 f"{label} issued {names}, not one K1 kernel")
         out[label] = names
+
+    def count(names, key):
+        return sum(key + "_kernel" in n for n in names)
+
+    # the element layer: device kernels per call, beside those of the
+    # plain facet term and the plain vmap(jacfwd) Jacobians on the card
+    cargs = (u, up, p, f.dofmap_u, f.dofmap_p, f.cell_coords, f.cell_h,
+             f.tabs, prm["rho"], prm["mu"], prm["dt"], prm["f"], f.eps)
+    fargs = f._fused_args(f._facet_blocks[0], u, p, (up,), prm)
+    res = device_kernels(lambda: f.residual(u, p, (up,), prm))
+    jac = device_kernels(lambda: f.element_jacobians(u, p, (up,), prm))
+    plain = {
+        "facet residual": device_kernels(
+            lambda: ns_facet_natural_plain(*fargs)),
+        "cell jacobians": device_kernels(
+            lambda: ns_cell_jacobian_plain(*cargs)),
+        "facet jacobians": device_kernels(
+            lambda: ns_facet_natural_jac_plain(*fargs)),
+    }
+    n_plain = {k: len(v) for k, v in plain.items()}
+    res_before = len(res) - 1 + n_plain["facet residual"]
+    jac_before = n_plain["cell jacobians"] + n_plain["facet jacobians"]
+    log(f"[one launch] form.residual: {len(res)} device kernels {res}; "
+        f"with the plain facet term ({n_plain['facet residual']} kernels) "
+        f"in K7's place: {res_before}")
+    log(f"[one launch] form.element_jacobians: {len(jac)} device kernels "
+        f"{jac}; as plain vmap(jacfwd) of the cell kernel "
+        f"({n_plain['cell jacobians']}) and of the facet kernel "
+        f"({n_plain['facet jacobians']}): {jac_before}")
+    require(count(res, "ns_cell_residual_p1") == 1
+            and count(res, "ns_facet_natural_p1") == 1
+            and count(res, "ell_sum") == 3,
+            f"form.residual issued {res}, not K3 once, K7 once and K2 "
+            "three times")
+    require(len(jac) == 2 and count(jac, "ns_cell_jacobian_p1") == 1
+            and count(jac, "ns_facet_natural_jac_p1") == 1,
+            f"form.element_jacobians issued {jac}, not one Jacobian kernel "
+            "per cell block and one per facet block")
+    out["form.residual"] = {"kernels": res, "with_plain_facet": res_before}
+    out["form.element_jacobians"] = {"kernels": jac, "plain": jac_before}
     return out
 
 
 def phase_determinism(torch, np, sc, trials=5):
-    """Two float32 residual calls on one state must be bitwise equal.
-    For the record, also how often the facet term's former atomic
-    index_add reproduced itself."""
+    """Two float32 residual calls on one state must be bitwise equal, and
+    two element_jacobians + assemble results too. For the record, also
+    how often the facet term's former atomic index_add reproduced
+    itself."""
     s = sc.solver
     f = s.form
     u, up, p = developed_state(torch, np, s, 7)
@@ -588,11 +698,19 @@ def phase_determinism(torch, np, sc, trials=5):
 
     ref = old()
     old_same = sum(torch.equal(old(), ref) for _ in range(trials))
+    nb = s._nodebsr
+    va, vb = (nb.assemble(*f.element_jacobians(u, p, (up,), prm))
+              for _ in range(2))
+    same_jac = all(torch.equal(va[k], vb[k]) for k in va)
     log(f"[determinism] float32 form.residual twice: bitwise equal "
-        f"{same}; the former facet index_add reproduced itself in "
+        f"{same}; element_jacobians + assemble twice: bitwise equal "
+        f"{same_jac}; the former facet index_add reproduced itself in "
         f"{old_same}/{trials} trials")
     require(same, "form.residual is not bitwise repeatable")
+    require(same_jac, "element_jacobians + assemble is not bitwise "
+                      "repeatable")
     return {"residual_bitwise_equal": same,
+            "jacobians_bitwise_equal": same_jac,
             "index_add_repeats": f"{old_same}/{trials}"}
 
 

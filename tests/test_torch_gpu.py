@@ -355,3 +355,98 @@ def test_k2_k6_call_sites_match_plain_and_repeat(sc, dt):
         got = ras_apply(inv, x, ras.s, ras.o, ras.d, b)
         _close_tol(got, ras_apply_plain(inv, x, ras.s, ras.o, ras.d, b), tol)
         assert torch.equal(got, ras_apply(inv, x, ras.s, ras.o, ras.d, b))
+
+
+def _element_args(s, dtype, seed):
+    """(K3's arguments, K7's arguments) at a random state in `dtype`."""
+    f, prm = s.form, s.params()
+    u, up, p = (t.to(dtype) for t in _state(s, seed))
+    up[: len(up) // 3] = 0  # cells at rest: tau's eps guard
+    cast = (lambda t: t.to(dtype).contiguous())
+    tabs = type(f.tabs)(**{
+        k: (cast(v) if torch.is_tensor(v) else v)
+        for k, v in vars(f.tabs).items()})
+    cargs = (u, up, p, f.dofmap_u, f.dofmap_p, cast(f.cell_coords),
+             cast(f.cell_h), tabs, prm["rho"], prm["mu"], prm["dt"],
+             prm["f"], float(np.finfo(np.dtype(str(dtype)[6:])).resolution))
+    fb = f._facet_blocks[0]
+    fargs = (u, up, p, fb["dofmap_u32"], fb["dofmap_p32"],
+             cast(fb["coords"]), {k: cast(v) for k, v in fb["tabs"].items()},
+             prm["mu"])
+    return cargs, fargs
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("entry", ["cell residual", "cell jacobian",
+                                   "facet residual", "facet jacobian"])
+def test_element_kernels_match_plain_and_repeat(sc, entry, dt):
+    """K3 (residual and Jacobian) and K7 (residual and Jacobian) against
+    their plain versions, two calls bitwise equal, one launch counted
+    per call."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels import ns_cell_residual as k3
+    from cfdtpu_torch.kernels import ns_facet_natural as k7
+
+    dtype, tol = _dev_tol(dt)
+    cargs, fargs = _element_args(sc.solver, dtype, seed=8)
+    kern, plain, args, name = {
+        "cell residual": (k3.ns_cell_residual_p1, k3.ns_cell_residual_plain,
+                          cargs, "ns_cell_residual_p1"),
+        "cell jacobian": (k3.ns_cell_jacobian_p1, k3.ns_cell_jacobian_plain,
+                          cargs, "ns_cell_jacobian_p1"),
+        "facet residual": (k7.ns_facet_natural_p1, k7.ns_facet_natural_plain,
+                           fargs, "ns_facet_natural_p1"),
+        "facet jacobian": (k7.ns_facet_natural_jac_p1,
+                           k7.ns_facet_natural_jac_plain, fargs,
+                           "ns_facet_natural_jac_p1"),
+    }[entry]
+    kernels.reset_counts()
+    got, again, ref = kern(*args), kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    as_tuple = (lambda o: o if isinstance(o, tuple) else (o,))
+    for g, a, r in zip(as_tuple(got), as_tuple(again), as_tuple(ref)):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        _close_tol(g, r, tol)
+        assert torch.equal(g, a)
+    assert kernels.counts()[name] == 2
+
+
+def test_element_kernels_reject_other_forms(sc):
+    """On CUDA tensors a form that is not P1 raises: no fallback."""
+    import dataclasses
+
+    from cfdtpu_torch.kernels import ns_cell_residual as k3
+    from cfdtpu_torch.kernels import ns_facet_natural as k7
+
+    cargs, fargs = _element_args(sc.solver, torch.float64, seed=1)
+    other = cargs[:7] + (dataclasses.replace(cargs[7], p1=False),) + cargs[8:]
+    for kern in (k3.ns_cell_residual_p1, k3.ns_cell_jacobian_p1):
+        with pytest.raises(NotImplementedError):
+            kern(*other)
+    p2 = fargs[:3] + (fargs[3].repeat(1, 2), fargs[4]) + fargs[5:]
+    for kern in (k7.ns_facet_natural_p1, k7.ns_facet_natural_jac_p1):
+        with pytest.raises(NotImplementedError):
+            kern(*p2)
+
+
+def test_form_calls_issue_only_the_fused_kernels(sc):
+    """form.residual issues K3 once, K7 once and K2 three times;
+    form.element_jacobians exactly two device kernels, K3's and K7's
+    Jacobians (torch.profiler)."""
+    from cfdtpu_torch.utils.cudatime import device_kernels
+
+    s = sc.solver
+    u, up, p = _state(s, seed=6)
+    prm = s.params()
+    res = device_kernels(lambda: s.form.residual(u, p, (up,), prm))
+    jac = device_kernels(lambda: s.form.element_jacobians(u, p, (up,), prm))
+
+    def count(names, key):
+        return sum(key + "_kernel" in n for n in names)
+
+    assert count(res, "ns_cell_residual_p1") == 1, res
+    assert count(res, "ns_facet_natural_p1") == 1, res
+    assert count(res, "ell_sum") == 3, res
+    assert len(jac) == 2, jac
+    assert count(jac, "ns_cell_jacobian_p1") == 1, jac
+    assert count(jac, "ns_facet_natural_jac_p1") == 1, jac
