@@ -15,6 +15,20 @@
 //                  = b[pos] - y                        mode 1 (residual)
 //                  = x[pos] + omega*(b[pos]-y)/d[pos]  mode 2 (l1-Jacobi)
 //
+// Two options around the modes, each a template parameter, so the modes
+// without them compile to the code they had before the options existed:
+// - SCALE, an input scale: X is gathered as sc[i] * x[i] (one flat x
+//   only), and mode 2's x[pos] is sc[pos] * x[pos] too. It carries
+//   diag(Auu)^-1 into the SELFP Schur action's Apu, the 0/1 Dirichlet
+//   mask into the near-true one's, and omega/d into the first l1-Jacobi
+//   sweep of an AMG level from x0 = 0 (la/amg.py).
+// - MASK, a row mask on the output: where mask[pos] is set, out[pos] is
+//   mv[pos] (mv given) or 0, whatever the mode gave. It is the identity
+//   Dirichlet rows of the outer operator and of Auu (mv = v), the zero
+//   rows of Aup, and the pressure-Dirichlet rows of S (mv = v_p).
+// The order of operations is fixed: the row sum y, then the mode (so the
+// residual is b - y, rounded once), then the mask.
+//
 // X is never built. It is read from the solver's flat vector(s): one
 // vector x0 of w0 = C values per supernode, or two (u at width w0 = g*d,
 // p at width C - w0), and an index past a vector's length, or the
@@ -65,8 +79,11 @@
 //   the 176-192 products of one thread per row. The partial sums meet in
 //   a fixed xor-shuffle tree: two calls are bitwise equal, with no
 //   atomics (each row has one owner).
-// - x and y in the solver's flat layouts (above), and the residual and
-//   l1-Jacobi epilogues, so an apply is one launch.
+// - x and y in the solver's flat layouts (above), the residual and
+//   l1-Jacobi epilogues, the input scale and the row mask, so an apply,
+//   with the elementwise work around it in cfdtpu (la/schur.py:45-87,
+//   287-300, 350-357, solvers/stabilized_schur.py:455-461, the first
+//   pre-smooth of la/amg.py:520, 701), is one launch.
 // A narrow row whose values are not 16-byte chunks (width 1) takes the
 // same kernel with one value per lane (VEC = 1).
 
@@ -103,6 +120,9 @@ struct Args {
   const T* b;
   const T* d;
   T omega;
+  const T* sc;                // SCALE: the input scale, x's length
+  const unsigned char* mask;  // MASK: one byte per output row
+  const T* mv;                // MASK: the masked rows' values, or null
   int CV, KS, lg;  // chunks per row, k splits, log2 of lanes per row set
   int n_lanes;     // (ns * R / RPL) << lg
 };
@@ -138,7 +158,7 @@ __device__ __forceinline__ Chunk<T, VEC> load_chunk(const T* p) {
 // X[col, c0 : c0 + VEC] from the flat segment(s); zero past an end and
 // for the padded slot. For VEC > 1 the host guarantees w0 % VEC == 0, so
 // a chunk never straddles the two segments.
-template <typename T, int VEC>
+template <typename T, int VEC, bool SCALE>
 __device__ __forceinline__ Chunk<T, VEC> load_x(const Args<T>& p, int col,
                                                 int c0) {
   Chunk<T, VEC> c;
@@ -155,6 +175,22 @@ __device__ __forceinline__ Chunk<T, VEC> load_x(const Args<T>& p, int col,
     i = (int64_t)col * (p.C - p.w0) + (c0 - p.w0);
     m = p.m1;
     al = p.xa1;
+  }
+  if constexpr (SCALE) {  // one segment (the host checks): sc is x's twin
+    Chunk<T, VEC> xv, sv;
+    if (VEC > 1 && al >= 16 && i + VEC <= m) {  // al: both vectors' class
+      xv = load_chunk<T, VEC, false>(base + i);
+      sv = load_chunk<T, VEC, false>(p.sc + i);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        xv.v[e] = i + e < m ? __ldg(base + i + e) : T(0);
+        sv.v[e] = i + e < m ? __ldg(p.sc + i + e) : T(0);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) c.v[e] = sv.v[e] * xv.v[e];
+    return c;
   }
   if (VEC > 1 && al >= 16 && i + VEC <= m) {
     return load_chunk<T, VEC, false>(base + i);
@@ -176,7 +212,7 @@ __device__ __forceinline__ Chunk<T, VEC> load_x(const Args<T>& p, int col,
 }
 
 // the epilogue: row r of supernode s to its place in the flat output
-template <typename T>
+template <typename T, bool SCALE, bool MASK>
 __device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
                                           T acc) {
   int64_t pos;
@@ -194,7 +230,11 @@ __device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
   if (p.mode == 1) {
     y = p.b[pos] - acc;
   } else if (p.mode == 2) {
-    y = p.x0[pos] + p.omega * (p.b[pos] - acc) / p.d[pos];
+    const T xv = SCALE ? p.sc[pos] * p.x0[pos] : p.x0[pos];
+    y = xv + p.omega * (p.b[pos] - acc) / p.d[pos];
+  }
+  if constexpr (MASK) {
+    if (p.mask[pos]) y = p.mv != nullptr ? p.mv[pos] : T(0);
   }
   p.out[pos] = y;
 }
@@ -202,7 +242,7 @@ __device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
 // A lane sums RPL rows of one supernode, r0 + j*R/RPL (j < RPL), over its
 // share of the blocks and of the columns: each gathered x chunk serves
 // RPL rows.
-template <typename T, int VEC, int RPL>
+template <typename T, int VEC, int RPL, bool SCALE, bool MASK>
 __global__ void __launch_bounds__(kThreads)
     sup_spmv_kernel(const Args<T> p) {
   const int G = 1 << p.lg;
@@ -238,7 +278,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           if (kb + u * KS < Kg) {
-            const Chunk<T, VEC> xv = load_x<T, VEC>(p, cv[u], c0);
+            const Chunk<T, VEC> xv = load_x<T, VEC, SCALE>(p, cv[u], c0);
 #pragma unroll
             for (int j = 0; j < RPL; ++j) {
 #pragma unroll
@@ -258,14 +298,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (g == 0 && t < p.n_lanes) {
 #pragma unroll
-      for (int j = 0; j < RPL; ++j) store_row(p, s, r0 + j * Rq, acc[j]);
+      for (int j = 0; j < RPL; ++j) {
+        store_row<T, SCALE, MASK>(p, s, r0 + j * Rq, acc[j]);
+      }
     }
   }
 }
 
-template <typename T, int VEC, int RPL>
+template <typename T, int VEC, int RPL, bool SCALE, bool MASK>
 int launch(const Args<T>& a, cudaStream_t st) {
-  const auto fn = sup_spmv_kernel<T, VEC, RPL>;
+  const auto fn = sup_spmv_kernel<T, VEC, RPL, SCALE, MASK>;
   // resident blocks on the card, per instantiation (one card per process)
   static int resident = 0;
   if (resident == 0) {
@@ -284,13 +326,24 @@ int launch(const Args<T>& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool SCALE, bool MASK>
+int shapes(const Args<T>& a, int vec, int rpl, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec == 1 && rpl == 1) return launch<T, 1, 1, SCALE, MASK>(a, st);
+  if (vec != V) return (int)cudaErrorInvalidValue;
+  if (rpl == 1) return launch<T, V, 1, SCALE, MASK>(a, st);
+  if (rpl == 2) return launch<T, V, 2, SCALE, MASK>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int run(const void* A, int64_t sA0, int64_t sA1, int64_t sA2,
         const void* cols, int ns, int Kg, int R, int C, const void* x0,
         int64_t m0, int w0, int xa0, const void* x1, int64_t m1, int xa1,
         void* out, int64_t n0, int R0, int64_t n1, int mode, const void* b,
-        const void* d, double omega, int vec, int rpl, int CV, int KS,
-        int lg, void* stream) {
+        const void* d, double omega, const void* sc, const void* mask,
+        const void* mv, int vec, int rpl, int CV, int KS, int lg,
+        void* stream) {
   Args<T> a;
   a.A = static_cast<const T*>(A);
   a.sA0 = sA0;
@@ -316,17 +369,20 @@ int run(const void* A, int64_t sA0, int64_t sA1, int64_t sA2,
   a.b = static_cast<const T*>(b);
   a.d = static_cast<const T*>(d);
   a.omega = static_cast<T>(omega);
+  a.sc = static_cast<const T*>(sc);
+  a.mask = static_cast<const unsigned char*>(mask);
+  a.mv = static_cast<const T*>(mv);
   a.CV = CV;
   a.KS = KS;
   a.lg = lg;
   a.n_lanes = (int)(((int64_t)ns * (R / rpl)) << lg);
   const auto st = static_cast<cudaStream_t>(stream);
-  constexpr int V = 16 / sizeof(T);
-  if (vec == 1 && rpl == 1) return launch<T, 1, 1>(a, st);
-  if (vec != V) return (int)cudaErrorInvalidValue;
-  if (rpl == 1) return launch<T, V, 1>(a, st);
-  if (rpl == 2) return launch<T, V, 2>(a, st);
-  return (int)cudaErrorInvalidValue;
+  if (sc != nullptr) {
+    return mask != nullptr ? shapes<T, true, true>(a, vec, rpl, st)
+                           : shapes<T, true, false>(a, vec, rpl, st);
+  }
+  return mask != nullptr ? shapes<T, false, true>(a, vec, rpl, st)
+                         : shapes<T, false, false>(a, vec, rpl, st);
 }
 
 }  // namespace
@@ -336,17 +392,22 @@ extern "C" int cfd_sup_spmv(
     int ns, int Kg, int R, int C, const void* x0, int64_t m0, int w0,
     int xa0, const void* x1, int64_t m1, int xa1, void* out, int64_t n0,
     int R0, int64_t n1, int mode, const void* b, const void* d,
-    double omega, int vec, int rpl, int CV, int KS, int lg, int is_f64,
-    void* stream) {
+    double omega, const void* sc, const void* mask, const void* mv, int vec,
+    int rpl, int CV, int KS, int lg, int is_f64, void* stream) {
   if (ns <= 0 || n0 + n1 <= 0) return (int)cudaGetLastError();
   if (lg < 0 || lg > 5 || CV < 1 || KS < 1 || CV * KS > (1 << lg) ||
       rpl < 1 || R % rpl || ((int64_t)ns * (R / rpl) << lg) >= (1LL << 30)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (sc != nullptr && (C != w0 || m1 != 0)) {  // the scale: one x only
+    return (int)cudaErrorInvalidValue;
+  }
   return is_f64 ? run<double>(A, sA0, sA1, sA2, cols, ns, Kg, R, C, x0, m0,
                               w0, xa0, x1, m1, xa1, out, n0, R0, n1, mode, b,
-                              d, omega, vec, rpl, CV, KS, lg, stream)
+                              d, omega, sc, mask, mv, vec, rpl, CV, KS, lg,
+                              stream)
                 : run<float>(A, sA0, sA1, sA2, cols, ns, Kg, R, C, x0, m0,
                              w0, xa0, x1, m1, xa1, out, n0, R0, n1, mode, b,
-                             d, omega, vec, rpl, CV, KS, lg, stream);
+                             d, omega, sc, mask, mv, vec, rpl, CV, KS, lg,
+                             stream);
 }

@@ -125,6 +125,10 @@ class StabilizedNSForm:
         self._scatter_flat = SortedScatter(self._dmf_np, self.n_flat,
                                            device=dev)
 
+        # sorted scatters of the sub-block row maps (apply_sub_block),
+        # built at first use: {(block index or -1 for the cells, "u" or
+        # "p"): SortedScatter}
+        self._row_scatters: dict = {}
         self._facet_blocks: list[dict] = []
         if boundary_correction and len(mesh.facets):
             self.add_facet_term(
@@ -177,6 +181,9 @@ class StabilizedNSForm:
             "dofmap_p32": torch.as_tensor(dm_p.astype(np.int32), device=dev),
             # deterministic facet -> node reduction (K2), cf. _scatter_u
             "scatter_u": SortedScatter(dm_u, self.V.num_dofs, device=dev),
+            # the same for the element-block operator (flat dof layout)
+            "scatter_flat": SortedScatter(self._dmf_np[cells], self.n_flat,
+                                          device=dev),
             "dofmap_flat_np": self._dmf_np[cells],
             "dofmap_flat": torch.as_tensor(
                 self._dmf_np[cells].astype(np.int64), device=dev),
@@ -245,14 +252,24 @@ class StabilizedNSForm:
     # element-block operator (used by the pressure-nullspace test; the
     # solve path applies the assembled node-BSR operator)
     # ------------------------------------------------------------------
+    def _facet_pairs(self, A_blocks):
+        """(facet block, (dofmap_flat, A_f)) for each facet term, A_blocks
+        as element_jacobians returns them."""
+        if len(A_blocks) != len(self._facet_blocks):
+            raise ValueError(f"{len(A_blocks)} facet blocks given, the form "
+                             f"has {len(self._facet_blocks)}")
+        return zip(self._facet_blocks, A_blocks)
+
     def apply_element_matrices(self, A_cells, A_blocks, v_flat):
-        """y = A v with A given as element blocks; flat dof layout."""
+        """y = A v with A given as element blocks; flat dof layout. Each
+        block's rows are summed by K2 over its sorted scatter (cfdtpu:
+        .at[].add), cells first, then the facet blocks in order."""
         ve = v_flat[self.dofmap_flat]  # (nc, nloc)
         ye = torch.einsum("cab,cb->ca", A_cells, ve)
         y = self._scatter_flat(ye.reshape(-1))
-        for dmf, A_f in A_blocks:
+        for block, (dmf, A_f) in self._facet_pairs(A_blocks):
             yf = torch.einsum("fab,fb->fa", A_f, v_flat[dmf])
-            y = y.index_add(0, dmf.reshape(-1), yf.reshape(-1))
+            y = y + block["scatter_flat"](yf.reshape(-1))
         return y
 
     @property
@@ -275,20 +292,33 @@ class StabilizedNSForm:
             dr = dm[:, rs] if row_u else dm[:, rs] - n_u_flat
             return dc, dr
 
-        y = torch.zeros((n_out,), dtype=v.dtype, device=v.device)
-        for dm, A in [(self.dofmap_flat, A_cells), *A_blocks]:
+        y = None
+        blocks = [(-1, self.dofmap_flat, A_cells)]
+        blocks += [(k, dmf, A_f) for k, (_, (dmf, A_f))
+                   in enumerate(self._facet_pairs(A_blocks))]
+        for key, dm, A in blocks:
             dc, dr = split(dm)
             ye = torch.einsum("cab,cb->ca", A[:, rs, cs], v[dc])
-            y = y.index_add(0, dr.reshape(-1), ye.reshape(-1))
+            yb = self._row_scatter(key, which[0], dr, n_out)(ye.reshape(-1))
+            y = yb if y is None else y + yb
         return y
+
+    def _row_scatter(self, key, row: str, dr, n_out: int):
+        """The sorted scatter (K2) of one block's sub-block row map `dr`
+        (rows "u" or "p"), built once."""
+        scat = self._row_scatters.get((key, row))
+        if scat is None:
+            scat = SortedScatter(dr.cpu().numpy(), n_out, device=self.device)
+            self._row_scatters[(key, row)] = scat
+        return scat
 
     def jacobian_diagonal(self, A_cells, A_blocks):
         """Assembled diagonal of the element-block operator."""
         d = self._scatter_flat(
             torch.diagonal(A_cells, dim1=1, dim2=2).reshape(-1))
-        for dmf, A_f in A_blocks:
-            d = d.index_add(0, dmf.reshape(-1),
-                            torch.diagonal(A_f, dim1=1, dim2=2).reshape(-1))
+        for block, (_, A_f) in self._facet_pairs(A_blocks):
+            d = d + block["scatter_flat"](
+                torch.diagonal(A_f, dim1=1, dim2=2).reshape(-1))
         return d
 
     # ------------------------------------------------------------------

@@ -37,11 +37,11 @@ F64 = ctypes.c_double
 # argument signatures of the C entry points (see the .cu files)
 SIGNATURES = {
     # A, A strides (3), cols, ns, Kg, R, C, x0, m0, w0, xa0, x1, m1, xa1,
-    # out, n0, R0, n1, mode, b, d, omega, vec, rpl, CV, KS, lg, is_f64,
-    # stream
+    # out, n0, R0, n1, mode, b, d, omega, scale, mask, mask_value, vec,
+    # rpl, CV, KS, lg, is_f64, stream
     "cfd_sup_spmv": [P, I64, I64, I64, P, I32, I32, I32, I32, P, I64, I32,
                      I32, P, I64, I32, P, I64, I32, I64, I32, P, P, F64,
-                     I32, I32, I32, I32, I32, I32, P],
+                     P, P, P, I32, I32, I32, I32, I32, I32, P],
     # src, row_ptr, pos, out, n_out, F, G, loads, is_f64, stream
     "cfd_ell_sum": [P, P, P, P, I64, I64, I32, I32, I32, P],
     # u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
@@ -61,6 +61,12 @@ SIGNATURES = {
     "cfd_patch_spmv": [P, P, P, P, I64, I64, I64, I32, P],
     # inv, x, base, out, n, d, s, o, per_block, blocks, bulk, is_f64, stream
     "cfd_ras_apply": [P, P, P, P, I64, I64, I64, I64, I64, I64, I32, I32, P],
+    # xc, agg, x, scale, out, n, width, is_f64, stream
+    "cfd_amg_prolong": [P, P, P, P, P, I64, I32, I32, P],
+    # V, n, j, w, h, h stride, reorth, scratch, blocks, tiny, is_f64, stream
+    "cfd_krylov_cgs": [P, I64, I32, P, P, I64, I32, P, I32, F64, I32, P],
+    # H, m, beta, Z, n, out, blocks, tiny, is_f64, stream
+    "cfd_krylov_lsq": [P, I32, P, P, I64, P, I32, F64, I32, P],
     # stream (csrc/empty.cu: the launch floor, not a kernel of the port)
     "cfd_empty": [P],
 }

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 FLOATS = (torch.float32, torch.float64)
@@ -47,3 +49,9 @@ def stream_handle(t: torch.Tensor) -> int:
 
 def is_f64(t: torch.Tensor) -> int:
     return 1 if t.dtype == torch.float64 else 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    """The multiprocessor count of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

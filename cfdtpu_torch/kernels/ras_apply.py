@@ -14,13 +14,11 @@ cfdtpu/la/ras.py RASPrecond.apply; `base` is the smoother's x + RAS(r).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import COUNTERS
 from ._common import (check_float, check_same_device, is_f64, on_cuda,
-                      require, stream_handle)
+                      require, sm_count, stream_handle)
 
 _COUNT = COUNTERS["ras_apply"]
 MAX_SMEM = 232448  # shared memory a block may opt in to on an H100
@@ -76,11 +74,6 @@ def ras_plan(nd, sd, m, elem_size, ptr, n_sm):
     return per_block, -(-nd // per_block), bulk
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def ras_apply(inv, x, s, o, d, base=None):
     check_float("inv", inv)
     check_float("x", x, inv.dtype)
@@ -106,7 +99,7 @@ def ras_apply(inv, x, s, o, d, base=None):
             "ras_apply: inv, x and base must be contiguous")
     per_block, blocks, bulk = ras_plan(n * d, sd, m, inv.element_size(),
                                        inv.data_ptr(),
-                                       _sm_count(x.device.index))
+                                       sm_count(x.device.index))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = library().cfd_ras_apply(

@@ -21,6 +21,12 @@ returned as
     mode "y":        y
     mode "residual": b - y
     mode "jacobi":   x + omega * (b - y) / d   (x is the gathered vector)
+
+and two options around every mode:
+    scale (x's shape; x_split None): x is read as scale * x, in the
+        gather and in mode "jacobi"'s x alike;
+    mask (bool, n_out): the masked rows return mask_value (n_out) or 0,
+        whatever the mode gave.
 """
 
 from __future__ import annotations
@@ -49,10 +55,14 @@ def _pad_rows(v, ns: int, width: int):
 
 
 def sup_spmv_plain(A, cols, x, n_out, mode="y", b=None, d=None, omega=0.0,
-                   x_split=None, y_split=None):
+                   x_split=None, y_split=None, scale=None, mask=None,
+                   mask_value=None):
     """The plain PyTorch version: the padded supernode rows, the gather
-    and the batched einsum, as cfdtpu's jnp operator applies do."""
+    and the batched einsum, as cfdtpu's jnp operator applies do, then the
+    elementwise ops around them in cfdtpu, in the kernel's order."""
     ns, _, R, C = A.shape
+    if scale is not None:
+        x = scale * x
     if x_split is None:
         X = _pad_rows(x, ns, C)
     else:
@@ -67,9 +77,11 @@ def sup_spmv_plain(A, cols, x, n_out, mode="y", b=None, d=None, omega=0.0,
         y = torch.cat([y[:, :R0].reshape(-1)[:n0],
                        y[:, R0:].reshape(-1)[: n_out - n0]])
     if mode == "residual":
-        return b - y
-    if mode == "jacobi":
-        return x + omega * (b - y) / d
+        y = b - y
+    elif mode == "jacobi":
+        y = x + omega * (b - y) / d
+    if mask is not None:
+        y = torch.where(mask, 0.0 if mask_value is None else mask_value, y)
     return y
 
 
@@ -130,7 +142,8 @@ def launch_plan(A, x_split=None) -> Plan:
     return Plan(vec, cv, min(lanes // cv, Kg), lanes, rpl)
 
 
-def _check(A, cols, x, n_out, mode, b, d, x_split, y_split):
+def _check(A, cols, x, n_out, mode, b, d, x_split, y_split, scale, mask,
+           mask_value):
     require(mode in MODES, f"sup_spmv: unknown mode {mode!r}")
     require(A.dim() == 4, "sup_spmv: A must be (ns, Kg, R, C)")
     ns, Kg, R, C = A.shape
@@ -168,24 +181,48 @@ def _check(A, cols, x, n_out, mode, b, d, x_split, y_split):
             check_float(name, t, A.dtype)
             require(tuple(t.shape) == (n_out,) and t.is_contiguous(),
                     f"sup_spmv: {name} must be contiguous ({n_out},)")
+    if scale is not None:
+        require(x_split is None, "sup_spmv: scale needs one flat x")
+        check_float("scale", scale, A.dtype)
+        require(scale.shape == x.shape and scale.is_contiguous(),
+                "sup_spmv: scale must be contiguous, of x's shape")
+    if mask is not None:
+        require(mask.dtype == torch.bool and tuple(mask.shape) == (n_out,)
+                and mask.is_contiguous(),
+                f"sup_spmv: mask must be contiguous bool ({n_out},)")
+    if mask_value is not None:
+        require(mask is not None, "sup_spmv: mask_value needs a mask")
+        check_float("mask_value", mask_value, A.dtype)
+        require(tuple(mask_value.shape) == (n_out,)
+                and mask_value.is_contiguous(),
+                f"sup_spmv: mask_value must be contiguous ({n_out},)")
     check_same_device(("A", A), ("cols", cols), ("x", x), ("b", b),
-                      ("d", d))
+                      ("d", d), ("scale", scale), ("mask", mask),
+                      ("mask_value", mask_value))
 
 
 def sup_spmv(A, cols, x, n_out=None, mode="y", b=None, d=None, omega=0.0,
-             x_split=None, y_split=None):
+             x_split=None, y_split=None, scale=None, mask=None,
+             mask_value=None):
     if n_out is None:
         n_out = A.shape[0] * A.shape[2]
-    _check(A, cols, x, n_out, mode, b, d, x_split, y_split)
+    opts = (scale, mask, mask_value)
+    _check(A, cols, x, n_out, mode, b, d, x_split, y_split, *opts)
     if not on_cuda(A):
         return sup_spmv_plain(A, cols, x, n_out, mode, b, d, omega, x_split,
-                              y_split)
+                              y_split, *opts)
     return _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
-                   launch_plan(A, x_split))
+                   launch_plan(A, x_split), *opts)
+
+
+def _align(p: int) -> int:
+    """A segment's alignment class: read in 16-byte pieces at 16, in pairs
+    of 8-byte pieces at 8."""
+    return 16 if p % 16 == 0 else 8 if p % 8 == 0 else 0
 
 
 def _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
-            plan: Plan):
+            plan: Plan, scale=None, mask=None, mask_value=None):
     """One kernel launch into one torch.empty, with the given plan."""
     from ._build import check, library
 
@@ -196,16 +233,18 @@ def _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
     m = MODES[mode]
     x0 = x.data_ptr()
     x1 = x0 + m0 * x.element_size()
-    # each segment's alignment: read in 16-byte pieces at 16, in pairs of
-    # 8-byte pieces at 8
-    xa0, xa1 = ((16 if p % 16 == 0 else 8 if p % 8 == 0 else 0)
-                if plan.vec > 1 else 0 for p in (x0, x1))
+    xa0, xa1 = (_align(p) if plan.vec > 1 else 0 for p in (x0, x1))
+    if scale is not None:  # read beside x in the same pieces
+        xa0 = min(xa0, _align(scale.data_ptr()))
+        xa0 = xa0 if xa0 == 16 else 0
     with torch.cuda.device(A.device):
         rc = library().cfd_sup_spmv(
             A.data_ptr(), *A.stride()[:3], cols.data_ptr(), ns, Kg, R, C,
             x0, m0, w0, xa0, x1, x.shape[0] - m0, xa1, out.data_ptr(), n0,
             R0, n_out - n0, m, b.data_ptr() if m >= 1 else None,
-            d.data_ptr() if m == 2 else None, float(omega), plan.vec,
+            d.data_ptr() if m == 2 else None, float(omega),
+            *(None if t is None else t.data_ptr()
+              for t in (scale, mask, mask_value)), plan.vec,
             plan.rpl, plan.cv, plan.ks, plan.lanes.bit_length() - 1,
             is_f64(A), stream_handle(A),
         )

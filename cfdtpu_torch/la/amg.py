@@ -12,8 +12,12 @@ for the node-block levels), with its epilogues fusing the l1-Jacobi
 update and the pre-restriction residual; restriction and Galerkin value
 coarsening are K2 (ell_sum) over SortedScatter maps of the aggregates
 and of the coarse entry map (width d and d*d for the block variants);
-the RAS smoother is K6 (ras_apply) with its x + RAS(r) epilogue.
-Prolongation is an index gather; the coarsest solve a dense inverse.
+the RAS smoother is K6 (ras_apply) with its x + RAS(r) epilogue; the
+coarse-grid correction x + P xc is K8 (amg_prolong). The first l1-Jacobi
+pre-smooth from x0 = 0, x = omega b / d, is never stored at n_smooth = 1:
+the level's residual is K1 on b with the input scale s = omega / d (kept
+per level in the built state) and the correction is K8 on the base s b.
+The coarsest solve is a dense inverse.
 
 Not ported yet: the K-cycle (_gcr2), Chebyshev smoothing, the W-cycle
 and the weighted p-multigrid level (PLevel). Their flags raise
@@ -25,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.amg_prolong import amg_prolong
 from ..kernels.sup_spmv import sup_spmv
 from ..utils.geometry import SortedScatter
 from .superell import SuperMaps, place
@@ -93,19 +98,20 @@ class AMGLevel:
 
     restrict and coarsen_vals (and their node-block variants) are K2
     reductions (SortedScatter over the aggregate ids and over the coarse
-    entry ids); prolong is a gather."""
+    entry ids); the cycle's x + P xc is K8 (prolong_add). `agg` is int32
+    on the device."""
 
     __slots__ = ("agg", "n_coarse", "_restrict", "_coarsen",
                  "row", "col", "n", "_coarse_coo")
 
     def __init__(self, row, col, n, agg_row=None, agg_col=None,
-                 pairwise=False, device="cpu"):
+                 pairwise=False, *, device):
         self.row, self.col, self.n = row, col, n
         if agg_row is None:
             agg_row, agg_col = row, col
         agg = build_aggregates(agg_row, agg_col, n, pairwise=pairwise)
         self.n_coarse = int(agg.max()) + 1
-        self.agg = torch.as_tensor(agg, device=device)
+        self.agg = torch.as_tensor(agg.astype(np.int32), device=device)
         # Galerkin P0^T A P0: fine entry (i, j) accumulates into coarse
         # entry (agg i, agg j)
         ckeys = agg[row].astype(np.int64) * self.n_coarse + agg[col]
@@ -126,8 +132,11 @@ class AMGLevel:
     def restrict(self, r):
         return self._restrict(r)
 
-    def prolong(self, xc):
-        return xc[self.agg]
+    def prolong_add(self, xc, x, width: int = 1, scale=None):
+        """x + P xc (scale * x + P xc with scale), one K8 launch: cfdtpu's
+        x + prolong(xc), or x + prolong_block(xc, d) at width d for
+        node-block vectors."""
+        return amg_prolong(xc, self.agg, width, x, scale)
 
     # node-block variants: (nnz, d, d) blocks sum wholesale, (n*d,)
     # vectors are component-major per node
@@ -136,9 +145,6 @@ class AMGLevel:
 
     def restrict_block(self, r, d):
         return self._restrict(r.reshape(-1, d)).reshape(-1)
-
-    def prolong_block(self, xc, d):
-        return xc.reshape(-1, d)[self.agg].reshape(-1)
 
 
 class AMG:
@@ -153,7 +159,7 @@ class AMG:
                  agg_col: np.ndarray | None = None,
                  pairwise: bool = False, kcycle: bool = False,
                  cheby_degree: int = 0, wcycle: bool = False,
-                 linear_parents=None, device="cpu"):
+                 linear_parents=None, *, device):
         """row/col: COO graph of the operator. agg_row/agg_col: optional
         sparser graph to aggregate on (the distance-1 node graph for the
         distance-2 SELFP matrix keeps aggregates at ~7 nodes)."""
@@ -223,11 +229,13 @@ class AMG:
     def build(self, vals):
         """Galerkin-coarsen the values, precompute the l1 smoothing
         diagonals and the dense inverse of the coarsest level; returns
-        (per-level (sup values, l1 diagonal), coarsest inverse)."""
+        (per-level (sup values, l1 diagonal, omega / diagonal), coarsest
+        inverse)."""
         out = []
         for k, lvl in enumerate(self.levels):
             ev = self._place(k, vals)
-            out.append((ev, self._l1_diag_sup(k, ev)))
+            d = self._l1_diag_sup(k, ev)
+            out.append((ev, d, self.omega / d))
             vals = lvl.coarsen_vals(vals)
         m = self.n_coarsest
         A = torch.zeros((m * m,), dtype=vals.dtype, device=vals.device)
@@ -238,12 +246,14 @@ class AMG:
         # dense inverse: the coarsest solve is then one matvec per cycle
         return out, torch.linalg.inv(A)
 
-    def _matvec(self, k, sup_vals, x, mode="y", b=None, d=None):
+    def _matvec(self, k, sup_vals, x, mode="y", b=None, d=None,
+                scale=None):
         """Level-k y = A x (K1), or with its epilogue: mode "residual"
-        gives b - A x, mode "jacobi" gives x + omega (b - A x) / d."""
+        gives b - A x, mode "jacobi" gives x + omega (b - A x) / d; with
+        scale, x is read as scale * x."""
         maps, _ = self.sup[k]
         return sup_spmv(sup_vals, maps.sup_cols, x, n_out=maps.n,
-                        mode=mode, b=b, d=d, omega=self.omega)
+                        mode=mode, b=b, d=d, omega=self.omega, scale=scale)
 
     def _l1_diag_sup(self, k, sup_vals):
         """l1-Jacobi smoothing diagonal d_i = sum_j |A_ij| (a plain
@@ -269,13 +279,22 @@ class AMG:
         def descend(k, b):
             if k == nl:
                 return coarse_inv @ b
-            vals, d = level_vals[k]
-            # first pre-smooth from x0 = 0 needs no matvec: x = w b/d
-            x = self.omega * b / d
-            x = smooth(k, vals, d, x, b, self.n_smooth - 1)
-            r = self._matvec(k, vals, x, mode="residual", b=b)
-            xc = descend(k + 1, self.levels[k].restrict(r))
-            x = x + self.levels[k].prolong(xc)
+            vals, d, s = level_vals[k]
+            lvl = self.levels[k]
+            # the first pre-smooth from x0 = 0 is x = s b (s = omega / d):
+            # K1 reads it through its input scale and K8 adds to it, so
+            # at n_smooth = 1 it is never stored
+            if self.n_smooth == 1:
+                r = self._matvec(k, vals, b, mode="residual", b=b, scale=s)
+                xc = descend(k + 1, lvl.restrict(r))
+                x = lvl.prolong_add(xc, b, scale=s)
+            else:
+                x = self._matvec(k, vals, b, mode="jacobi", b=b, d=d,
+                                 scale=s)
+                x = smooth(k, vals, d, x, b, self.n_smooth - 2)
+                r = self._matvec(k, vals, x, mode="residual", b=b)
+                xc = descend(k + 1, lvl.restrict(r))
+                x = lvl.prolong_add(xc, x)
             return smooth(k, vals, d, x, b, self.n_smooth)
 
         return descend(0, b)
@@ -319,15 +338,16 @@ class BlockAMG(AMG):
 
     def build(self, vals):
         """vals: (nnz, d, d) block values on the finest graph. Returns
-        (per-level (sup values, l1 diagonal), coarsest inverse, RAS
-        window inverses or None)."""
+        (per-level (sup values, l1 diagonal, omega / diagonal), coarsest
+        inverse, RAS window inverses or None)."""
         d = self.d
         ras_inv = (self.fine_smoother.build(vals)
                    if self.fine_smoother is not None else None)
         out = []
         for k, lvl in enumerate(self.levels):
             ev = self._place_block(k, vals)
-            out.append((ev, self._l1_diag_block(k, ev)))
+            dg = self._l1_diag_block(k, ev)
+            out.append((ev, dg, self.omega / dg))
             vals = lvl.coarsen_block_vals(vals)
         m = self.n_coarsest
         A = torch.zeros((m * m, d, d), dtype=vals.dtype, device=vals.device)
@@ -338,12 +358,14 @@ class BlockAMG(AMG):
             m * d, dtype=vals.dtype, device=vals.device)
         return out, torch.linalg.inv(A), ras_inv
 
-    def _matvec_block(self, k, sup_vals, x, mode="y", b=None, dg=None):
+    def _matvec_block(self, k, sup_vals, x, mode="y", b=None, dg=None,
+                      scale=None):
         """Level-k (m*d,) block matvec (K1 at width g*d), with K1's
-        residual / l1-Jacobi epilogues as in AMG._matvec."""
+        residual / l1-Jacobi epilogues and input scale as in
+        AMG._matvec."""
         maps, _ = self.sup[k]
         return sup_spmv(sup_vals, maps.sup_cols, x, n_out=maps.n * self.d,
-                        mode=mode, b=b, d=dg, omega=self.omega)
+                        mode=mode, b=b, d=dg, omega=self.omega, scale=scale)
 
     def _l1_diag_block(self, k, sup_vals):
         maps, _ = self.sup[k]
@@ -372,15 +394,26 @@ class BlockAMG(AMG):
         def descend(k, b):
             if k == nl:
                 return coarse_inv @ b
-            vals, dg = level_vals[k]
+            vals, dg, s = level_vals[k]
+            lvl = self.levels[k]
             if k == 0 and ras_inv is not None:
                 x = ras.apply(ras_inv, b)  # pre-smooth from x0 = 0
+                x = smooth(k, vals, dg, x, b, self.n_smooth - 1)
+            elif self.n_smooth == 1:
+                # x = s b (s = omega / dg), read through K1's scale and
+                # K8's base, never stored (AMG.v_cycle)
+                r = self._matvec_block(k, vals, b, mode="residual", b=b,
+                                       scale=s)
+                xc = descend(k + 1, lvl.restrict_block(r, d))
+                x = lvl.prolong_add(xc, b, width=d, scale=s)
+                return smooth(k, vals, dg, x, b, self.n_smooth)
             else:
-                x = self.omega * b / dg  # first pre-smooth from x0 = 0
-            x = smooth(k, vals, dg, x, b, self.n_smooth - 1)
+                x = self._matvec_block(k, vals, b, mode="jacobi", b=b,
+                                       dg=dg, scale=s)
+                x = smooth(k, vals, dg, x, b, self.n_smooth - 2)
             r = self._matvec_block(k, vals, x, mode="residual", b=b)
-            xc = descend(k + 1, self.levels[k].restrict_block(r, d))
-            x = x + self.levels[k].prolong_block(xc, d)
+            xc = descend(k + 1, lvl.restrict_block(r, d))
+            x = lvl.prolong_add(xc, x, width=d)
             return smooth(k, vals, dg, x, b, self.n_smooth)
 
         return descend(0, b)

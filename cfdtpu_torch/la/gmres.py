@@ -2,7 +2,9 @@
 
 The counterpart of cfdtpu/la/gmres.py. Orthogonalisation is classical
 Gram-Schmidt over the active basis rows (CGS2 in fgmres, one pass in
-the fieldsplit sweeps), as products that torch.matmul runs.
+the fieldsplit sweeps): kernel K9's krylov_cgs, which also normalises
+the new basis row and writes its Hessenberg column; gmres_fixed's
+least-squares step is K9's krylov_lsq.
 
 fgmres: cfdtpu's lax.while_loop becomes a host loop. It synchronises
 with the device once per inner iteration — one read of the new
@@ -11,7 +13,8 @@ restart cycle for the residual norm ||b - A x||. The Givens rotations
 and the back-substitution act on that small host copy, in float64.
 
 gmres_fixed: a fixed trip count and no host reads at all, so the
-fieldsplit sweeps inside the preconditioner queue on the device.
+fieldsplit sweeps inside the preconditioner queue on the device (and
+are captured in its CUDA graph, la/schur.py).
 """
 
 from __future__ import annotations
@@ -19,13 +22,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.krylov import krylov_cgs, krylov_lsq, tiny as _tiny
+
 
 def _identity_precond(v):
     return v
-
-
-def _tiny(dtype) -> float:
-    return float(torch.finfo(dtype).tiny) ** 0.5
 
 
 def gmres_fixed(matvec, b, precond=None, m: int = 10,
@@ -41,41 +42,25 @@ def gmres_fixed(matvec, b, precond=None, m: int = 10,
     n = b.shape[0]
     dt = b.dtype
     dev = b.device
-    tiny = _tiny(dt)
 
-    beta = torch.sqrt(torch.dot(b, b))
-    V = torch.zeros((m + 1, n), dtype=dt, device=dev)
-    V[0] = b / torch.clamp(beta, min=tiny)
-    Z = torch.zeros((m, n), dtype=dt, device=dev)
+    # rows beyond j+1 of V are never read (K9 takes the active rows);
+    # H's column j below row j+1 stays zero
+    V = torch.empty((m + 1, n), dtype=dt, device=dev)
+    Z = torch.empty((m, n), dtype=dt, device=dev)
     H = torch.zeros((m + 1, m), dtype=dt, device=dev)
+    beta = torch.empty((1,), dtype=dt, device=dev)
+    krylov_cgs(V, b, -1, beta, False)  # V[0] = b / max(||b||, tiny)
 
     for j in range(m):
         z = M(V[j])
         w = matvec(z)
         Z[j] = z
-        # rows > j of V are zero, so only the active rows take part
-        Va = V[: j + 1]
-        h = Va @ w
-        w = w - Va.T @ h
-        if reorth:
-            h2 = Va @ w
-            w = w - Va.T @ h2
-            h = h + h2
-        wnorm = torch.sqrt(torch.dot(w, w))
-        H[: j + 1, j] = h
-        H[j + 1, j] = wnorm
-        V[j + 1] = w / torch.clamp(wnorm, min=tiny)
+        krylov_cgs(V, w, j, H[:, j], reorth)
 
     # least squares min ||beta e1 - H y|| via normal equations (m is
     # small), regularised relative to the spectrum so an exactly-zero rhs
-    # yields y = 0, not NaN
-    HtH = H.T @ H
-    reg = torch.clamp(torch.trace(HtH) / m, min=tiny) * 1e-12
-    rhs = H[0] * beta  # H.T @ (beta e1)
-    eye = torch.eye(m, dtype=dt, device=dev)
-    y, _ = torch.linalg.solve_ex(HtH + reg * eye, rhs)
-    y = torch.where(beta > tiny, y, torch.zeros_like(y))
-    return Z.T @ y
+    # yields y = 0, not NaN; then Z^T y
+    return krylov_lsq(H, beta, Z)
 
 
 def fgmres(
@@ -113,15 +98,18 @@ def fgmres(
                  torch.stack([_norm(b), _norm(b - matvec(x0))]).cpu())
     tol = max(rtol * bnorm, atol)
 
-    V = torch.zeros((m + 1, n), dtype=dt, device=dev)
+    V = torch.empty((m + 1, n), dtype=dt, device=dev)
     Z = torch.zeros((m, n), dtype=dt, device=dev)
+    # the Hessenberg columns, one row each (K9 writes column j into HT[j],
+    # so the host reads j+2 contiguous values), and ||r|| of a cycle
+    HT = torch.empty((m, m + 1), dtype=dt, device=dev)
+    hr = torch.empty((1,), dtype=dt, device=dev)
 
     def cycle(x):
         """One restart cycle; returns (x_new, resnorm, inner_iters)."""
         r = b - matvec(x)
-        beta_t = _norm(r)
-        beta = float(beta_t)  # host read: once per restart cycle
-        V[0] = r / torch.clamp(beta_t, min=tiny)
+        krylov_cgs(V, r, -1, hr, False)  # V[0] = r / max(||r||, tiny)
+        beta = float(hr[0])  # host read: once per restart cycle
         R = np.zeros((m + 1, m))  # Hessenberg, rotated in place (host)
         g = np.zeros(m + 1)
         g[0] = beta
@@ -134,16 +122,10 @@ def fgmres(
             w = matvec(z)
             Z[j] = z
             # CGS2 against the active rows V[0..j]
-            Va = V[: j + 1]
-            h1 = Va @ w
-            w = w - Va.T @ h1
-            h2 = Va @ w
-            w = w - Va.T @ h2
-            wnorm = _norm(w)
-            V[j + 1] = w / torch.clamp(wnorm, min=tiny)
+            krylov_cgs(V, w, j, HT[j], True)
             # host read: the new Hessenberg column, once per iteration
             h = np.zeros(m + 1)
-            h[: j + 2] = torch.cat([h1 + h2, wnorm[None]]).cpu().numpy()
+            h[: j + 2] = HT[j, : j + 2].cpu().numpy()
 
             # apply the previous Givens rotations to the new column
             for i in range(j):

@@ -161,13 +161,16 @@ class NodeBSR:
         return torch.cat([yn[:, :d].reshape(-1), yn[:, d]])
 
     # -- operator applies: one K1 launch each, on the flat vectors ---------
-    def apply_element_matrices(self, vals, _A_blocks, v_flat):
+    # `epi` passes K1's epilogue options through (mode, b, scale, mask,
+    # mask_value: kernels/sup_spmv.py), so the elementwise work around an
+    # apply in cfdtpu is part of its one launch
+    def apply_element_matrices(self, vals, _A_blocks, v_flat, **epi):
         gd, n_u = self.g * self.dim, self.n_u_flat
         return sup_spmv(vals["sup"], self._sup.sup_cols, v_flat,
                         n_out=v_flat.shape[0], x_split=(n_u, gd),
-                        y_split=(n_u, gd))
+                        y_split=(n_u, gd), **epi)
 
-    def apply_sub_block(self, vals, _A_blocks, v, which: str):
+    def apply_sub_block(self, vals, _A_blocks, v, which: str, **epi):
         gd = self.g * self.dim
         rs = slice(0, gd) if which[0] == "u" else slice(gd, None)
         cs = slice(0, gd) if which[1] == "u" else slice(gd, None)
@@ -175,7 +178,7 @@ class NodeBSR:
                  else self.n_nodes)
         # strided view of the sub-block: no copy of the values
         return sup_spmv(vals["sup"][:, :, rs, cs], self._sup.sup_cols, v,
-                        n_out=n_out)
+                        n_out=n_out, **epi)
 
     # -- explicit SELFP Schur matrix ---------------------------------------
     def sp_structure(self):

@@ -37,7 +37,7 @@ class RASPrecond:
     """
 
     def __init__(self, row: np.ndarray, col: np.ndarray, n: int, d: int,
-                 s: int = 16, overlap: int = 4, device="cpu"):
+                 s: int = 16, overlap: int = 4, *, device):
         self.n = int(n)
         self.d = int(d)
         self.s = s = int(s)

@@ -26,6 +26,18 @@ explicit SELFP matrix Sp (NodeBSR.sp_vals).
 build_schur_state computes the numeric state once (it can be carried
 across time steps, pc_lag_steps); make_schur_precond_from_state only
 builds closures. Every other inner_method raises NotImplementedError.
+
+Each operator apply is one K1 launch: cfdtpu's masks and vector updates
+around it (la/schur.py:45-87, 287-300, 350-357) are K1's epilogue
+options (kernels/sup_spmv.py): the identity Dirichlet rows of Auu and
+the zero rows of Aup as its row mask, diag(Auu)^-1 (zero at Dirichlet
+rows) and the Dirichlet 0/1 mask of z as its input scale, and
+App v - Apu z and r_p - Apu z_u as its residual mode.
+
+On CUDA one application is one CUDA graph (CapturedPrecond), cfdtpu's
+jitted preconditioner: captured once per built state, at its first
+call, and replayed for every later call. On the CPU the same closure
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -55,35 +67,66 @@ def _safe(d):
     )
 
 
+def _p_rows(bc_mask_p, v_p) -> dict:
+    """K1's row mask for the identity pressure-Dirichlet rows of S."""
+    return {} if bc_mask_p is None else {"mask": bc_mask_p,
+                                         "mask_value": v_p}
+
+
 def _sub_ops(form, A, bc_mask_u, bc_mask_p, pin_pressure, inv_d_u):
-    """The four sub-block actions and the SELFP Schur action S."""
+    """The four sub-block actions and the SELFP Schur action S; each
+    operator apply is one K1 launch (Apu takes K1's epilogue options)."""
+    # diag(Auu)^-1 with the Dirichlet rows zeroed: cfdtpu's
+    # inv_d_u * where(bc_mask_u, 0, w) as K1's input scale
+    scale_u = torch.where(bc_mask_u, 0.0, inv_d_u)
 
-    def Auu(v):
-        y = form.apply_sub_block(A, (), v, "uu")
-        return torch.where(bc_mask_u, v, y)
+    def Auu(v):  # where(bc_mask_u, v, Auu v)
+        return form.apply_sub_block(A, (), v, "uu", mask=bc_mask_u,
+                                    mask_value=v)
 
-    def Aup(v_p):
-        y = form.apply_sub_block(A, (), v_p, "up")
-        return torch.where(bc_mask_u, 0.0, y)
+    def Aup(v_p):  # where(bc_mask_u, 0, Aup v)
+        return form.apply_sub_block(A, (), v_p, "up", mask=bc_mask_u)
 
-    def Apu(v_u):
-        return form.apply_sub_block(A, (), v_u, "pu")
+    def Apu(v_u, **epi):
+        return form.apply_sub_block(A, (), v_u, "pu", **epi)
 
     def App(v_p):
         return form.apply_sub_block(A, (), v_p, "pp")
 
     def S(v_p):
-        """SELFP Schur action, fused: (Aup v, App v) in one pass."""
+        """SELFP Schur action: (Aup v, App v) in one pass, then
+        App v - Apu diag(Auu)^-1 Aup v with the Dirichlet rows of both
+        blocks in the second: two launches before the mean removal."""
         w, y_pp = form.apply_p_coupled(A, v_p)
-        w = torch.where(bc_mask_u, 0.0, w)
-        y = y_pp - Apu(inv_d_u * w)
-        if bc_mask_p is not None:
-            y = torch.where(bc_mask_p, v_p, y)
+        y = Apu(w, mode="residual", b=y_pp, scale=scale_u,
+                **_p_rows(bc_mask_p, v_p))
         if pin_pressure:
             y = y - torch.mean(y)
         return y
 
     return Auu, Aup, Apu, App, S
+
+
+def _near_true_schur(uu_amg, uu_built, Aup, Apu, App, bc_mask_u, bc_mask_p,
+                     pin_pressure):
+    """The *_sup methods' Schur action (cfdtpu/la/schur.py:287-300)."""
+    # cfdtpu's where(bc_mask_u, 0, z) as K1's 0/1 input scale
+    keep_u = (~bc_mask_u).to(uu_built[1].dtype)
+
+    def S(v_p):
+        """Near-true Schur action App v - Apu V(Aup v). The V-cycle is
+        plain (kcycle=False): it is part of a LINEAR operator swept by
+        fixed GMRES. Three K1 launches beside the V-cycle: Aup, App, and
+        Apu in the residual mode with b = App v."""
+        w = Aup(v_p)
+        z = uu_amg.v_cycle(uu_built, w, kcycle=False)
+        y = Apu(z, mode="residual", b=App(v_p), scale=keep_u,
+                **_p_rows(bc_mask_p, v_p))
+        if pin_pressure:
+            y = y - torch.mean(y)
+        return y
+
+    return S
 
 
 def _uu_amg(form, inner_method, ras_opts):
@@ -129,6 +172,49 @@ def build_schur_state(form, A, bc_mask_u, pin_pressure: bool,
     return state
 
 
+class CapturedPrecond:
+    """One preconditioner application as a CUDA graph (cfdtpu's jitted
+    preconditioner). At the first call the eager application `eager`
+    runs once on a side stream (the warm-up) and is then captured; every
+    call copies v into the graph's static input, replays the graph and
+    returns its static output. The side stream is torch.cuda.graph's
+    capture stream, one for the process: cuBLAS keeps a workspace for
+    each stream it runs on (the coarsest solves), so a new stream for
+    every capture would leave one more workspace allocated each time.
+
+    That output is the graph's own memory: it stays valid until the next
+    call of this object, which overwrites it. fgmres stores it in Z[j]
+    before its next call, so the returned tensor needs no copy there. A
+    capture that fails raises; there is no eager path on CUDA."""
+
+    def __init__(self, eager):
+        self.eager = eager
+        self.graph = None
+        self.static_in = None
+        self.static_out = None
+
+    def capture(self, v) -> None:
+        dev = v.device
+        self.static_in = v.clone()
+        graph = torch.cuda.CUDAGraph()
+        ctx = torch.cuda.graph(graph)
+        side = ctx.capture_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.eager(self.static_in)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with ctx:
+            self.static_out = self.eager(self.static_in)
+        self.graph = graph
+
+    def __call__(self, v):
+        if self.graph is None:
+            self.capture(v)
+        self.static_in.copy_(v)
+        self.graph.replay()
+        return self.static_out
+
+
 def make_schur_precond_from_state(form, state, bc_mask_u,
                                   pin_pressure: bool, m_u: int = 8,
                                   m_p: int = 10, full: bool = True,
@@ -136,8 +222,28 @@ def make_schur_precond_from_state(form, state, bc_mask_u,
                                   inner_method: str = "amg_p",
                                   ras_opts: tuple[int, int] = (16, 4)):
     """v -> M v approximating J^-1 v from a prebuilt numeric state.
-    Closure construction only: the state can be reused across steps."""
+    Closure construction only: the state can be reused across steps.
+
+    On CUDA the application is a CapturedPrecond kept in the state (one
+    per set of arguments), so a state carried across steps (pc_lag_steps)
+    is captured once, whichever call of this function comes first."""
     _check_method(inner_method)
+    args = (form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
+            bc_mask_p, inner_method, tuple(ras_opts))
+    if state["A"]["sup"].device.type != "cuda":
+        return _precond_closure(*args)
+    key = (pin_pressure, m_u, m_p, full, inner_method, tuple(ras_opts),
+           bc_mask_u.data_ptr(),
+           None if bc_mask_p is None else bc_mask_p.data_ptr())
+    graphs = state.setdefault("graphs", {})
+    if key not in graphs:
+        graphs[key] = CapturedPrecond(_precond_closure(*args))
+    return graphs[key]
+
+
+def _precond_closure(form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
+                     bc_mask_p, inner_method, ras_opts):
+    """The eager application of make_schur_precond_from_state."""
     n_u_flat = form.n_u_flat
     A = state["A"]
     inv_d_u = 1.0 / state["d_u"]
@@ -176,19 +282,8 @@ def make_schur_precond_from_state(form, state, bc_mask_u,
             return gmres_fixed(Auu, r, precond=Mu, m=m_u, reorth=False)
 
     if inner_method in ("amg_sup", "rasamg_sup"):
-        def S(v_p):  # noqa: F811
-            """Near-true Schur action App v - Apu V(Aup v). The V-cycle
-            is plain (kcycle=False): it is part of a LINEAR operator
-            swept by fixed GMRES."""
-            w = Aup(v_p)
-            z = uu_amg.v_cycle(uu_built, w, kcycle=False)
-            z = torch.where(bc_mask_u, 0.0, z)
-            y = App(v_p) - Apu(z)
-            if bc_mask_p is not None:
-                y = torch.where(bc_mask_p, v_p, y)
-            if pin_pressure:
-                y = y - torch.mean(y)
-            return y
+        S = _near_true_schur(uu_amg, uu_built, Aup, Apu, App,  # noqa: F811
+                             bc_mask_u, bc_mask_p, pin_pressure)
 
     amg = form.sp_amg()
     level_vals = state["sp_built"]
@@ -210,9 +305,10 @@ def make_schur_precond_from_state(form, state, bc_mask_u,
     def precond(v):
         r_u, r_p = v[:n_u_flat], v[n_u_flat:]
         z_u = solve_Auu(r_u)
-        r_s = r_p - Apu(z_u)
+        r_s = Apu(z_u, mode="residual", b=r_p)  # r_p - Apu z_u
         z_p = solve_S(r_s)
         if full:
+            # not a product: one elementwise launch after the V-cycle
             z_u = z_u - solve_Auu(Aup(z_p))
         return torch.cat([z_u, z_p])
 

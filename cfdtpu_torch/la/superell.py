@@ -29,7 +29,7 @@ class SuperMaps:
     __slots__ = ("g", "ns", "Kg", "sup_cols", "pair_slot", "n")
 
     def __init__(self, row: np.ndarray, col: np.ndarray, n: int, g: int,
-                 device="cpu"):
+                 device):
         self.g = int(g)
         self.n = int(n)
         ns = -(-n // g)

@@ -24,7 +24,7 @@ class BoundaryForce:
     subset (the obstacle boundary), on `device`."""
 
     def __init__(self, V: FunctionSpace, Q: FunctionSpace, facet_indices,
-                 device="cpu", dtype=None):
+                 device, dtype=None):
         mesh = V.mesh
         self.V, self.Q = V, Q
         fq = FacetQuadrature(mesh, facet_indices, 2 * V.degree + 1)

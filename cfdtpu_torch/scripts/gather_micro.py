@@ -37,7 +37,7 @@ PATCH_SHAPES = ((2048, 8), (2048, 16), (8192, 8))
 RTOL = 1e-5  # float32 on both sides; the sums run in another order
 
 
-def patch_inputs(P, K, device="cpu"):
+def patch_inputs(P, K, device):
     """x (P, L), vals (P, L, K) float32 and idx (P, L, K) int32, drawn in
     the original's order from numpy.random.default_rng(0)."""
     rng = np.random.default_rng(0)

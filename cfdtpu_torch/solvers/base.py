@@ -20,7 +20,7 @@ from ..assembly import FacetQuadrature
 from ..elements import LagrangeElement
 from ..mesh import Mesh
 from ..spaces import FunctionSpace
-from ..utils import det_and_inv, resolve_device, torch_dtype
+from ..utils import SortedScatter, det_and_inv, resolve_device, torch_dtype
 
 
 class SolverBase(ABC):
@@ -149,7 +149,11 @@ class SolverBase(ABC):
             "inv_area": self.tensor(1.0 / area),
             "dofmap_u": idx(self.V.dofmap[fq.cells]),
             "dofmap_p": idx(self.Q.dofmap[fq.cells]),
-            "dofmap_w": idx(self._wss_space.dofmap[fq.cells]),
+            # deterministic facet -> node reduction (K2), as the form's
+            # facet blocks sum their residual
+            "scatter_w": SortedScatter(self._wss_space.dofmap[fq.cells],
+                                       self._wss_space.num_dofs,
+                                       device=self.device),
             "coords": self.tensor(mesh.points[mesh.cells][fq.cells]),
         }
 
@@ -176,7 +180,7 @@ class SolverBase(ABC):
         Tt = T - Tn[..., None] * n
         vals = torch.einsum("f,fq,fqb,fqi->fbi", w["inv_area"], dS,
                             w["phi_w"], Tt)
-        out = torch.zeros((self._wss_space.num_dofs, self.mesh.gdim),
-                          dtype=self.dtype, device=self.device)
-        self.shear_stress = out.index_add(
-            0, w["dofmap_w"].reshape(-1), vals.reshape(-1, self.mesh.gdim))
+        # cfdtpu adds with .at[dofmap_w].add; K2 sums each node's facet
+        # contributions in a fixed order (no atomics)
+        self.shear_stress = w["scatter_w"](
+            vals.reshape(-1, self.mesh.gdim).contiguous())

@@ -11,7 +11,11 @@ NotImplementedError rather than being replaced silently.
 
 cfdtpu jit-compiles each step (with const-args wrappers for its remote
 TPU compiler); here the step runs eagerly and the hot operations are
-the CUDA kernels of cfdtpu_torch/kernels.
+the CUDA kernels of cfdtpu_torch/kernels, except the preconditioner
+application, which on the card is one CUDA graph per built state
+(la/schur.py): under pc_lag_steps the graph lives in the carried
+op_state, and the lazily built per-iteration preconditioner is captured
+at its first use.
 """
 
 from __future__ import annotations
@@ -292,8 +296,9 @@ class Solver(SolverBase):
 
         def make_matvec(vals):
             def matvec(v):
-                y = nodebsr.apply_element_matrices(vals, (), v)
-                y = torch.where(bc_mask, v, y)
+                # where(bc_mask, v, A v): K1's row mask, one launch
+                y = nodebsr.apply_element_matrices(vals, (), v, mask=bc_mask,
+                                                   mask_value=v)
                 if pin_pressure:
                     y = project(y)
                 return y

@@ -83,31 +83,10 @@ def empty_ms(n: int = 25) -> float:
 
 def device_kernels(fn) -> list[str]:
     """Names of the device activities (kernels, copies, fills) one fn()
-    call issues, from torch.profiler's CUDA trace, in launch order. One
-    warm-up call first, so that a kernel's build is not counted. An
-    empty trace has lost its records (see device_ms): it is taken
-    again, up to three times in all; the first trace that is not empty
-    is returned as it is."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_kernels traces a CUDA card; none is "
-                           "available")
-    fn()
-    torch.cuda.synchronize()
-    names = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in sorted(prof.events(),
-                                        key=lambda e: e.time_range.start)
-                 if e.device_type == DeviceType.CUDA]
-        if names:
-            break
-    return names
+    call issues, from torch.profiler's CUDA trace, in launch order
+    (launches: one warm-up call first, so that a kernel's build is not
+    counted, and the fullest of three traces)."""
+    return launches(fn)[1]
 
 
 def device_ms(fn, n: int = 20, tries: int = 3) -> float | None:
@@ -135,3 +114,52 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> float | None:
         if us and len(us) % n == 0:
             return sum(us) / 1e3 / n
     return None
+
+
+# host calls that put work on the card: kernel launches (the entry
+# points of the CUDA runtime and of the CUDA driver API) and graph launches
+KERNEL_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernel", "cuLaunchKernelEx")
+GRAPH_LAUNCH_API = "cudaGraphLaunch"
+
+
+def host_calls(events) -> dict[str, int]:
+    """Counts of the host's launch calls among torch.profiler events:
+    "kernel" (KERNEL_LAUNCH_APIS), "graph" (cudaGraphLaunch) and
+    "memcpy" (cudaMemcpyAsync)."""
+    out = {"kernel": 0, "graph": 0, "memcpy": 0}
+    for e in events:
+        if e.name in KERNEL_LAUNCH_APIS:
+            out["kernel"] += 1
+        elif e.name == GRAPH_LAUNCH_API:
+            out["graph"] += 1
+        elif e.name == "cudaMemcpyAsync":
+            out["memcpy"] += 1
+    return out
+
+
+def launches(fn, traces: int = 3) -> tuple[dict[str, int], list[str]]:
+    """The host's launch calls (host_calls) and the names of the device
+    activities of one fn() call, from torch.profiler, after one warm-up
+    call. The profiler can drop records of a short trace (now and then a
+    trace comes back empty, or without one of two kernels), and it never
+    adds one: fn() is traced `traces` times and the trace with the most
+    device activities is returned (the first of those)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("launches traces a CUDA card; none is available")
+    fn()
+    torch.cuda.synchronize()
+    best = ({}, [])
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted(prof.events(), key=lambda e: e.time_range.start)
+        names = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        if len(names) > len(best[1]):
+            best = (host_calls(events), names)
+    return best

@@ -79,7 +79,7 @@ class SortedScatter:
     to ~250).
     """
 
-    def __init__(self, index_array, n_out: int, device="cpu"):
+    def __init__(self, index_array, n_out: int, device):
         from .symcache import cached_arrays
 
         flat = np.asarray(index_array).reshape(-1)

@@ -12,11 +12,15 @@ Run from the root of a checkout. Phases, each raising on failure:
 3. kernels: at the DFG 2D-1 res_scale=0.3 slice (106,275 DOF, float32)
    every kernel (K1 sup_spmv, K2 ell_sum, K3 ns_cell_residual_p1 and
    ns_cell_jacobian_p1, K4 selfp_triple, K5 patch_spmv, K6 ras_apply,
-   K7 ns_facet_natural_p1 and ns_facet_natural_jac_p1) is held against
-   its plain PyTorch version at each of its call sites on the two paths
-   below — including the rasamg_sup block-AMG levels (K1 at width 16),
-   block transfers and facet-residual scatter (K2), the RAS windows (K6)
-   and the gather_micro shapes (K5, beside K1 at width 1):
+   K7 ns_facet_natural_p1 and ns_facet_natural_jac_p1, K8 amg_prolong,
+   K9 krylov_cgs and krylov_lsq) is held against its plain PyTorch
+   version at each of its call sites on the two paths below — including
+   the rasamg_sup block-AMG levels (K1 at width 16), K1's epilogue
+   options at their solver sites (row mask, input scale, residual from
+   any vector), block transfers and facet-residual scatter (K2), the RAS
+   windows (K6), K8 at every AMG level with both bases, K9 at the FGMRES
+   and S-stage sites, and the gather_micro shapes (K5, beside K1 at
+   width 1):
    ||kernel - plain||_inf <= 1e-5 ||plain||_inf (float32: the sums run
    in another order), and called twice, bitwise equal. Each site is
    timed (median device time of 25 CUDA-event-timed calls, host
@@ -27,8 +31,11 @@ Run from the root of a checkout. Phases, each raising on failure:
    (K1: torch.sparse_bsr_tensor @ x over the same blocks, CSR over
    the same entries where the blocks are not square or 1 x 1; K2:
    index_add_; K5: a CSR sparse product; K6: torch.bmm of the owned
-   inverse rows with pre-gathered windows, the gather left out; K3, K4
-   and K7: none); and the kernel's and the yardstick's device time alone
+   inverse rows with pre-gathered windows, the gather left out; K8:
+   torch.index_select of xc, the gather without the add; K9: the two
+   cuBLAS GEMVs of one Gram-Schmidt pass, and torch.linalg.solve_ex of
+   the normal equations; K3, K4 and K7: none); and the kernel's and the
+   yardstick's device time alone
    (utils/cudatime.device_ms: torch.profiler's trace of 20 warm calls,
    without the launch that the event-timed times carry). Each site
    prints its bound: the bytes it must move and the operations it does
@@ -39,7 +46,13 @@ Run from the root of a checkout. Phases, each raising on failure:
    res_scale 1.0 with 1e-12, untimed.
    Then, under torch.profiler, each operator apply the solver calls
    (NodeBSR.apply_element_matrices, apply_sub_block, apply_p_coupled,
-   AMG._matvec, BlockAMG._matvec_block) must issue one device kernel, K1;
+   AMG._matvec, BlockAMG._matvec_block, and with their epilogues the
+   outer matvec, Auu, Aup, Apu and App of la/schur.py) must issue one
+   device kernel, K1; the SELFP Schur action two (no mean removal: DFG
+   pins no pressure); the near-true one three beside its V-cycle's; one
+   replayed preconditioner application (rasamg_sup and amg_p) one
+   cudaGraphLaunch and no kernel launch, its device kernels printed
+   beside those of the eager application;
    one form.residual call must issue K3 once, K7 once and K2 three times,
    and one form.element_jacobians call exactly two device kernels, K3's
    and K7's Jacobians (no vmap or jacfwd work). The device kernels of
@@ -47,7 +60,12 @@ Run from the root of a checkout. Phases, each raising on failure:
    plain facet term and the plain vmap(jacfwd) Jacobians, which is what
    the form dispatched before K7 and the Jacobian kernels existed.
 4. determinism: two float32 form.residual calls on one state are
-   bitwise equal, and so are two element_jacobians + assemble results.
+   bitwise equal, and so are two element_jacobians + assemble results,
+   two assemble_wss results, two element-block apply_element_matrices
+   and apply_sub_block results, and the replayed preconditioner
+   application and the eager one of the same closure (rasamg_sup and
+   amg_p; again after the slice phases, on the graphs of their last
+   pc_lag rebuild).
 5. path A, the rasamg_sup slice (the configuration bench.py runs):
    Scenario.solve drives 14 float32 steps from rest (Schur/rasamg_sup,
    pc_inner_u=0, pc_inner_p=5, RAS windows of 32 with overlap 4, chord
@@ -55,16 +73,20 @@ Run from the root of a checkout. Phases, each raising on failure:
    steps 1-6 warm-up and 7-10 measured, with the launch counters reset
    just before; steps 11-14 run under torch.profiler (each port
    kernel's calls and device ms, the largest other device activities,
-   cudaLaunchKernel and cudaMemcpyAsync calls, the card's idle share).
-   Every step must converge with a finite state, no linear solve may
-   hit ksp_max_it, and K1, K2, K3 (both entry points), K4, K6 and K7
-   (both entry points) must have launched in steps 1-10.
+   the host's kernel launches, graph launches and cudaMemcpyAsync
+   calls, per KSP iteration too, the card's idle share). Every step must
+   converge with a finite state, no linear solve may hit ksp_max_it, K1,
+   K2, K3 (both entry points), K4, K6, K7 (both entry points), K8 and
+   K9 (both) must have launched in steps 1-10 (a kernel inside the
+   preconditioner's CUDA graph counts at capture), and the window may
+   take at most 30 host launches (kernel and graph) per KSP iteration.
 6. the amg_p slice (the solver's default inner method): 8 float32 steps
-   from rest, steps 5-8 measured, the same checks for K1-K4 and K7.
+   from rest, steps 5-8 measured, the same checks for K1-K4 and K7-K9.
 7. parity: float64 at res_scale 1.0, 2 steps through the kernels on the
    card and 2 steps through the plain versions (which the wrappers take
    only for CPU tensors, so that run is on the host), for rasamg_sup and
-   for amg_p: equal Newton and KSP counts per step, u, p, c_D, c_L and
+   for amg_p: equal Newton and KSP counts per step, and equal to the
+   counts every earlier tree gave (PARITY_COUNTS), u, p, c_D, c_L and
    dp within 1e-9 relative.
 8. path B: `python -m cfdtpu_torch.scripts.gather_micro --device cuda`
    exits 0 with every K5 result within 1e-5 relative of its plain
@@ -106,9 +128,16 @@ RASAMG_FLAGS = ["--pc_inner_method", "rasamg_sup", "--pc_inner_u", "0",
                 "--stats_every", "4", "--ksp_restart", "20"]
 ELEMENT_KERNELS = ("ns_cell_residual_p1", "ns_cell_jacobian_p1",
                    "ns_facet_natural_p1", "ns_facet_natural_jac_p1")
+PC_KERNELS = ("amg_prolong", "krylov_cgs", "krylov_lsq")
 PATH_A_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
-                  *ELEMENT_KERNELS)
-AMG_P_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", *ELEMENT_KERNELS)
+                  *ELEMENT_KERNELS, *PC_KERNELS)
+AMG_P_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", *ELEMENT_KERNELS,
+                 *PC_KERNELS)
+# float64 res 1.0, 2 steps: (Newton, KSP) per step, the same in every
+# tree since the float64 slices were first run
+PARITY_COUNTS = {"rasamg_sup": [(11, 52), (36, 161)],
+                 "amg_p": [(11, 44), (36, 145)]}
+MAX_HOST_LAUNCHES_PER_KSP = 30
 # name: (source, replaced TPU/XLA op, headline site, path that launches it)
 SOURCES = {
     "sup_spmv": ("cfdtpu_torch/csrc/sup_spmv.cu",
@@ -134,6 +163,12 @@ SOURCES = {
     "ns_facet_natural_jac_p1": ("cfdtpu_torch/csrc/ns_facet_natural.cu",
                                 "cfdtpu/forms/navier_stokes.py:369",
                                 "K7 facet jacobian", "A"),
+    "amg_prolong": ("cfdtpu_torch/csrc/amg_prolong.cu",
+                    "cfdtpu/la/amg.py:173", "K8 block-amg L0 base x", "A"),
+    "krylov_cgs": ("cfdtpu_torch/csrc/krylov.cu", "cfdtpu/la/gmres.py:192",
+                   "K9 cgs2 fgmres j=19", "A"),
+    "krylov_lsq": ("cfdtpu_torch/csrc/krylov.cu", "cfdtpu/la/gmres.py:78",
+                   "K9 lsq m=5", "A"),
 }
 PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
          "B": "python -m cfdtpu_torch.scripts.gather_micro"}
@@ -201,7 +236,12 @@ def kernel_sites(torch, np, sc, seed=0):
     yardstick; None where no single call does), which the port never
     calls. `sc` runs the rasamg_sup solver, whose node-BSR holds both the
     SELFP AMG and the velocity BlockAMG with its RAS windows."""
+    from cfdtpu_torch.kernels.amg_prolong import (amg_prolong,
+                                                  amg_prolong_plain)
     from cfdtpu_torch.kernels.ell_sum import ell_plan, ell_sum, ell_sum_plain
+    from cfdtpu_torch.kernels.krylov import (krylov_cgs, krylov_cgs_plain,
+                                             krylov_lsq, krylov_lsq_plain,
+                                             tiny)
     from cfdtpu_torch.kernels.ns_cell_residual import (
         ns_cell_jacobian_p1, ns_cell_jacobian_plain, ns_cell_residual_p1,
         ns_cell_residual_plain)
@@ -239,7 +279,7 @@ def kernel_sites(torch, np, sc, seed=0):
     require(n_bad == 0, f"{n_bad} RAS window inverses are not finite")
     log(f"[kernels] BlockAMG levels (nodes): "
         f"{[m.n for m, _ in bamg.sup]}; layouts (ns, Kg, g*d, g*d): "
-        f"{[tuple(ev.shape) for ev, _ in blevels]}")
+        f"{[tuple(ev.shape) for ev, _, _ in blevels]}")
     rand = (lambda *shape: s.tensor(rng.standard_normal(shape)))
 
     sites = []
@@ -278,8 +318,7 @@ def kernel_sites(torch, np, sc, seed=0):
 
         add("sup_spmv", label, lambda: sup_spmv(A, cols, x, n_out, **kw),
             lambda: sup_spmv_plain(A, cols, x, n_out, **kw),
-            k1_bytes(A, x, n_out, kw.get("mode", "y")),
-            2 * ns * Kg * R * C, lib)
+            k1_bytes(A, x, n_out, kw), 2 * ns * Kg * R * C, lib)
 
     cols = nb._sup.sup_cols
     gd = nb.g * nb.dim
@@ -296,17 +335,107 @@ def kernel_sites(torch, np, sc, seed=0):
     k1("K1 p-coupled", S[:, :, :, gd:], cols, vp, n_u + n_p,
        y_split=(n_u, gd))
 
+    # K1's epilogue options at their solver sites (la/schur.py,
+    # solvers/stabilized_schur.py): the row masks, the input scale and
+    # the residual from another vector
+    mask_u = bc_mask_u(torch, np, s)
+    mask_p = torch.zeros(n_p, dtype=torch.bool, device=s.device)
+    mask_p[torch.as_tensor(s.bc_dofs_p.astype(np.int64),
+                           device=s.device)] = True
+    scale_u = torch.where(mask_u, 0.0, 1.0 / (1.0 + rand(n_u).abs()))
+    bp = rand(n_p)
+    k1("K1 outer matvec + mask", S, cols, v, n_u + n_p, x_split=(n_u, gd),
+       y_split=(n_u, gd), mask=torch.cat([mask_u, mask_p]), mask_value=v)
+    k1("K1 uu + mask (Auu)", S[:, :, :gd, :gd], cols, vu, n_u, mask=mask_u,
+       mask_value=vu)
+    k1("K1 up + zero mask (Aup)", S[:, :, :gd, gd:], cols, vp, n_u,
+       mask=mask_u)
+    k1("K1 pu residual (r_p - Apu z_u)", S[:, :, gd:, :gd], cols, vu, n_p,
+       mode="residual", b=bp)
+    k1("K1 pu residual + scale + mask (S)", S[:, :, gd:, :gd], cols, vu,
+       n_p, mode="residual", b=bp, scale=scale_u, mask=mask_p,
+       mask_value=vp)
+
     def k1_levels(tag, lvls, sup, omega):
-        for k, (ev, d) in enumerate(lvls):
+        for k, (ev, d, sc) in enumerate(lvls):
             m = d.shape[0]
             x, b = rand(m), rand(m)
             for mode in ("y", "residual", "jacobi"):
                 k1(f"K1 {tag} L{k} {mode} {tuple(ev.shape)}", ev,
                    sup[k][0].sup_cols, x, m, mode=mode, b=b, d=d,
                    omega=omega)
+            k1(f"K1 {tag} L{k} residual + scale {tuple(ev.shape)}", ev,
+               sup[k][0].sup_cols, b, m, mode="residual", b=b, scale=sc)
 
     k1_levels("amg", levels, amg.sup, amg.omega)
     k1_levels("block-amg", blevels, bamg.sup, bamg.omega)
+
+    def k8_levels(tag, h, lvls, w):
+        """K8 at every level of hierarchy h (values of width w), with the
+        iterate as base and with the first pre-smooth's s * b."""
+        for k, lvl in enumerate(h.levels):
+            sc = lvls[k][2]
+            xc, x = rand(lvl.n_coarse * w), rand(lvl.n * w)
+            for base, scale in (("x", None), ("s*b", sc)):
+                a = (xc, lvl.agg, w, x, scale)
+                add("amg_prolong", f"K8 {tag} L{k} base {base}",
+                    lambda a=a: amg_prolong(*a),
+                    lambda a=a: amg_prolong_plain(*a),
+                    nbytes(xc, lvl.agg, x, scale) + nbytes(x),
+                    x.numel() * (1 if scale is None else 2),
+                    lambda a=a: lambda: torch.index_select(
+                        a[0].reshape(-1, a[2]), 0, a[1]))
+
+    k8_levels("amg", amg, levels, 1)
+    k8_levels("block-amg", bamg, blevels, bamg.d)
+
+    def k9_cgs(tag, n, rows, j, reorth):
+        """krylov_cgs at step j of a basis of `rows` rows of length n (an
+        orthonormal one, from numpy's QR); yardstick: the two cuBLAS
+        GEMVs of one Gram-Schmidt pass (h = V w, V^T h)."""
+        q, _ = np.linalg.qr(rng.standard_normal((n, rows)))
+        Vk, w = s.tensor(q.T.copy()), rand(n)
+        Vp = Vk.clone()
+        hk, hp = (torch.zeros(rows, dtype=s.dtype, device=s.device)
+                  for _ in range(2))
+
+        def run(fn, V, h):
+            fn(V, w, j, h, reorth)
+            return V[j + 1], h[: j + 2]
+
+        def lib():
+            Va, hh = Vk[: j + 1], rand(j + 1)
+            return lambda: (torch.mv(Va, w), torch.mv(Va.T, hh))
+
+        sz = Vk.element_size()
+        passes = 2 if reorth else 1
+        add("krylov_cgs", f"K9 {tag} j={j}",
+            lambda: run(krylov_cgs, Vk, hk),
+            lambda: run(krylov_cgs_plain, Vp, hp),
+            ((j + 1) * n + 2 * n + j + 2) * sz,
+            passes * 4 * (j + 1) * n + 3 * n, lib)
+
+    for j in (0, 9, 19):
+        k9_cgs("cgs2 fgmres", n_u + n_p, 21, j, True)
+    for j in (0, 4):
+        k9_cgs("cgs s-stage", n_p, 6, j, False)
+
+    for m in (5, 20):
+        Hn = (np.triu(rng.standard_normal((m + 1, m)), -1)
+              + 4.0 * np.eye(m + 1, m))
+        la = (s.tensor(Hn), s.tensor([1.3]), rand(m, n_p))
+
+        def lib(Hn=Hn, m=m):
+            Hd = torch.as_tensor(Hn, device=s.device)
+            HtH = Hd.T @ Hd
+            reg = max(float(torch.trace(HtH)) / m, tiny(s.dtype)) * 1e-12
+            Mr = HtH + reg * torch.eye(m, dtype=Hd.dtype, device=s.device)
+            rhs = Hd[0] * 1.3
+            return lambda: torch.linalg.solve_ex(Mr, rhs)
+
+        add("krylov_lsq", f"K9 lsq m={m}", lambda a=la: krylov_lsq(*a),
+            lambda a=la: krylov_lsq_plain(*a), nbytes(*la) + nbytes(la[2][0]),
+            2 * m * n_p + 2 * m * m * (m + 1) + m ** 3, lib)
 
     def k2(label, scat, shape):
         """A K2 site; yardstick zeros.index_add_(0, dst, src) with dst
@@ -442,16 +571,18 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def k1_bytes(A, x, n_out, mode):
+def k1_bytes(A, x, n_out, kw):
     """K1_BYTES, the bytes one K1 call must move: the values of the view
     (ns*Kg*R*C), the column indices (ns*Kg int32), the gathered vector x
     and the output y once each, plus b (residual, jacobi) and d (jacobi)
-    read by the epilogue."""
+    read by the epilogue, and the input scale (x's length), the row mask
+    (a byte a row) and the mask values where the call takes them."""
     ns, Kg, R, C = A.shape
     sz = A.element_size()
-    epi = {"y": 0, "residual": 1, "jacobi": 2}[mode]
+    epi = {"y": 0, "residual": 1, "jacobi": 2}[kw.get("mode", "y")]
     return (ns * Kg * R * C * sz + ns * Kg * 4 + x.numel() * sz
-            + (1 + epi) * n_out * sz)
+            + (1 + epi) * n_out * sz
+            + nbytes(kw.get("scale"), kw.get("mask"), kw.get("mask_value")))
 
 
 def k2_bytes(src, row_ptr, pos):
@@ -533,7 +664,9 @@ def phase_kernels(torch, np, sc, tol, timed):
     rows = {}
     for st in kernel_sites(torch, np, sc):
         label, kern, plain = st["label"], st["kern"], st["plain"]
-        got, ref = flat_outputs(kern()), flat_outputs(plain())
+        # copies: a kernel that writes in place returns views
+        got = tuple(t.clone() for t in flat_outputs(kern()))
+        ref = flat_outputs(plain())
         torch.cuda.synchronize()
         err = 0.0
         for g, r in zip(got, ref):
@@ -676,6 +809,124 @@ def phase_one_launch(torch, np, sc):
     return out
 
 
+def pc_states(torch, np, sc, seed):
+    """The solver's Schur preconditioner, built (build_schur_state) at a
+    developed state for rasamg_sup (the solver's own settings) and for
+    amg_p (its default sweeps), on the card: {method: (state, kw)}."""
+    from cfdtpu_torch.la.schur import build_schur_state
+
+    s = sc.solver
+    f, nb = s.form, s._nodebsr
+    u, up, p = developed_state(torch, np, s, seed)
+    vals = nb.assemble(*f.element_jacobians(u, p, (up,), s.params()))
+    mask_u = bc_mask_u(torch, np, s)
+    mask_p = torch.zeros(nb.n_nodes, dtype=torch.bool, device=s.device)
+    mask_p[torch.as_tensor(s.bc_dofs_p.astype(np.int64),
+                           device=s.device)] = True
+    out = {}
+    for method, (m_u, m_p) in (("rasamg_sup", (s.pc_inner_u, 5)),
+                               ("amg_p", (6, 10))):
+        kw = dict(m_u=m_u, m_p=m_p, full=True, bc_mask_p=mask_p,
+                  inner_method=method,
+                  ras_opts=(s.pc_ras_size, s.pc_ras_overlap))
+        out[method] = (build_schur_state(nb, vals, mask_u, False, **kw), kw)
+    return out, vals, mask_u, mask_p
+
+
+def replay_vs_eager(torch, np, s, pc, seed):
+    """One replay of a captured application against the eager
+    application of the same closure on the same input: bitwise."""
+    v = s.tensor(np.random.default_rng(seed).standard_normal(
+        s._nodebsr.n_u_flat + s._nodebsr.n_nodes))
+    got = pc(v).clone()
+    ref = pc.eager(v)
+    torch.cuda.synchronize()
+    return bool(torch.equal(got, ref)), bool(torch.isfinite(got).all())
+
+
+def phase_pc_launches(torch, np, sc):
+    """The preconditioner application's launches (torch.profiler): the
+    sub-block actions of la/schur.py with their epilogues and the outer
+    matvec one K1 kernel each, the SELFP Schur action two, the near-true
+    one three beside its V-cycle's; one replayed application one
+    cudaGraphLaunch and no kernel launch (rasamg_sup, amg_p), its device
+    kernels beside the eager application's; and the replay bitwise
+    equal to the eager application at the first build."""
+    from cfdtpu_torch.la.schur import (_near_true_schur, _sub_ops,
+                                       _uu_amg, make_schur_precond_from_state)
+    from cfdtpu_torch.utils.cudatime import device_kernels, launches
+
+    s = sc.solver
+    nb = s._nodebsr
+    states, vals, mask_u, mask_p = pc_states(torch, np, sc, 11)
+    rng = np.random.default_rng(12)
+    n_u, n_p = nb.n_u_flat, nb.n_nodes
+    v = s.tensor(rng.standard_normal(n_u + n_p))
+    vu, vp = v[:n_u].contiguous(), v[n_u:].contiguous()
+    st, kw = states["rasamg_sup"]
+    Auu, Aup, Apu, App, S = _sub_ops(nb, st["A"], mask_u, mask_p, False,
+                                     1.0 / st["d_u"])
+    mask = torch.cat([mask_u, mask_p])
+    ops = {
+        "outer matvec where(bc, v, A v)": lambda: nb.apply_element_matrices(
+            vals, (), v, mask=mask, mask_value=v),
+        "Auu": lambda: Auu(vu), "Aup": lambda: Aup(vp),
+        "Apu": lambda: Apu(vu), "App": lambda: App(vp),
+        "r_p - Apu z_u": lambda: Apu(vu, mode="residual", b=vp),
+    }
+    out = {}
+    for label, fn in ops.items():
+        names = device_kernels(fn)
+        log(f"[pc launches] {label}: device activities {names}")
+        require(len(names) == 1 and "sup_spmv" in names[0],
+                f"{label} issued {names}, not one K1 kernel")
+        out[label] = names
+    names = device_kernels(lambda: S(vp))
+    log(f"[pc launches] SELFP S (no mean removal): {names}")
+    require(len(names) == 2 and all("sup_spmv" in n for n in names),
+            f"the SELFP S issued {names}, not two K1 kernels")
+    out["SELFP S"] = names
+    uu_amg = _uu_amg(nb, "rasamg_sup", kw["ras_opts"])
+    ntS = _near_true_schur(uu_amg, st["uu_built"], Aup, Apu, App, mask_u,
+                           mask_p, False)
+    w = Aup(vp)
+    vc = device_kernels(lambda: uu_amg.v_cycle(st["uu_built"], w))
+    names = device_kernels(lambda: ntS(vp))
+    k1 = sum("sup_spmv" in n for n in names)
+    log(f"[pc launches] near-true S: {len(names)} device kernels, its "
+        f"V-cycle {len(vc)}; {names}")
+    require(len(names) == 3 + len(vc)
+            and k1 == 3 + sum("sup_spmv" in n for n in vc),
+            f"the near-true S issued {len(names)} device kernels, not 3 K1 "
+            f"beside its V-cycle's {len(vc)}")
+    out["near-true S"] = {"kernels": len(names), "v_cycle": len(vc)}
+
+    def kernels_of(names):
+        return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+
+    for method, (state, kw) in states.items():
+        pc = make_schur_precond_from_state(nb, state, mask_u, False, **kw)
+        same, finite = replay_vs_eager(torch, np, s, pc, 13)
+        calls, names = launches(lambda: pc(v))
+        e_calls, e_names = launches(lambda: pc.eager(v))
+        dk, ek = kernels_of(names), kernels_of(e_names)
+        log(f"[pc launches] {method}: one replayed application: host "
+            f"{calls} (cudaGraphLaunch {calls['graph']}, kernel launches "
+            f"{calls['kernel']}), {len(dk)} device kernels in the graph; "
+            f"the eager application: host {e_calls}, {len(ek)} device "
+            f"kernels; replay bitwise equal to eager: {same}")
+        require(calls["graph"] == 1 and calls["kernel"] == 0,
+                f"{method}: a replayed application made {calls}, not one "
+                "cudaGraphLaunch and no kernel launch")
+        require(same and finite,
+                f"{method}: replay and eager application differ "
+                f"(finite {finite})")
+        out[method] = {"host": calls, "graph_device_kernels": len(dk),
+                       "eager_host": e_calls, "eager_device_kernels": len(ek),
+                       "replay_equals_eager": same}
+    return out
+
+
 def phase_determinism(torch, np, sc, trials=5):
     """Two float32 residual calls on one state must be bitwise equal, and
     two element_jacobians + assemble results too. For the record, also
@@ -702,16 +953,60 @@ def phase_determinism(torch, np, sc, trials=5):
     va, vb = (nb.assemble(*f.element_jacobians(u, p, (up,), prm))
               for _ in range(2))
     same_jac = all(torch.equal(va[k], vb[k]) for k in va)
+    # C1: the wall shear stress, a K2 sum (once an atomic index_add)
+    saved = (s.u_sol, s.p_sol)
+    if s._wss is None:
+        s.initStressForm()
+    s.u_sol, s.p_sol = u, p
+    wss = []
+    for _ in range(2):
+        s.assemble_wss()
+        wss.append(s.shear_stress)
+    s.u_sol, s.p_sol = saved
+    same_wss = bool(torch.equal(*wss))
+    # C2: the element-block operator, K2 sums per block
+    A = f.element_jacobians(u, p, (up,), prm)
+    v = s.tensor(np.random.default_rng(8).standard_normal(f.n_flat))
+    vu, vpp = v[: f.n_u_flat], v[f.n_u_flat:]
+    ebo = {"apply_element_matrices": lambda: f.apply_element_matrices(*A,
+                                                                      v)}
+    for which, x in (("uu", vu), ("up", vpp), ("pu", vu), ("pp", vpp)):
+        ebo[f"apply_sub_block {which}"] = (
+            lambda which=which, x=x: f.apply_sub_block(*A, x, which))
+    same_ebo = {k: bool(torch.equal(fn(), fn())) for k, fn in ebo.items()}
     log(f"[determinism] float32 form.residual twice: bitwise equal "
         f"{same}; element_jacobians + assemble twice: bitwise equal "
-        f"{same_jac}; the former facet index_add reproduced itself in "
-        f"{old_same}/{trials} trials")
+        f"{same_jac}; assemble_wss twice: {same_wss}; element-block "
+        f"operator twice: {same_ebo}; the former facet index_add "
+        f"reproduced itself in {old_same}/{trials} trials")
     require(same, "form.residual is not bitwise repeatable")
     require(same_jac, "element_jacobians + assemble is not bitwise "
                       "repeatable")
+    require(same_wss, "assemble_wss is not bitwise repeatable")
+    require(all(same_ebo.values()),
+            f"the element-block operator is not bitwise repeatable: "
+            f"{same_ebo}")
     return {"residual_bitwise_equal": same,
             "jacobians_bitwise_equal": same_jac,
+            "wss_bitwise_equal": same_wss,
+            "element_block_bitwise_equal": same_ebo,
             "index_add_repeats": f"{old_same}/{trials}"}
+
+
+def phase_replay_after_rebuild(torch, np, sc, tag):
+    """After a slice: the graph of the solver's last pc_lag rebuild (kept
+    in its carried op_state), replayed against the eager application of
+    its closure, bitwise."""
+    s = sc.solver
+    graphs = s._op_state["pc"]["graphs"]
+    require(len(graphs) == 1, f"{tag}: {len(graphs)} graphs in the state")
+    same, finite = replay_vs_eager(torch, np, s,
+                                   next(iter(graphs.values())), 14)
+    log(f"[determinism] {tag}: the graph of the last pc_lag rebuild, "
+        f"replay bitwise equal to eager: {same}")
+    require(same and finite, f"{tag}: replay after a rebuild differs from "
+                             f"eager (finite {finite})")
+    return same
 
 
 # ----------------------------------------------------------------------
@@ -773,13 +1068,12 @@ class StepProfile:
         from torch.autograd import DeviceType
 
         from cfdtpu_torch.kernels import COUNTERS
+        from cfdtpu_torch.utils.cudatime import host_calls
 
-        dev, api = [], {"cudaLaunchKernel": 0, "cudaMemcpyAsync": 0}
-        for e in self.prof.events():
-            if e.device_type == DeviceType.CUDA:
-                dev.append((e.time_range.start, e.time_range.end, e.name))
-            elif e.name in api:
-                api[e.name] += 1
+        events = self.prof.events()
+        api = host_calls(events)
+        dev = [(e.time_range.start, e.time_range.end, e.name)
+               for e in events if e.device_type == DeviceType.CUDA]
         kernels = {name: [0, 0.0] for name in COUNTERS}
         other = {}
         for a, b, n in dev:
@@ -804,8 +1098,11 @@ class StepProfile:
                                   for k, (c, t) in top},
                 "device_busy_ms": busy / 1e3,
                 "device_activities": len(dev),
-                "cudaLaunchKernel": api["cudaLaunchKernel"],
-                "cudaMemcpyAsync": api["cudaMemcpyAsync"],
+                "device_kernels": sum(not n.startswith(("Memcpy", "Memset"))
+                                      for _, _, n in dev),
+                "kernel_launches": api["kernel"],
+                "graph_launches": api["graph"],
+                "cudaMemcpyAsync": api["memcpy"],
                 "idle_share": 1.0 - busy / 1e6 / wall}
 
 
@@ -820,6 +1117,7 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
     gc.collect()  # free an earlier phase's scenario before the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
     kernels.reset_counts()
     launches = {}
     prof = StepProfile(steps, steps + profile_steps)
@@ -849,19 +1147,30 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
         f"KSP there, {1e3 * wall / ksp:.2f} ms per KSP iteration; "
         f"c_D {500 * fd:.6f} c_L {500 * fl:.6f} (line), "
         f"c_D {500 * fdr:.6f} c_L {500 * flr:.6f} (reaction), dp {dp:.6f} "
-        f"at step {len(rec)}; peak memory {peak / 2**20:.1f} MiB; launches "
+        f"at step {len(rec)}; peak memory {peak / 2**20:.1f} MiB (allocated "
+        f"at the start {start_bytes / 2**20:.1f}); launches "
         f"in steps 1-{steps} {launches}")
     if profile_steps:
         res = prof.result
+        ksp_w = sum(r[1] for r in rec[steps:])
+        res["ksp"] = ksp_w
+        res["host_launches_per_ksp"] = (res["kernel_launches"]
+                                        + res["graph_launches"]) / ksp_w
+        res["device_kernels_per_ksp"] = res["device_kernels"] / ksp_w
         log(f"[{tag}] torch.profiler over steps {res['steps']} "
-            f"(Newton/KSP {sum(r[0] for r in rec[steps:])}/"
-            f"{sum(r[1] for r in rec[steps:])}): wall "
+            f"(Newton/KSP {sum(r[0] for r in rec[steps:])}/{ksp_w}): wall "
             f"{res['profiled_wall_s']:.4f} s, device busy "
             f"{res['device_busy_ms']:.4f} ms in "
-            f"{res['device_activities']} activities, idle share "
-            f"{res['idle_share']:.4f}, cudaLaunchKernel "
-            f"{res['cudaLaunchKernel']}, cudaMemcpyAsync "
-            f"{res['cudaMemcpyAsync']}")
+            f"{res['device_activities']} activities "
+            f"({res['device_kernels']} kernels), idle share "
+            f"{res['idle_share']:.4f}; host kernel launches "
+            f"{res['kernel_launches']}, cudaGraphLaunch "
+            f"{res['graph_launches']}, cudaMemcpyAsync "
+            f"{res['cudaMemcpyAsync']}; per KSP iteration: host launches "
+            f"(kernel + graph, captures included) "
+            f"{res['host_launches_per_ksp']:.2f}, device kernels "
+            f"{res['device_kernels_per_ksp']:.2f}; peak memory "
+            f"{peak / 2**20:.1f} MiB")
         for name, kv in res["kernels"].items():
             log(f"[{tag}] window kernel {name}: {kv['calls']} calls, "
                 f"{kv['device_ms']:.4f} device ms")
@@ -878,7 +1187,14 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
     for name in required:
         require(launches[name] > 0,
                 f"kernel {name} never launched on the {tag} path")
+    if profile_steps:
+        require(prof.result["host_launches_per_ksp"]
+                <= MAX_HOST_LAUNCHES_PER_KSP,
+                f"{prof.result['host_launches_per_ksp']:.2f} host launches "
+                f"per KSP iteration in the window, more than "
+                f"{MAX_HOST_LAUNCHES_PER_KSP}")
     return launches, {"ndof": ndof, "steps_per_s": sps, "peak_bytes": peak,
+                      "start_bytes": start_bytes,
                       "ms_per_ksp": 1e3 * wall / ksp,
                       "steps": rec, "c_D": 500 * fd, "c_L": 500 * fl,
                       "c_D_reaction": 500 * fdr, "c_L_reaction": 500 * flr,
@@ -909,6 +1225,9 @@ def phase_parity(torch, np, tmp, kw, tag):
     require(a["counts"] == b["counts"],
             f"{tag}: iteration counts differ: {a['counts']} vs "
             f"{b['counts']}")
+    require(a["counts"] == PARITY_COUNTS[tag],
+            f"{tag}: counts {a['counts']}, every earlier tree gave "
+            f"{PARITY_COUNTS[tag]}")
     out = {"counts": a["counts"]}
     for key in ("u", "p"):
         rel = np.linalg.norm(a[key] - b[key]) / np.linalg.norm(b[key])
@@ -1016,6 +1335,7 @@ def main(argv=None):
         sc = scenario(0.3, "float32", 4, RASAMG_KW)
         rows = phase_kernels(torch, np, sc, 1e-5, timed=True)
         one_launch = phase_one_launch(torch, np, sc)
+        one_launch["preconditioner"] = phase_pc_launches(torch, np, sc)
         sc64 = scenario(1.0, "float64", 1, RASAMG_KW)
         phase_kernels(torch, np, sc64, 1e-12, timed=False)
         del sc64
@@ -1024,11 +1344,16 @@ def main(argv=None):
         launches_a, slice_a = phase_slice(
             torch, np, sc, os.path.join(tmp, "slice_a"), "rasamg_sup", 10,
             PATH_A_KERNELS, profile_steps=4)
+        determinism["replay_after_rebuild"] = {
+            "rasamg_sup": phase_replay_after_rebuild(torch, np, sc,
+                                                     "rasamg_sup")}
         del sc
         sc_p = scenario(0.3, "float32", 4, SLICE_KW)
         launches_p, slice_p = phase_slice(
             torch, np, sc_p, os.path.join(tmp, "slice_amg_p"), "amg_p", 8,
             AMG_P_KERNELS)
+        determinism["replay_after_rebuild"]["amg_p"] = (
+            phase_replay_after_rebuild(torch, np, sc_p, "amg_p"))
         del sc_p
         parity = {tag: phase_parity(torch, np, tmp, kw, tag)
                   for tag, kw in (("rasamg_sup", RASAMG_KW),

@@ -2,7 +2,9 @@
 to the CPU: resolve_device(None), the solver and scenario constructors
 without `device`, and the CLI without --device. On a machine with no
 card (or with the card hidden) each of them raises or exits non-zero
-before any work is done; the CPU runs only when asked for.
+before any work is done; the CPU runs only when asked for. The library
+classes below them take no default at all: their caller names the
+device.
 """
 
 import inspect
@@ -14,9 +16,15 @@ import pytest
 import torch
 
 from cfdtpu_torch import kernels
+from cfdtpu_torch.la.amg import AMG, AMGLevel, BlockAMG
+from cfdtpu_torch.la.ras import RASPrecond
+from cfdtpu_torch.la.superell import SuperMaps
+from cfdtpu_torch.postprocess.forces import BoundaryForce
 from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+from cfdtpu_torch.scripts.gather_micro import patch_inputs
 from cfdtpu_torch.solvers.base import SolverBase
 from cfdtpu_torch.solvers.stabilized_schur import Solver
+from cfdtpu_torch.utils import SortedScatter
 
 torch.set_num_threads(1)
 
@@ -46,6 +54,28 @@ def test_resolve_device_default_is_the_card(no_card, monkeypatch):
 def test_constructor_device_defaults_to_none(cls):
     assert inspect.signature(cls.__init__).parameters["device"].default \
         is None
+
+
+@pytest.mark.parametrize("fn", [SortedScatter.__init__, SuperMaps.__init__,
+                                AMGLevel.__init__, AMG.__init__,
+                                RASPrecond.__init__, BoundaryForce.__init__,
+                                patch_inputs])
+def test_library_classes_take_no_default_device(fn):
+    """No library constructor defaults to the CPU (or to anything): a
+    direct caller names the device its maps go to."""
+    param = inspect.signature(fn).parameters["device"]
+    assert param.default is inspect.Parameter.empty
+
+
+def test_library_class_without_device_raises():
+    import numpy as np
+
+    with pytest.raises(TypeError, match="device"):
+        SortedScatter(np.array([0, 1, 1]), 2)
+    with pytest.raises(TypeError, match="device"):
+        BlockAMG(np.array([0, 1]), np.array([1, 0]), 2, d=2)
+    assert SortedScatter(np.array([0, 1, 1]), 2,
+                         device="cpu").row_ptr.device.type == "cpu"
 
 
 def test_scenario_without_device_raises(no_card):
@@ -83,7 +113,8 @@ def test_cli_without_device_exits_nonzero(tmp_path):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("timer", ["cuda_ms", "device_ms", "empty_ms"])
+@pytest.mark.parametrize("timer", ["cuda_ms", "device_ms", "empty_ms",
+                                   "launches"])
 def test_timers_refuse_a_machine_without_a_card(no_card, timer):
     """The timers measure the card: with none they raise, and nothing
     is timed on the CPU in its place."""

@@ -205,6 +205,60 @@ def test_k1_shape_grid_matches_plain_and_repeats(name, ns):
     assert kernels.counts()["sup_spmv"] == n_calls
 
 
+@pytest.mark.parametrize("ns", [600, 6000])
+@pytest.mark.parametrize("name", list(K1_CASES))
+def test_k1_options_match_plain_and_repeat(name, ns):
+    """K1's input scale (one flat x only), row mask (with and without
+    mask values) and the residual mode with b from any vector, alone and
+    together, in each mode the class takes, with x at a 16-byte and at a
+    4-byte offset: within the tolerance of the plain version, two calls
+    bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+
+    g, rs, cs, xs, ys = K1_CASES[name]
+    kg = 9
+    rng = np.random.default_rng(12)
+    for dt, tol in ((torch.float64, RTOL), (torch.float32, 1e-5)):
+        def dev(a):
+            return torch.as_tensor(a, dtype=dt, device="cuda")
+
+        A = dev(rng.standard_normal((ns, kg, g, g)))[:, :, rs, cs]
+        R, C = A.shape[2], A.shape[3]
+        cols = torch.as_tensor(rng.integers(0, ns + 1, (ns, kg)),
+                               dtype=torch.int32, device="cuda")
+        xsplit = None if xs is None else (ns * xs - 5, xs)
+        ysplit = None if ys is None else (ns * ys - 5, ys)
+        n_out = ns * R - 7 if ys is None else ns * R - 12
+        square = xs is None and ys is None and R == C
+        m = n_out if square else (ns * C - 7 if xs is None else ns * C - 12)
+        b = dev(rng.standard_normal(n_out))
+        mv = dev(rng.standard_normal(n_out))
+        d = dev(1.0 + rng.random(n_out))
+        mask = torch.as_tensor(rng.random(n_out) < 0.1, device="cuda")
+        for off in (0, 1):  # aligned, and one value past it
+            x = dev(rng.standard_normal(m + 1))[off: off + m]
+            sc = (None if xs is not None
+                  else dev(rng.standard_normal(m + 1))[off: off + m])
+            modes = ("y", "residual", "jacobi") if square else ("y",
+                                                                "residual")
+            for mode in modes:
+                for opts in ({"scale": sc}, {"mask": mask},
+                             {"mask": mask, "mask_value": mv},
+                             {"scale": sc, "mask": mask, "mask_value": mv}):
+                    if "scale" in opts and sc is None:
+                        continue
+                    kw = dict(mode=mode, b=b, d=d, omega=0.67,
+                              x_split=xsplit, y_split=ysplit, **opts)
+                    got = sup_spmv(A, cols, x, n_out, **kw)
+                    _close_tol(got, sup_spmv_plain(A, cols, x, n_out, **kw),
+                               tol)
+                    assert torch.equal(got, sup_spmv(A, cols, x, n_out,
+                                                     **kw))
+    torch.cuda.synchronize()
+
+
 def _close_tol(got, ref, tol):
     err = float((got - ref).abs().max())
     assert err <= tol * float(ref.abs().max()), err
@@ -450,3 +504,137 @@ def test_form_calls_issue_only_the_fused_kernels(sc):
     assert len(jac) == 2, jac
     assert count(jac, "ns_cell_jacobian_p1") == 1, jac
     assert count(jac, "ns_facet_natural_jac_p1") == 1, jac
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("kind", ["amg", "block"])
+def test_k8_matches_plain_and_repeats(sc, kind, dt):
+    """K8 at every level of the SELFP AMG (width 1) and of BlockAMG
+    (width d), with the base x and with the scaled base s * x; coarse
+    size 40, so this small mesh has levels."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.amg_prolong import (amg_prolong,
+                                                  amg_prolong_plain)
+    from cfdtpu_torch.la.amg import AMG, BlockAMG
+
+    dtype, tol = _dev_tol(dt)
+    nb = sc.solver._nodebsr
+    if kind == "amg":
+        sp_row, sp_col, _ = nb.sp_structure()
+        amg, w = AMG(sp_row, sp_col, nb.n_nodes, coarse_size=40,
+                     agg_row=nb.block_row_np, agg_col=nb.block_col_np,
+                     device="cuda"), 1
+    else:
+        amg, w = BlockAMG(nb.block_row_np, nb.block_col_np, nb.n_nodes,
+                          d=nb.dim, coarse_size=40, device="cuda"), nb.dim
+    rng = np.random.default_rng(8)
+    kernels.reset_counts()
+    calls = 0
+    for lvl in amg.levels:
+        def dev(n):
+            return torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                                   device="cuda")
+
+        xc, x, s = dev(lvl.n_coarse * w), dev(lvl.n * w), dev(lvl.n * w)
+        for scale in (None, s):
+            got = amg_prolong(xc, lvl.agg, w, x, scale)
+            again = amg_prolong(xc, lvl.agg, w, x, scale)
+            calls += 2
+            _close_tol(got, amg_prolong_plain(xc, lvl.agg, w, x, scale), tol)
+            assert torch.equal(got, again)
+    torch.cuda.synchronize()
+    assert calls > 0 and kernels.counts()["amg_prolong"] == calls
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("reorth", [False, True])
+@pytest.mark.parametrize("j", [-1, 0, 4, 19, 40])
+def test_k9_cgs_matches_plain_and_repeats(j, reorth, dt):
+    """krylov_cgs on an orthonormal basis of 61 rows (restart 60) at the
+    S stage's length, j past one 32-row set included: V[j+1] and the H
+    column within the tolerance of the plain version, bitwise equal over
+    two calls, and nothing else of V or h written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.kernels.krylov import krylov_cgs, krylov_cgs_plain
+
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(j + 2)
+    n, rows = 35425, 61
+    q, _ = np.linalg.qr(rng.standard_normal((n, rows)))
+    V0 = torch.as_tensor(q.T.copy(), dtype=dtype, device="cuda")
+    w = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device="cuda")
+    H0 = torch.full((rows, rows - 1), -3.0, dtype=dtype, device="cuda")
+    col = max(j, 0)
+    out = []
+    for fn in (krylov_cgs, krylov_cgs, krylov_cgs_plain):
+        V, H = V0.clone(), H0.clone()
+        fn(V, w, j, H[:, col], reorth)
+        out.append((V, H))
+    (V1, H1), (V2, H2), (Vp, Hp) = out
+    assert torch.equal(V1, V2) and torch.equal(H1, H2)
+    _close_tol(V1[j + 1], Vp[j + 1], tol)
+    _close_tol(H1[: j + 2, col], Hp[: j + 2, col], tol)
+    rest = torch.ones(rows, dtype=torch.bool, device="cuda")
+    rest[j + 1] = False
+    assert torch.equal(V1[rest], V0[rest])
+    assert bool((H1[j + 2:, col] == -3.0).all())
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("m", [1, 5, 20, 64])
+def test_k9_lsq_matches_plain_and_repeats(m, dt):
+    """krylov_lsq on a well conditioned Hessenberg H, and a zero beta
+    (exactly zero out)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.kernels.krylov import krylov_lsq, krylov_lsq_plain
+
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(m)
+    H = np.triu(rng.standard_normal((m + 1, m)), -1) + 4.0 * np.eye(m + 1, m)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    H, Z = dev(H), dev(rng.standard_normal((m, 35425)))
+    beta = dev([1.3])
+    got = krylov_lsq(H, beta, Z)
+    assert torch.equal(got, krylov_lsq(H, beta, Z))
+    _close_tol(got, krylov_lsq_plain(H, beta, Z), tol)
+    zero = krylov_lsq(H, dev([0.0]), Z)
+    assert torch.equal(zero, torch.zeros_like(zero))
+
+
+@pytest.mark.parametrize("method", ["amg_p", "rasamg_sup"])
+def test_graph_replay_matches_eager(sc, method):
+    """One preconditioner application as a CUDA graph: captured at the
+    first call, cached in the state (a second closure of the same state
+    is the same graph), and every replay bitwise equal to the eager
+    application of the same closure on the same input."""
+    from cfdtpu_torch.la.schur import (CapturedPrecond, build_schur_state,
+                                       make_schur_precond_from_state)
+
+    s = sc.solver
+    nb = s._nodebsr
+    u, up, p = _state(s, seed=6)
+    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
+    n_uf = nb.n_u_flat
+    mask = torch.zeros(n_uf + nb.n_nodes, dtype=torch.bool, device="cuda")
+    for d0 in range(2):
+        mask[torch.as_tensor(s.bc_dofs_u.astype(np.int64) * 2 + d0)] = True
+    mask[n_uf + torch.as_tensor(s.bc_dofs_p.astype(np.int64))] = True
+    kw = dict(m_u=0 if method == "rasamg_sup" else 6,
+              m_p=5 if method == "rasamg_sup" else 10,
+              bc_mask_p=mask[n_uf:], inner_method=method, ras_opts=(32, 4))
+    state = build_schur_state(nb, vals, mask[:n_uf], False, **kw)
+    pc = make_schur_precond_from_state(nb, state, mask[:n_uf], False, **kw)
+    assert isinstance(pc, CapturedPrecond)
+    assert make_schur_precond_from_state(nb, state, mask[:n_uf], False,
+                                         **kw) is pc
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        v = s.tensor(rng.standard_normal(n_uf + nb.n_nodes))
+        got = pc(v).clone()
+        assert torch.equal(got, pc.eager(v))
+        assert torch.isfinite(got).all()

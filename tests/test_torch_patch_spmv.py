@@ -74,7 +74,8 @@ def test_plain_matches_pallas_interpret(pallas_run):
 
 def test_port_inputs_are_the_originals(pallas_run):
     """gather_micro's inputs are drawn as the original draws them."""
-    for a, b in zip(gather_micro.patch_inputs(16, 4), pallas_run["args"]):
+    for a, b in zip(gather_micro.patch_inputs(16, 4, "cpu"),
+                    pallas_run["args"]):
         np.testing.assert_array_equal(a.numpy(), b)
 
 
@@ -82,7 +83,7 @@ def test_port_inputs_are_the_originals(pallas_run):
 def test_k1_width1_equals_plain_k5(P, K):
     """The same product through K1 (sup_spmv) at width 1, columns
     p*128 + idx: float32, sums in the same k order."""
-    x, vals, idx = gather_micro.patch_inputs(P, K)
+    x, vals, idx = gather_micro.patch_inputs(P, K, "cpu")
     ref = patch_spmv_plain(x, vals, idx)
     got = gather_micro.patch_spmv_k1(x, vals, idx)
     assert got.shape == ref.shape
@@ -107,7 +108,7 @@ def test_float64_and_counts():
 
 @pytest.mark.parametrize("bad", ["idx_dtype", "shape", "mixed_dtype"])
 def test_wrapper_rejects_bad_input(bad):
-    x, vals, idx = gather_micro.patch_inputs(2, 4)
+    x, vals, idx = gather_micro.patch_inputs(2, 4, "cpu")
     if bad == "idx_dtype":
         idx = idx.long()
     elif bad == "shape":

@@ -138,7 +138,8 @@ def test_block_positions_uniform_identical(case):
     row = tb.block_row_np.astype(np.int64)
     col = tb.block_col_np.astype(np.int64)
     for g in (4, 8):
-        jm, tm = JMaps(row, col, tb.n_nodes, g), TMaps(row, col, tb.n_nodes, g)
+        jm = JMaps(row, col, tb.n_nodes, g)
+        tm = TMaps(row, col, tb.n_nodes, g, "cpu")
         np.testing.assert_array_equal(jm.block_positions_uniform(row, col, 2),
                                       tm.block_positions_uniform(row, col, 2))
 
@@ -179,7 +180,8 @@ def block_amgs(case):
                          fine_smoother=jb.uu_ras(*RAS) if use_ras else None)
         th = BlockAMG(tb.block_row_np, tb.block_col_np, tb.n_nodes, d=2,
                       coarse_size=40,
-                      fine_smoother=tb.uu_ras(*RAS) if use_ras else None)
+                      fine_smoother=tb.uu_ras(*RAS) if use_ras else None,
+                      device="cpu")
         assert len(th.levels) == len(jh.levels) >= 3
         out[name] = (jh, jh.build(case["juu"]), th, th.build(case["tuu"]))
     return out
@@ -189,7 +191,7 @@ def block_amgs(case):
 def test_block_amg_build(block_amgs, smoother):
     _, (jlv, jci, jras), _, (tlv, tci, tras) = block_amgs[smoother]
     assert len(jlv) == len(tlv)
-    for (jev, jd, _), (tev, td) in zip(jlv, tlv):
+    for (jev, jd, _), (tev, td, _) in zip(jlv, tlv):
         assert_close(tev, jev, 1e-11)
         assert_close(td, jd, 1e-11)
     assert_close(tci, jci, 1e-11)
@@ -210,8 +212,8 @@ def test_block_amg_vcycle(case, block_amgs, smoother):
 
 @pytest.mark.parametrize("level", [0, 1])
 def test_block_transfers(case, block_amgs, level):
-    """restrict_block / prolong_block / coarsen_block_vals (K2 widths d
-    and d*d, a gather) vs cfdtpu's segment sums."""
+    """restrict_block / prolong_add / coarsen_block_vals (K2 widths d
+    and d*d, K8 at width d) vs cfdtpu's segment sums and gather."""
     jh, _, th, _ = block_amgs["plain"]
     jl, tl = jh.levels[level], th.levels[level]
     rng = np.random.default_rng(17 + level)
@@ -221,8 +223,9 @@ def test_block_transfers(case, block_amgs, level):
     v = rng.standard_normal((len(th.coo[level][0]), 2, 2))
     assert_close(tl.restrict_block(T(r), 2), jl.restrict_block(
         jnp.asarray(r), 2), 1e-12)
-    assert_close(tl.prolong_block(T(xc), 2), jl.prolong_block(
-        jnp.asarray(xc), 2), 0)
+    x = rng.standard_normal(2 * n)
+    assert_close(tl.prolong_add(T(xc), T(x), width=2),
+                 jnp.asarray(x) + jl.prolong_block(jnp.asarray(xc), 2), 0)
     assert_close(tl.coarsen_block_vals(T(v)), jl.coarsen_block_vals(
         jnp.asarray(v)), 1e-12)
 

@@ -119,7 +119,7 @@ def test_selfp_amg_values(case):
     js_lv, jc = case["jstate"]["sp_built"]
     ts_lv, tc = case["tstate"]["sp_built"]
     assert len(js_lv) == len(ts_lv)
-    for (jev, jd, _), (tev, td) in zip(js_lv, ts_lv):
+    for (jev, jd, _), (tev, td, _) in zip(js_lv, ts_lv):
         assert_close(tev, jev, 1e-11)
         assert_close(td, jd, 1e-11)
     assert_close(tc, jc, 1e-10)
