@@ -11,13 +11,15 @@ K6 ras_apply           restricted additive Schwarz window apply (owned rows)
 K7 ns_facet_natural_p1 natural-correction facet term, P1 triangles,
    ns_facet_natural_jac_p1 and its element Jacobian
 K8 amg_prolong         AMG coarse-grid correction base + xc[agg]
-K9 krylov_cgs          GMRES Gram-Schmidt step (CGS, CGS2), the active rows
-   krylov_lsq          gmres_fixed's small least-squares solve and Z^T y
+K9 krylov_cgs          GMRES Gram-Schmidt step (CGS, CGS2), the active rows,
+                       one launch; in FGMRES it ends in the Givens update
+   krylov_lsq          gmres_fixed's small least-squares solve and Z^T y,
+                       and (krylov_lsq_tri) FGMRES's triangle and x + Z^T y
 
 Every wrapper takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors (or raises); each call of a
-wrapper that launches adds one to its counter, `COUNTERS[name].n`
-(krylov_cgs's three or four launches are one call). Inside a CUDA graph
+wrapper that launches adds one to its counter, `COUNTERS[name].n`.
+Inside a CUDA graph
 (la/schur.py captures each preconditioner application) a wrapper runs
 once, at capture, and adds one then: the graph's replays launch the
 captured kernels and count nothing. The device kernels of a replay are

@@ -63,10 +63,14 @@ SIGNATURES = {
     "cfd_ras_apply": [P, P, P, P, I64, I64, I64, I64, I64, I64, I32, I32, P],
     # xc, agg, x, scale, out, n, width, is_f64, stream
     "cfd_amg_prolong": [P, P, P, P, P, I64, I32, I32, P],
-    # V, n, j, w, h, h stride, reorth, scratch, blocks, tiny, is_f64, stream
-    "cfd_krylov_cgs": [P, I64, I32, P, P, I64, I32, P, I32, F64, I32, P],
+    # V, n, j, w, h, h stride, reorth, exchange, blocks, columns a block,
+    # shared bytes, tiny, R, cs, sn, g, stat, tol, m, is_f64, stream
+    "cfd_krylov_cgs": [P, I64, I32, P, P, I64, I32, P, I32, I32, I32, F64,
+                       P, P, P, P, P, P, I32, I32, P],
     # H, m, beta, Z, n, out, blocks, tiny, is_f64, stream
     "cfd_krylov_lsq": [P, I32, P, P, I64, P, I32, F64, I32, P],
+    # R, R row stride, g, Z, n, x, j, out, blocks, is_f64, stream
+    "cfd_krylov_tri": [P, I64, P, P, I64, P, I32, P, I32, I32, P],
     # stream (csrc/empty.cu: the launch floor, not a kernel of the port)
     "cfd_empty": [P],
 }

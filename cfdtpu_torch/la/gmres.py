@@ -2,15 +2,21 @@
 
 The counterpart of cfdtpu/la/gmres.py. Orthogonalisation is classical
 Gram-Schmidt over the active basis rows (CGS2 in fgmres, one pass in
-the fieldsplit sweeps): kernel K9's krylov_cgs, which also normalises
-the new basis row and writes its Hessenberg column; gmres_fixed's
-least-squares step is K9's krylov_lsq.
+the fieldsplit sweeps): kernel K9's krylov_cgs, one launch a step, which
+also normalises the new basis row and writes its Hessenberg column;
+gmres_fixed's least-squares step is K9's krylov_lsq.
 
-fgmres: cfdtpu's lax.while_loop becomes a host loop. It synchronises
-with the device once per inner iteration — one read of the new
-Hessenberg column (j+2 values, the last being ||w||) — and once per
-restart cycle for the residual norm ||b - A x||. The Givens rotations
-and the back-substitution act on that small host copy, in float64.
+fgmres: cfdtpu's lax.while_loop becomes a host loop, and its Givens
+recurrence stays on the device: each K9 step ends in the Givens update
+of the new column (float64, as cfdtpu's host-free loop keeps it in its
+state), and the cycle ends in K9's triangular solve and x + Z^T y. The
+host reads only the continue flag and |g[j+1]| of each iteration, copied
+into pinned memory, one iteration behind: iteration j+1 is queued before
+the host waits on iteration j's flag, so the card always has the next
+iteration in hand. An iteration queued after the one that converged is
+discarded (it writes only past what the cycle's solve reads); none is
+queued past the restart length or past maxiter. Beside those, the host
+reads ||b|| and the first residual once a solve and ||r|| once a cycle.
 
 gmres_fixed: a fixed trip count and no host reads at all, so the
 fieldsplit sweeps inside the preconditioner queue on the device (and
@@ -19,10 +25,14 @@ are captured in its CUDA graph, la/schur.py).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..kernels.krylov import krylov_cgs, krylov_lsq, tiny as _tiny
+from ..kernels import LaunchCounter
+from ..kernels.krylov import Givens, krylov_cgs, krylov_lsq, krylov_lsq_tri
+
+# fgmres's lookahead iterations that were queued and then discarded (the
+# one after an iteration that converged), summed over every solve
+DISCARDED = LaunchCounter("fgmres_discarded")
 
 
 def _identity_precond(v):
@@ -63,6 +73,37 @@ def gmres_fixed(matvec, b, precond=None, m: int = 10,
     return krylov_lsq(H, beta, Z)
 
 
+class _StatReads:
+    """The host's reads of the Givens tail's stat rows (|g[j+1]|, the
+    continue flag). On the card each row is copied (cudaMemcpyAsync) into
+    one of two pinned slots right after the launch that writes it, and
+    read once the copy's event has passed: at most two rows are in
+    flight, the one waited on and the one after it. On the CPU a row is
+    read where it lies."""
+
+    def __init__(self, stat):
+        self.stat = stat
+        self.cuda = stat.is_cuda
+        if self.cuda:
+            self.host = torch.empty((2, 2), dtype=torch.float64,
+                                    pin_memory=True)
+            self.ready = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def queue(self, k: int) -> None:
+        if self.cuda:
+            self.host[k % 2].copy_(self.stat[k], non_blocking=True)
+            self.ready[k % 2].record()
+
+    def wait(self, k: int) -> tuple[float, bool]:
+        if self.cuda:
+            self.ready[k % 2].synchronize()
+            row = self.host[k % 2]
+        else:
+            row = self.stat[k]
+        res, go = row.tolist()
+        return res, go != 0.0
+
+
 def fgmres(
     matvec,
     b,
@@ -76,10 +117,12 @@ def fgmres(
     """Solve A x = b with flexible right-preconditioned GMRES.
 
     Stops when ||b - A x|| <= max(rtol*||b||, atol) (the Givens residual
-    estimate) or after `maxiter` inner iterations in total.
+    estimate) or after `maxiter` inner iterations in total, checked
+    between restart cycles, as in cfdtpu.
 
-    Returns (x, info) with info = {iters, resnorm, converged} as Python
-    numbers.
+    Returns (x, info) with info = {iters, resnorm, converged, discarded}
+    as Python numbers (discarded: lookahead iterations queued and not
+    used).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -88,7 +131,6 @@ def fgmres(
     n = b.shape[0]
     dt = b.dtype
     dev = b.device
-    tiny = _tiny(dt)
 
     def _norm(v):
         return torch.sqrt(torch.dot(v, v))
@@ -99,68 +141,57 @@ def fgmres(
     tol = max(rtol * bnorm, atol)
 
     V = torch.empty((m + 1, n), dtype=dt, device=dev)
-    Z = torch.zeros((m, n), dtype=dt, device=dev)
-    # the Hessenberg columns, one row each (K9 writes column j into HT[j],
-    # so the host reads j+2 contiguous values), and ||r|| of a cycle
+    Z = torch.empty((m, n), dtype=dt, device=dev)
+    # K9's unrotated Hessenberg columns, one row each (the Givens tail
+    # rotates its own float64 copy into giv.R), and ||r|| of a cycle
     HT = torch.empty((m, m + 1), dtype=dt, device=dev)
     hr = torch.empty((1,), dtype=dt, device=dev)
+    giv = Givens(m, tol, dev)
+    reads = _StatReads(giv.stat)
 
-    def cycle(x):
-        """One restart cycle; returns (x_new, resnorm, inner_iters)."""
+    def step(j):
+        """Queue inner iteration j; its stat row is j+1."""
+        z = M(V[j])
+        w = matvec(z)
+        Z[j] = z
+        # CGS2 against the active rows V[0..j], then the Givens update
+        krylov_cgs(V, w, j, HT[j], True, giv)
+        reads.queue(j + 1)
+
+    def cycle(x, done):
+        """One restart cycle after `done` iterations; returns (x_new,
+        resnorm, inner_iters, discarded)."""
         r = b - matvec(x)
-        krylov_cgs(V, r, -1, hr, False)  # V[0] = r / max(||r||, tiny)
-        beta = float(hr[0])  # host read: once per restart cycle
-        R = np.zeros((m + 1, m))  # Hessenberg, rotated in place (host)
-        g = np.zeros(m + 1)
-        g[0] = beta
-        cs = np.zeros(m)
-        sn = np.zeros(m)
-        j = 0
-        res = beta
-        while j < m and res > tol:
-            z = M(V[j])
-            w = matvec(z)
-            Z[j] = z
-            # CGS2 against the active rows V[0..j]
-            krylov_cgs(V, w, j, HT[j], True)
-            # host read: the new Hessenberg column, once per iteration
-            h = np.zeros(m + 1)
-            h[: j + 2] = HT[j, : j + 2].cpu().numpy()
-
-            # apply the previous Givens rotations to the new column
-            for i in range(j):
-                t0 = cs[i] * h[i] + sn[i] * h[i + 1]
-                t1 = -sn[i] * h[i] + cs[i] * h[i + 1]
-                h[i], h[i + 1] = t0, t1
-            # new rotation annihilating h[j+1]
-            denom = np.sqrt(h[j] ** 2 + h[j + 1] ** 2)
-            c = h[j] / max(denom, tiny)
-            s = h[j + 1] / max(denom, tiny)
-            h[j] = denom
-            h[j + 1] = 0.0
-            cs[j] = c
-            sn[j] = s
-            g1 = -s * g[j]
-            g[j] = c * g[j]
-            g[j + 1] = g1
-            R[:, j] = h
+        # V[0] = r / max(||r||, tiny), g = ||r|| e1
+        krylov_cgs(V, r, -1, hr, False, giv)
+        reads.queue(0)
+        res, go = reads.wait(0)  # host read: ||r||, once per cycle
+        j = wasted = 0
+        if go:
+            step(0)
+        while go:
+            # iteration j is queued: queue j+1 before waiting on j
+            ahead = j + 1 < m and done + j + 2 <= maxiter
+            if ahead:
+                step(j + 1)
+            res, go = reads.wait(j + 1)
             j += 1
-            res = abs(g1)
-
-        # back-substitution on the leading j x j block
-        y = np.zeros(m)
-        if j > 0:
-            Rj = torch.as_tensor(R[:j, :j])
-            gj = torch.as_tensor(g[:j])[:, None]
-            y[:j] = torch.linalg.solve_triangular(
-                Rj, gj, upper=True)[:, 0].numpy()
-        y_t = torch.as_tensor(y, dtype=dt, device=dev)
-        return x + Z.T @ y_t, res, j
+            if not go:
+                wasted = int(ahead)
+            elif not ahead:
+                step(j)
+        if j == 0:
+            return x, res, 0, 0
+        # the back-substitution on the leading j x j triangle, x + Z^T y
+        return krylov_lsq_tri(giv.R, giv.g, Z, x, j), res, j, wasted
 
     x = x0
     res = r0
-    iters = 0
+    iters = discarded = 0
     while res > tol and iters < maxiter:
-        x, res, j = cycle(x)
+        x, res, j, wasted = cycle(x, iters)
         iters += j
-    return x, {"iters": iters, "resnorm": res, "converged": res <= tol}
+        discarded += wasted
+    DISCARDED.n += discarded
+    return x, {"iters": iters, "resnorm": res, "converged": res <= tol,
+               "discarded": discarded}

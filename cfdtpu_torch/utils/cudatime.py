@@ -121,13 +121,17 @@ def device_ms(fn, n: int = 20, tries: int = 3) -> float | None:
 KERNEL_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                       "cuLaunchKernel", "cuLaunchKernelEx")
 GRAPH_LAUNCH_API = "cudaGraphLaunch"
+# host calls that wait for the card: the synchronisations and the
+# blocking copy
+HOST_WAIT_APIS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+                  "cudaDeviceSynchronize", "cudaMemcpy")
 
 
 def host_calls(events) -> dict[str, int]:
-    """Counts of the host's launch calls among torch.profiler events:
-    "kernel" (KERNEL_LAUNCH_APIS), "graph" (cudaGraphLaunch) and
-    "memcpy" (cudaMemcpyAsync)."""
-    out = {"kernel": 0, "graph": 0, "memcpy": 0}
+    """Counts of the host's calls to the CUDA runtime among torch.profiler
+    events: "kernel" (KERNEL_LAUNCH_APIS), "graph" (cudaGraphLaunch),
+    "memcpy" (cudaMemcpyAsync) and "wait" (HOST_WAIT_APIS)."""
+    out = {"kernel": 0, "graph": 0, "memcpy": 0, "wait": 0}
     for e in events:
         if e.name in KERNEL_LAUNCH_APIS:
             out["kernel"] += 1
@@ -135,6 +139,8 @@ def host_calls(events) -> dict[str, int]:
             out["graph"] += 1
         elif e.name == "cudaMemcpyAsync":
             out["memcpy"] += 1
+        elif e.name in HOST_WAIT_APIS:
+            out["wait"] += 1
     return out
 
 

@@ -18,9 +18,11 @@ Run from the root of a checkout. Phases, each raising on failure:
    the rasamg_sup block-AMG levels (K1 at width 16), K1's epilogue
    options at their solver sites (row mask, input scale, residual from
    any vector), block transfers and facet-residual scatter (K2), the RAS
-   windows (K6), K8 at every AMG level with both bases, K9 at the FGMRES
-   and S-stage sites, and the gather_micro shapes (K5, beside K1 at
-   width 1):
+   windows (K6), K8 at every AMG level with both bases, K9's step at
+   the FGMRES sites (CGS2 with the Givens tail, j = 0, 9, 19, its state
+   restored before each compared call) and the S-stage sites (CGS, j = 0,
+   4), K9's least squares (m = 5, 20) and its triangular mode (j = 5,
+   20), and the gather_micro shapes (K5, beside K1 at width 1):
    ||kernel - plain||_inf <= 1e-5 ||plain||_inf (float32: the sums run
    in another order), and called twice, bitwise equal. Each site is
    timed (median device time of 25 CUDA-event-timed calls, host
@@ -32,10 +34,13 @@ Run from the root of a checkout. Phases, each raising on failure:
    the same entries where the blocks are not square or 1 x 1; K2:
    index_add_; K5: a CSR sparse product; K6: torch.bmm of the owned
    inverse rows with pre-gathered windows, the gather left out; K8:
-   torch.index_select of xc, the gather without the add; K9: the two
-   cuBLAS GEMVs of one Gram-Schmidt pass, and torch.linalg.solve_ex of
-   the normal equations; K3, K4 and K7: none); and the kernel's and the
-   yardstick's device time alone
+   torch.index_select of xc, the gather without the add; K9: the whole
+   Gram-Schmidt step from cuBLAS, two GEMVs a pass (torch.mv and
+   torch.addmv), then the norm and the scaled store (not the Givens
+   tail), torch.linalg.solve_ex of the normal equations, and
+   torch.linalg.solve_triangular with torch.addmv for the triangular
+   mode; K3, K4 and K7: none); and the kernel's and the yardstick's
+   device time alone
    (utils/cudatime.device_ms: torch.profiler's trace of 20 warm calls,
    without the launch that the event-timed times carry). Each site
    prints its bound: the bytes it must move and the operations it does
@@ -52,7 +57,9 @@ Run from the root of a checkout. Phases, each raising on failure:
    pins no pressure); the near-true one three beside its V-cycle's; one
    replayed preconditioner application (rasamg_sup and amg_p) one
    cudaGraphLaunch and no kernel launch, its device kernels printed
-   beside those of the eager application;
+   beside those of the eager application; each K9 step at the FGMRES
+   site (with its Givens tail) and at the S stage one device kernel, and
+   each triangular solve one;
    one form.residual call must issue K3 once, K7 once and K2 three times,
    and one form.element_jacobians call exactly two device kernels, K3's
    and K7's Jacobians (no vmap or jacfwd work). The device kernels of
@@ -73,8 +80,10 @@ Run from the root of a checkout. Phases, each raising on failure:
    steps 1-6 warm-up and 7-10 measured, with the launch counters reset
    just before; steps 11-14 run under torch.profiler (each port
    kernel's calls and device ms, the largest other device activities,
-   the host's kernel launches, graph launches and cudaMemcpyAsync
-   calls, per KSP iteration too, the card's idle share). Every step must
+   the host's kernel launches, graph launches, cudaMemcpyAsync calls and
+   waits (synchronisations and blocking copies), per KSP iteration too,
+   the waits and FGMRES's discarded lookahead iterations per solve, the
+   card's idle share). Every step must
    converge with a finite state, no linear solve may hit ksp_max_it, K1,
    K2, K3 (both entry points), K4, K6, K7 (both entry points), K8 and
    K9 (both) must have launched in steps 1-10 (a kernel inside the
@@ -166,7 +175,7 @@ SOURCES = {
     "amg_prolong": ("cfdtpu_torch/csrc/amg_prolong.cu",
                     "cfdtpu/la/amg.py:173", "K8 block-amg L0 base x", "A"),
     "krylov_cgs": ("cfdtpu_torch/csrc/krylov.cu", "cfdtpu/la/gmres.py:192",
-                   "K9 cgs2 fgmres j=19", "A"),
+                   "K9 cgs2+givens fgmres j=19", "A"),
     "krylov_lsq": ("cfdtpu_torch/csrc/krylov.cu", "cfdtpu/la/gmres.py:78",
                    "K9 lsq m=5", "A"),
 }
@@ -239,9 +248,11 @@ def kernel_sites(torch, np, sc, seed=0):
     from cfdtpu_torch.kernels.amg_prolong import (amg_prolong,
                                                   amg_prolong_plain)
     from cfdtpu_torch.kernels.ell_sum import ell_plan, ell_sum, ell_sum_plain
-    from cfdtpu_torch.kernels.krylov import (krylov_cgs, krylov_cgs_plain,
-                                             krylov_lsq, krylov_lsq_plain,
-                                             tiny)
+    from cfdtpu_torch.kernels.krylov import (Givens, krylov_cgs,
+                                             krylov_cgs_plain, krylov_lsq,
+                                             krylov_lsq_plain,
+                                             krylov_lsq_tri,
+                                             krylov_lsq_tri_plain, tiny)
     from cfdtpu_torch.kernels.ns_cell_residual import (
         ns_cell_jacobian_p1, ns_cell_jacobian_plain, ns_cell_residual_p1,
         ns_cell_residual_plain)
@@ -284,9 +295,9 @@ def kernel_sites(torch, np, sc, seed=0):
 
     sites = []
 
-    def add(name, label, kern, plain, nbytes, flops, lib=None):
+    def add(name, label, kern, plain, nbytes, flops, lib=None, reset=None):
         sites.append(dict(name=name, label=label, kern=kern, plain=plain,
-                          bytes=nbytes, flops=flops, lib=lib))
+                          bytes=nbytes, flops=flops, lib=lib, reset=reset))
 
     def k1(label, A, cols, x, n_out, **kw):
         """A K1 site: kernel and plain version on the same flat operands;
@@ -389,36 +400,96 @@ def kernel_sites(torch, np, sc, seed=0):
     k8_levels("amg", amg, levels, 1)
     k8_levels("block-amg", bamg, blevels, bamg.d)
 
-    def k9_cgs(tag, n, rows, j, reorth):
+    def k9_cgs(tag, n, rows, j, reorth, tail):
         """krylov_cgs at step j of a basis of `rows` rows of length n (an
-        orthonormal one, from numpy's QR); yardstick: the two cuBLAS
-        GEMVs of one Gram-Schmidt pass (h = V w, V^T h)."""
+        orthonormal one, from numpy's QR), with FGMRES's Givens tail on a
+        cycle state of restart rows - 1 (random rotations and g, which
+        reset() restores before each compared call: the tail updates g[j]
+        in place). Yardstick: the same step from cuBLAS GEMVs, two a pass
+        (h = V u, u - V^T h), then the norm and the scaled store."""
         q, _ = np.linalg.qr(rng.standard_normal((n, rows)))
         Vk, w = s.tensor(q.T.copy()), rand(n)
         Vp = Vk.clone()
         hk, hp = (torch.zeros(rows, dtype=s.dtype, device=s.device)
                   for _ in range(2))
+        m = rows - 1
+        G0, Gk, Gp = (Givens(m, 1e-30, s.device) if tail else None
+                      for _ in range(3))
+        if tail:
+            th = torch.as_tensor(rng.uniform(0.0, 2.0 * np.pi, m),
+                                 device=s.device)
+            G0.cs.copy_(torch.cos(th))
+            G0.sn.copy_(torch.sin(th))
+            G0.g.copy_(torch.as_tensor(rng.standard_normal(m + 1)))
+            G0.R.zero_()
+            G0.stat.zero_()
 
-        def run(fn, V, h):
-            fn(V, w, j, h, reorth)
-            return V[j + 1], h[: j + 2]
+        def reset():
+            for G in (Gk, Gp):
+                for key in ("R", "cs", "sn", "g", "stat"):
+                    getattr(G, key).copy_(getattr(G0, key))
+
+        def run(fn, V, h, G):
+            fn(V, w, j, h, reorth, G)
+            out = (V[j + 1], h[: j + 2])
+            if G is not None:
+                out += (G.R[j], G.cs[j:j + 1], G.sn[j:j + 1],
+                        G.g[j:j + 2], G.stat[j + 1])
+            return out
 
         def lib():
-            Va, hh = Vk[: j + 1], rand(j + 1)
-            return lambda: (torch.mv(Va, w), torch.mv(Va.T, hh))
+            Va = Vk[: j + 1]
+            dst = torch.empty_like(w)
+            t = tiny(s.dtype)
+
+            def step():
+                u = w
+                for _ in range(2 if reorth else 1):
+                    u = torch.addmv(u, Va.T, torch.mv(Va, u), alpha=-1.0)
+                nrm = torch.linalg.vector_norm(u)
+                torch.div(u, nrm.clamp(min=t), out=dst)
+            return step
 
         sz = Vk.element_size()
         passes = 2 if reorth else 1
+        # the tail: cs and sn below j and g[j] read; R's row, cs, sn,
+        # two of g and stat's row written (float64)
+        tail_bytes = (2 * j + 1 + (m + 1) + 6) * 8 if tail else 0
         add("krylov_cgs", f"K9 {tag} j={j}",
-            lambda: run(krylov_cgs, Vk, hk),
-            lambda: run(krylov_cgs_plain, Vp, hp),
-            ((j + 1) * n + 2 * n + j + 2) * sz,
-            passes * 4 * (j + 1) * n + 3 * n, lib)
+            lambda: run(krylov_cgs, Vk, hk, Gk),
+            lambda: run(krylov_cgs_plain, Vp, hp, Gp),
+            ((j + 1) * n + 2 * n + j + 2) * sz + tail_bytes,
+            passes * 4 * (j + 1) * n + 3 * n + (6 * j + 10) * tail, lib,
+            reset if tail else None)
 
     for j in (0, 9, 19):
-        k9_cgs("cgs2 fgmres", n_u + n_p, 21, j, True)
+        k9_cgs("cgs2+givens fgmres", n_u + n_p, 21, j, True, True)
     for j in (0, 4):
-        k9_cgs("cgs s-stage", n_p, 6, j, False)
+        k9_cgs("cgs s-stage", n_p, 6, j, False, False)
+
+    # the triangular mode at the end of an FGMRES cycle (restart 20)
+    nf = n_u + n_p
+    for j in (5, 20):
+        m = 20
+        Rn = np.zeros((m, m + 1))
+        Rn[:, :m] = (np.triu(rng.standard_normal((m, m)))
+                     + 4.0 * np.eye(m)).T
+        f64 = dict(dtype=torch.float64, device=s.device)
+        ta = (torch.as_tensor(Rn, **f64),
+              torch.as_tensor(rng.standard_normal(m + 1), **f64),
+              rand(m, nf), rand(nf), j)
+
+        def lib(a=ta):
+            R, g, Z, x, j = a
+            U, gj, Zj = R[:j, :j].T.contiguous(), g[:j, None], Z[:j]
+            return lambda: torch.addmv(x, Zj.T, torch.linalg.solve_triangular(
+                U, gj, upper=True)[:, 0].to(Z.dtype))
+
+        add("krylov_lsq", f"K9 lsq tri j={j}",
+            lambda a=ta: krylov_lsq_tri(*a),
+            lambda a=ta: krylov_lsq_tri_plain(*a),
+            nbytes(ta[2][:j], ta[3]) + nbytes(ta[3]) + (j * j + j) * 8,
+            2 * j * nf + j * j, lib)
 
     for m in (5, 20):
         Hn = (np.triu(rng.standard_normal((m + 1, m)), -1)
@@ -664,8 +735,13 @@ def phase_kernels(torch, np, sc, tol, timed):
     rows = {}
     for st in kernel_sites(torch, np, sc):
         label, kern, plain = st["label"], st["kern"], st["plain"]
+        # a kernel that updates a state in place starts each compared call
+        # from the same state (the timed calls need not)
+        reset = st["reset"] or (lambda: None)
         # copies: a kernel that writes in place returns views
+        reset()
         got = tuple(t.clone() for t in flat_outputs(kern()))
+        reset()
         ref = flat_outputs(plain())
         torch.cuda.synchronize()
         err = 0.0
@@ -678,6 +754,7 @@ def phase_kernels(torch, np, sc, tol, timed):
                     f"{label}: |kernel - plain|_inf {e:.3e} > "
                     f"{tol:g} * {scale:.3e}")
             err = max(err, e)
+        reset()
         again = flat_outputs(kern())
         require(all(torch.equal(g, a) for g, a in zip(got, again)),
                 f"{label}: two calls are not bitwise equal")
@@ -724,9 +801,13 @@ def phase_kernels(torch, np, sc, tol, timed):
 
 def phase_one_launch(torch, np, sc):
     """Each operator apply the solver calls is one device kernel: K1,
-    with no fill, copy or concatenation around it; form.residual issues
-    K3 once, K7 once and K2 three times; form.element_jacobians issues
-    K3's and K7's Jacobian kernels and nothing else (torch.profiler)."""
+    with no fill, copy or concatenation around it; each K9 Gram-Schmidt
+    step (FGMRES's CGS2 with its Givens tail, the S stage's CGS) and each
+    triangular solve one device kernel; form.residual issues K3 once, K7
+    once and K2 three times; form.element_jacobians issues K3's and K7's
+    Jacobian kernels and nothing else (torch.profiler)."""
+    from cfdtpu_torch.kernels.krylov import (Givens, krylov_cgs,
+                                             krylov_lsq_tri)
     from cfdtpu_torch.kernels.ns_cell_residual import ns_cell_jacobian_plain
     from cfdtpu_torch.kernels.ns_facet_natural import (
         ns_facet_natural_jac_plain, ns_facet_natural_plain)
@@ -765,6 +846,33 @@ def phase_one_launch(torch, np, sc):
         log(f"[one launch] {label}: device activities {names}")
         require(len(names) == 1 and "sup_spmv" in names[0],
                 f"{label} issued {names}, not one K1 kernel")
+        out[label] = names
+
+    # K9 at its sites: FGMRES (restart 20, j = 19, the Givens tail; the
+    # triangular solve at j = 20) and the S stage (j = 4)
+    G = Givens(20, 0.0, s.device)
+    G.cs.fill_(0.6)
+    G.sn.fill_(0.8)
+    G.g.fill_(1.0)
+    G.R.copy_(torch.eye(20, 21, dtype=torch.float64, device=s.device))
+    Vf, Vs = (torch.nn.functional.normalize(rand(r * n).reshape(r, n),
+                                            dim=1)
+              for r, n in ((21, n_u + n_p), (6, n_p)))
+    wf, ws, hf, hs = rand(n_u + n_p), rand(n_p), rand(21), rand(6)
+    Zf = rand(20 * (n_u + n_p)).reshape(20, -1)
+    k9 = {
+        "krylov_cgs CGS2 + Givens (FGMRES j=19)":
+            (lambda: krylov_cgs(Vf, wf, 19, hf, True, G), "krylov_cgs"),
+        "krylov_cgs CGS (S stage j=4)":
+            (lambda: krylov_cgs(Vs, ws, 4, hs, False), "krylov_cgs"),
+        "krylov_lsq_tri (FGMRES j=20)":
+            (lambda: krylov_lsq_tri(G.R, G.g, Zf, wf, 20), "krylov_lsq"),
+    }
+    for label, (fn, key) in k9.items():
+        names = device_kernels(fn)
+        log(f"[one launch] {label}: device activities {names}")
+        require(len(names) == 1 and key in names[0],
+                f"{label} issued {names}, not one K9 kernel")
         out[label] = names
 
     def count(names, key):
@@ -1042,27 +1150,34 @@ class StepProfile:
     """torch.profiler over the steps after `start` (from on_step(start)
     to on_step(stop)): each port kernel's calls and device time (matched
     by its name in COUNTERS), the other device activities' (the largest
-    by name), the host's cudaLaunchKernel and cudaMemcpyAsync calls, and
-    the share of the window's wall time in which the card was idle."""
+    by name), the host's kernel and graph launches, cudaMemcpyAsync calls
+    and waits (utils/cudatime.host_calls), FGMRES's discarded lookahead
+    iterations, and the share of the window's wall time in which the card
+    was idle."""
 
     def __init__(self, start, stop):
         self.start, self.stop = start, stop
         self.prof = None
         self.t0 = 0.0
+        self.discarded0 = 0
         self.result = None
 
     def __call__(self, i):
         from torch.profiler import ProfilerActivity, profile
+
+        from cfdtpu_torch.la.gmres import DISCARDED
 
         if i == self.start:
             self.prof = profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA])
             self.prof.__enter__()
             self.t0 = time.perf_counter()
+            self.discarded0 = DISCARDED.n
         elif i == self.stop:
             wall = time.perf_counter() - self.t0
             self.prof.__exit__(None, None, None)
             self.result = self._read(wall)
+            self.result["discarded"] = DISCARDED.n - self.discarded0
 
     def _read(self, wall):
         from torch.autograd import DeviceType
@@ -1103,6 +1218,7 @@ class StepProfile:
                 "kernel_launches": api["kernel"],
                 "graph_launches": api["graph"],
                 "cudaMemcpyAsync": api["memcpy"],
+                "host_waits": api["wait"],
                 "idle_share": 1.0 - busy / 1e6 / wall}
 
 
@@ -1153,12 +1269,17 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
     if profile_steps:
         res = prof.result
         ksp_w = sum(r[1] for r in rec[steps:])
+        newton_w = sum(r[0] for r in rec[steps:])
         res["ksp"] = ksp_w
+        res["newton"] = newton_w
         res["host_launches_per_ksp"] = (res["kernel_launches"]
                                         + res["graph_launches"]) / ksp_w
         res["device_kernels_per_ksp"] = res["device_kernels"] / ksp_w
+        res["host_waits_per_ksp"] = res["host_waits"] / ksp_w
+        res["host_waits_per_solve"] = res["host_waits"] / newton_w
+        res["discarded_per_solve"] = res["discarded"] / newton_w
         log(f"[{tag}] torch.profiler over steps {res['steps']} "
-            f"(Newton/KSP {sum(r[0] for r in rec[steps:])}/{ksp_w}): wall "
+            f"(Newton/KSP {newton_w}/{ksp_w}): wall "
             f"{res['profiled_wall_s']:.4f} s, device busy "
             f"{res['device_busy_ms']:.4f} ms in "
             f"{res['device_activities']} activities "
@@ -1166,10 +1287,14 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
             f"{res['idle_share']:.4f}; host kernel launches "
             f"{res['kernel_launches']}, cudaGraphLaunch "
             f"{res['graph_launches']}, cudaMemcpyAsync "
-            f"{res['cudaMemcpyAsync']}; per KSP iteration: host launches "
-            f"(kernel + graph, captures included) "
-            f"{res['host_launches_per_ksp']:.2f}, device kernels "
-            f"{res['device_kernels_per_ksp']:.2f}; peak memory "
+            f"{res['cudaMemcpyAsync']}, host waits {res['host_waits']}; "
+            f"per KSP iteration: host launches (kernel + graph, captures "
+            f"included) {res['host_launches_per_ksp']:.2f}, device kernels "
+            f"{res['device_kernels_per_ksp']:.2f}, host waits "
+            f"{res['host_waits_per_ksp']:.2f}; per solve (Newton "
+            f"iteration): host waits {res['host_waits_per_solve']:.2f}, "
+            f"discarded lookahead iterations {res['discarded']} "
+            f"({res['discarded_per_solve']:.2f} a solve); peak memory "
             f"{peak / 2**20:.1f} MiB")
         for name, kv in res["kernels"].items():
             log(f"[{tag}] window kernel {name}: {kv['calls']} calls, "

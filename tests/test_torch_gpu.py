@@ -606,6 +606,191 @@ def test_k9_lsq_matches_plain_and_repeats(m, dt):
     assert torch.equal(zero, torch.zeros_like(zero))
 
 
+def _givens(m, seed):
+    """A Givens state on the card with unit rotations, a random g and
+    tol 0.25 (R and stat filled with -5)."""
+    from cfdtpu_torch.kernels.krylov import Givens
+
+    rng = np.random.default_rng(seed)
+    G = Givens(m, 0.25, "cuda")
+    th = rng.uniform(0.0, 2.0 * np.pi, m)
+    G.cs.copy_(torch.as_tensor(np.cos(th)))
+    G.sn.copy_(torch.as_tensor(np.sin(th)))
+    G.g.copy_(torch.as_tensor(rng.standard_normal(m + 1)))
+    G.R.fill_(-5.0)
+    G.stat.fill_(-5.0)
+    return G
+
+
+def _givens_copy(G, into=None):
+    from cfdtpu_torch.kernels.krylov import Givens
+
+    out = into if into is not None else Givens(G.m, 0.0, "cuda")
+    for k in ("R", "cs", "sn", "g", "stat", "tol"):
+        getattr(out, k).copy_(getattr(G, k))
+    return out
+
+
+def _k9_step_inputs(n, rows, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, rows)))
+    return (torch.as_tensor(q.T.copy(), dtype=dtype, device="cuda"),
+            torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                            device="cuda"))
+
+
+def _k9_outputs(V, h, G, j):
+    out = [V[j + 1].clone(), h[: j + 2].clone()]
+    if G is not None:
+        out += [G.R[j].clone(), G.cs[j:j + 1].clone(),
+                G.sn[j:j + 1].clone(), G.g[j:j + 2].clone(),
+                G.stat[j + 1].clone()]
+    return out
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("rows", [6, 21, 61])
+def test_k9_cgs_resident_and_streamed(rows, dt, tail):
+    """The one-launch CGS2 step at the FGMRES site's length (106,275) at
+    j = rows - 2, with and without the Givens tail: rows 6 and 21 keep
+    their slices in shared memory, 61 too in float32 and streams them in
+    float64 (cgs_plan, on a 132-multiprocessor card). V[j+1], the H
+    column and the Givens state within the tolerance of the plain
+    version, and bitwise equal over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.kernels.krylov import (cgs_plan, krylov_cgs,
+                                             krylov_cgs_plain)
+
+    dtype, tol = _dev_tol(dt)
+    n, j = 106275, rows - 2
+    V0, w = _k9_step_inputs(n, rows, dtype, rows)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sms == 132:
+        assert (cgs_plan(n, j, V0.element_size(), sms)[2] > 0) == (
+            rows < 61 or dt == "f32")
+    G0 = _givens(rows - 1, rows) if tail else None
+    out = []
+    for fn in (krylov_cgs, krylov_cgs, krylov_cgs_plain):
+        V = V0.clone()
+        h = torch.full((rows,), -3.0, dtype=dtype, device="cuda")
+        G = _givens_copy(G0) if tail else None
+        fn(V, w, j, h, True, G)
+        out.append(_k9_outputs(V, h, G, j))
+        assert torch.equal(V[: j + 1], V0[: j + 1])
+        assert bool((h[j + 2:] == -3.0).all())
+    torch.cuda.synchronize()
+    for a, b, p in zip(*out):
+        assert torch.equal(a, b)
+        _close_tol(a, p, tol)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("j,reorth,tail", [(19, True, True),
+                                           (4, False, False)])
+def test_k9_cgs_graph_capture_replays_bitwise(j, reorth, tail, dt):
+    """One krylov_cgs call captured into a CUDA graph (the cooperative
+    launch under stream capture, as inside the preconditioner's graph):
+    every replay, from the same state, bitwise equal to the eager call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.kernels.krylov import krylov_cgs
+
+    dtype, _ = _dev_tol(dt)
+    n, rows = (106275, 21) if tail else (35425, 6)
+    V0, w = _k9_step_inputs(n, rows, dtype, j)
+    G0 = _givens(rows - 1, j) if tail else None
+    h = torch.zeros(rows, dtype=dtype, device="cuda")
+
+    def reset(V, G):
+        V.copy_(V0)
+        h.zero_()
+        if tail:
+            _givens_copy(G0, G)
+
+    V, G = V0.clone(), _givens_copy(G0) if tail else None
+    krylov_cgs(V, w, j, h, reorth, G)
+    ref = _k9_outputs(V, h, G, j)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reset(V, G)
+        krylov_cgs(V, w, j, h, reorth, G)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        krylov_cgs(V, w, j, h, reorth, G)
+    for _ in range(2):
+        reset(V, G)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b)
+                   for a, b in zip(_k9_outputs(V, h, G, j), ref))
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("j", [1, 5, 20])
+def test_k9_lsq_tri_matches_plain_and_repeats(j, dt):
+    """The triangular mode (fgmres's end of a cycle) at the FGMRES
+    site's length: x + Z[:j]^T y, R[:j,:j] y = g[:j], within the
+    tolerance of the plain version and bitwise over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.krylov import (krylov_lsq_tri,
+                                             krylov_lsq_tri_plain)
+
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(j)
+    m, n = 20, 106275
+    R = np.zeros((m, m + 1))
+    R[:, :m] = (np.triu(rng.standard_normal((m, m))) + 4.0 * np.eye(m)).T
+    f64 = dict(dtype=torch.float64, device="cuda")
+    R, g = torch.as_tensor(R, **f64), torch.as_tensor(
+        rng.standard_normal(m + 1), **f64)
+    Z, x = (torch.as_tensor(rng.standard_normal(sh), dtype=dtype,
+                            device="cuda") for sh in ((m, n), (n,)))
+    kernels.reset_counts()
+    got = krylov_lsq_tri(R, g, Z, x, j)
+    assert torch.equal(got, krylov_lsq_tri(R, g, Z, x, j))
+    _close_tol(got, krylov_lsq_tri_plain(R, g, Z, x, j), tol)
+    torch.cuda.synchronize()
+    assert kernels.counts()["krylov_lsq"] == 2
+
+
+@pytest.mark.parametrize("restart", [5, 30])
+def test_fgmres_on_card_matches_cpu(restart):
+    """fgmres with its cycle on the card (Givens tail, lookahead,
+    triangular solve) on a dense float64 system: the iterations, the
+    discarded lookahead iterations and x (1e-10) as the CPU's plain run;
+    K9's launches one a step and one triangular solve a cycle."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.la.gmres import fgmres
+
+    rng = np.random.default_rng(restart)
+    N = 400
+    A = rng.standard_normal((N, N)) / np.sqrt(N) + 3.0 * np.eye(N)
+    dinv = 1.0 / (np.diag(A) + 0.1 * rng.standard_normal(N))
+    b = rng.standard_normal(N)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tA, td, tb = (torch.as_tensor(a, device=dev) for a in (A, dinv, b))
+        kernels.reset_counts()
+        x, info = fgmres(lambda v: tA @ v, tb, precond=lambda v: v * td,
+                         restart=restart, maxiter=200, rtol=1e-10)
+        out[dev] = (x.cpu(), info, kernels.counts())
+    (xg, ig, cg), (xc, ic, _) = out["cuda"], out["cpu"]
+    assert ig["iters"] == ic["iters"] and ig["converged"]
+    assert ig["discarded"] == ic["discarded"] <= 1
+    _close_tol(xg, xc, 1e-10)
+    cycles = -(-ig["iters"] // restart)
+    assert cg["krylov_cgs"] == ig["iters"] + ig["discarded"] + cycles
+    assert cg["krylov_lsq"] == cycles
+
+
 @pytest.mark.parametrize("method", ["amg_p", "rasamg_sup"])
 def test_graph_replay_matches_eager(sc, method):
     """One preconditioner application as a CUDA graph: captured at the
