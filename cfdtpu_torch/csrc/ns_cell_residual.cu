@@ -57,6 +57,17 @@
 // body three times a cell, value and three tangents) takes about as
 // long as its bytes.
 //
+// The facet block rides in the same launch. The form's natural-correction
+// term (K7, ns_facet_natural.cuh) alone was a launch of its own, 2.6-2.9
+// us of device time for 0.07-0.14 us of bytes (H100 80GB HBM3, 700 W),
+// once a residual and once a Jacobian build. The _facet kernels below
+// run the cell blocks as above and, after them, blocks of K7's lanes at
+// the cells' block size: one lane a facet (residual) or a (facet,
+// column) (Jacobian), which read nothing the cell blocks stage and write
+// their own output (ru_f, A_f). One launch then covers a form's
+// residual and one its Jacobian build; the facet blocks' few lanes run
+// beside the cells' single wave.
+//
 // Operations, counted from this file with each add, multiply, min, max,
 // reciprocal and reciprocal square root as one (chip_smoke.py holds the
 // same numbers): the residual, 161 a cell outside the loop (geometry
@@ -76,6 +87,7 @@
 #include <cstdint>
 
 #include "element.cuh"
+#include "ns_facet_natural.cuh"
 
 namespace {
 
@@ -320,19 +332,52 @@ __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
   contract(g, S, P, ru, rp);
 }
 
-// Residual: one lane a cell, RES_CELLS cells a block.
+// the cells' arguments, as the C entry points pass them
 template <typename T>
-__global__ void __launch_bounds__(RES_CELLS) ns_cell_residual_p1_kernel(
-    const T* __restrict__ u, const T* __restrict__ uprev,
-    const T* __restrict__ p, const int* __restrict__ dofmap,
-    const T* __restrict__ coords, const T* __restrict__ hcell,
-    const T* __restrict__ phi, const T* __restrict__ dphi,
-    const T* __restrict__ qw, int64_t nc, int nq, CellParams<T> prm,
+struct CellIn {
+  const T* __restrict__ u;
+  const T* __restrict__ uprev;
+  const T* __restrict__ p;
+  const int* __restrict__ dofmap;
+  const T* __restrict__ coords;
+  const T* __restrict__ hcell;
+  const T* __restrict__ phi;
+  const T* __restrict__ dphi;
+  const T* __restrict__ qw;
+  int64_t nc;
+  int nq;
+};
+
+// the facet block that rides in K3's launch: K7's arguments, its lanes
+// in the blocks after the cells' (kernel K7, ns_facet_natural.cuh)
+template <typename T>
+struct FacetRange {
+  FacetIn<T> in;
+  FacetTabs<T> tb;
+  int64_t nf;
+  int nq;
+  T mu;
+  T* out;  // ru_f (nf, 3, 2) or A_f (nf, 9, 9)
+};
+
+// Residual: one lane a cell, RES_CELLS cells a block; block blk of the
+// cell range
+template <typename T>
+__device__ __forceinline__ void cell_residual_block(
+    int64_t blk, const CellIn<T>& ci, const CellParams<T>& prm,
     T* __restrict__ ru_e, T* __restrict__ rp_e) {
   using V2 = typename Vec2<T>::type;
+  const T* u = ci.u;
+  const T* uprev = ci.uprev;
+  const T* p = ci.p;
+  const int* dofmap = ci.dofmap;
+  const T* coords = ci.coords;
+  const T* hcell = ci.hcell;
+  const int64_t nc = ci.nc;
+  const int nq = ci.nq;
   __shared__ Tabs<T> tb;
-  load_tabs(tb, phi, dphi, qw, nq);
-  const int64_t c = blockIdx.x * (int64_t)RES_CELLS + threadIdx.x;
+  load_tabs(tb, ci.phi, ci.dphi, ci.qw, nq);
+  const int64_t c = blk * (int64_t)RES_CELLS + threadIdx.x;
   const bool active = c < nc;
   T sv[3][VERT];
   T h = T(1);
@@ -358,6 +403,28 @@ __global__ void __launch_bounds__(RES_CELLS) ns_cell_residual_p1_kernel(
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(RES_CELLS)
+    ns_cell_residual_p1_kernel(const CellIn<T> ci, const CellParams<T> prm,
+                               T* __restrict__ ru_e, T* __restrict__ rp_e) {
+  cell_residual_block(blockIdx.x, ci, prm, ru_e, rp_e);
+}
+
+// K3 and K7 in one launch: the cell blocks, then the facet blocks (one
+// lane a facet, the cells' block size; no shared memory beyond the
+// cells' static tables)
+template <typename T>
+__global__ void __launch_bounds__(RES_CELLS) ns_cell_residual_p1_facet_kernel(
+    const CellIn<T> ci, const CellParams<T> prm, T* __restrict__ ru_e,
+    T* __restrict__ rp_e, const FacetRange<T> fr, int64_t cell_blocks) {
+  if (blockIdx.x >= cell_blocks) {
+    const int64_t f = (blockIdx.x - cell_blocks) * RES_CELLS + threadIdx.x;
+    if (f < fr.nf) facet_residual_lane(fr.in, fr.tb, f, fr.nq, fr.mu, fr.out);
+    return;
+  }
+  cell_residual_block(blockIdx.x, ci, prm, ru_e, rp_e);
+}
+
 // Jacobian: three lanes a cell, lane j differentiating along the three
 // dofs of trial vertex j: columns u(j, 0), u(j, 1) and p(j)
 constexpr int JAC_ND = 3;               // tangent directions a lane
@@ -368,22 +435,26 @@ __device__ __forceinline__ int jac_column(int j, int k) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(JAC_CELLS * JAC_LPC)
-    ns_cell_jacobian_p1_kernel(
-        const T* __restrict__ u, const T* __restrict__ uprev,
-        const T* __restrict__ p, const int* __restrict__ dofmap,
-        const T* __restrict__ coords, const T* __restrict__ hcell,
-        const T* __restrict__ phi, const T* __restrict__ dphi,
-        const T* __restrict__ qw, int64_t nc, int nq, CellParams<T> prm,
-        T* __restrict__ A) {
+__device__ __forceinline__ void cell_jacobian_block(int64_t blk,
+                                                    const CellIn<T>& ci,
+                                                    const CellParams<T>& prm,
+                                                    T* __restrict__ A) {
   using N = Dual<T, JAC_ND>;
   using V16 = typename Vec16<T>::type;
+  const T* u = ci.u;
+  const T* uprev = ci.uprev;
+  const T* p = ci.p;
+  const int* dofmap = ci.dofmap;
+  const T* coords = ci.coords;
+  const T* hcell = ci.hcell;
+  const int64_t nc = ci.nc;
+  const int nq = ci.nq;
   __shared__ Tabs<T> tb;
   __shared__ T s_vert[JAC_CELLS * 3][VERT];
   __shared__ __align__(16) T tile[JAC_CELLS * NLOC * NLOC];
   const int t = threadIdx.x;
-  const int64_t c0 = blockIdx.x * (int64_t)JAC_CELLS;
-  load_tabs(tb, phi, dphi, qw, nq);
+  const int64_t c0 = blk * (int64_t)JAC_CELLS;
+  load_tabs(tb, ci.phi, ci.dphi, ci.qw, nq);
   if (c0 * 3 + t < 3 * nc)  // one (cell, vertex) slot a lane
     load_vertex(c0 * 3 + t, u, uprev, p, dofmap, coords, s_vert[t]);
   const int cl = t / JAC_LPC;
@@ -432,36 +503,127 @@ __global__ void __launch_bounds__(JAC_CELLS * JAC_LPC)
 }
 
 template <typename T>
-int launch_residual(const void* u, const void* uprev, const void* p,
-                    const void* dofmap, const void* coords, const void* h,
-                    const void* phi, const void* dphi, const void* qw,
-                    int64_t nc, int nq, const CellParams<T>& prm,
-                    void* ru_e, void* rp_e, cudaStream_t st) {
-  const int64_t blocks = (nc + RES_CELLS - 1) / RES_CELLS;
-  ns_cell_residual_p1_kernel<T><<<(unsigned)blocks, RES_CELLS, 0, st>>>(
-      static_cast<const T*>(u), static_cast<const T*>(uprev),
-      static_cast<const T*>(p), static_cast<const int*>(dofmap),
-      static_cast<const T*>(coords), static_cast<const T*>(h),
-      static_cast<const T*>(phi), static_cast<const T*>(dphi),
-      static_cast<const T*>(qw), nc, nq, prm, static_cast<T*>(ru_e),
-      static_cast<T*>(rp_e));
+__global__ void __launch_bounds__(JAC_CELLS * JAC_LPC)
+    ns_cell_jacobian_p1_kernel(const CellIn<T> ci, const CellParams<T> prm,
+                               T* __restrict__ A) {
+  cell_jacobian_block(blockIdx.x, ci, prm, A);
+}
+
+// the Jacobians of K3 and K7 in one launch: the cell blocks, then the
+// facet blocks (one lane a (facet, column), the cells' block size; the
+// tile and vertex arrays are the cells' static shared memory, which the
+// facet blocks leave unused)
+template <typename T>
+__global__ void __launch_bounds__(JAC_CELLS * JAC_LPC)
+    ns_cell_jacobian_p1_facet_kernel(const CellIn<T> ci,
+                                     const CellParams<T> prm,
+                                     T* __restrict__ A,
+                                     const FacetRange<T> fr,
+                                     int64_t cell_blocks) {
+  if (blockIdx.x >= cell_blocks) {
+    const int64_t lane =
+        (blockIdx.x - cell_blocks) * (JAC_CELLS * JAC_LPC) + threadIdx.x;
+    if (lane < fr.nf * NLOC)
+      facet_jacobian_lane(fr.in, fr.tb, lane, fr.nq, fr.mu, fr.out);
+    return;
+  }
+  cell_jacobian_block(blockIdx.x, ci, prm, A);
+}
+
+template <typename T>
+CellIn<T> cell_in(const void* u, const void* uprev, const void* p,
+                  const void* dofmap, const void* coords, const void* h,
+                  const void* phi, const void* dphi, const void* qw,
+                  int64_t nc, int nq) {
+  return CellIn<T>{static_cast<const T*>(u), static_cast<const T*>(uprev),
+                   static_cast<const T*>(p), static_cast<const int*>(dofmap),
+                   static_cast<const T*>(coords), static_cast<const T*>(h),
+                   static_cast<const T*>(phi), static_cast<const T*>(dphi),
+                   static_cast<const T*>(qw), nc, nq};
+}
+
+// the facet range's blocks: `lanes` lanes at the cells' block size
+inline unsigned facet_blocks(int64_t lanes, int threads) {
+  return (unsigned)((lanes + threads - 1) / threads);
+}
+
+template <typename T>
+int launch_residual(const CellIn<T>& ci, const CellParams<T>& prm,
+                    void* ru_e, void* rp_e, const FacetRange<T>* fr,
+                    cudaStream_t st) {
+  const int64_t blocks = (ci.nc + RES_CELLS - 1) / RES_CELLS;
+  if (fr == nullptr) {
+    ns_cell_residual_p1_kernel<T><<<(unsigned)blocks, RES_CELLS, 0, st>>>(
+        ci, prm, static_cast<T*>(ru_e), static_cast<T*>(rp_e));
+  } else {
+    const unsigned total = (unsigned)blocks + facet_blocks(fr->nf, RES_CELLS);
+    ns_cell_residual_p1_facet_kernel<T><<<total, RES_CELLS, 0, st>>>(
+        ci, prm, static_cast<T*>(ru_e), static_cast<T*>(rp_e), *fr, blocks);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_jacobian(const void* u, const void* uprev, const void* p,
-                    const void* dofmap, const void* coords, const void* h,
-                    const void* phi, const void* dphi, const void* qw,
-                    int64_t nc, int nq, const CellParams<T>& prm,
-                    void* A, cudaStream_t st) {
-  const int64_t blocks = (nc + JAC_CELLS - 1) / JAC_CELLS;
-  ns_cell_jacobian_p1_kernel<T><<<(unsigned)blocks, JAC_CELLS * JAC_LPC, 0, st>>>(
-      static_cast<const T*>(u), static_cast<const T*>(uprev),
-      static_cast<const T*>(p), static_cast<const int*>(dofmap),
-      static_cast<const T*>(coords), static_cast<const T*>(h),
-      static_cast<const T*>(phi), static_cast<const T*>(dphi),
-      static_cast<const T*>(qw), nc, nq, prm, static_cast<T*>(A));
+int launch_jacobian(const CellIn<T>& ci, const CellParams<T>& prm, void* A,
+                    const FacetRange<T>* fr, cudaStream_t st) {
+  constexpr int threads = JAC_CELLS * JAC_LPC;
+  const int64_t blocks = (ci.nc + JAC_CELLS - 1) / JAC_CELLS;
+  if (fr == nullptr) {
+    ns_cell_jacobian_p1_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
+        ci, prm, static_cast<T*>(A));
+  } else {
+    const unsigned total =
+        (unsigned)blocks + facet_blocks(fr->nf * NLOC, threads);
+    ns_cell_jacobian_p1_facet_kernel<T><<<total, threads, 0, st>>>(
+        ci, prm, static_cast<T*>(A), *fr, blocks);
+  }
   return (int)cudaGetLastError();
+}
+
+// one entry point of four: the residual or the Jacobian, with the facet
+// block (nf > 0) or without
+template <typename T>
+int run(const void* u, const void* uprev, const void* p, const void* dofmap,
+        const void* coords, const void* h, const void* phi, const void* dphi,
+        const void* qw, int64_t nc, int64_t nq, double rho, double mu,
+        double dt, double f0, double f1, double eps, void* out0, void* out1,
+        const void* const* fp, int64_t nf, int64_t nqf, double mu_f,
+        void* out_f, int jacobian, cudaStream_t st) {
+  const CellIn<T> ci = cell_in<T>(u, uprev, p, dofmap, coords, h, phi, dphi,
+                                  qw, nc, (int)nq);
+  const CellParams<T> prm = make_params<T>(rho, mu, dt, f0, f1, eps);
+  FacetRange<T> fr;
+  if (nf > 0) {
+    fr.in = facet_in<T>(u, uprev, p, fp[0], fp[1], fp[2]);
+    fr.tb = facet_tabs<T>(fp[3], fp[4], fp[5], fp[6], fp[7], fp[8]);
+    fr.nf = nf;
+    fr.nq = (int)nqf;
+    fr.mu = (T)mu_f;
+    fr.out = static_cast<T*>(out_f);
+  }
+  const FacetRange<T>* frp = nf > 0 ? &fr : nullptr;
+  return jacobian ? launch_jacobian<T>(ci, prm, out0, frp, st)
+                  : launch_residual<T>(ci, prm, out0, out1, frp, st);
+}
+
+int dispatch(const void* u, const void* uprev, const void* p,
+             const void* dofmap, const void* coords, const void* h,
+             const void* phi, const void* dphi, const void* qw, int64_t nc,
+             int64_t nq, double rho, double mu, double dt, double f0,
+             double f1, double eps, void* out0, void* out1,
+             const void* const* fp, int64_t nf, int64_t nqf, double mu_f,
+             void* out_f, int jacobian, int is_f64, void* stream) {
+  if (nq < 1 || nq > MAXQ) return (int)cudaErrorInvalidValue;
+  if (nf > 0 && nqf < 1) return (int)cudaErrorInvalidValue;
+  if (nc <= 0 && nf <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f64)
+    return run<double>(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
+                       rho, mu, dt, f0, f1, eps, out0, out1, fp, nf, nqf,
+                       mu_f, out_f, jacobian, st);
+  return run<float>(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
+                    rho, mu, dt, f0, f1, eps, out0, out1, fp, nf, nqf, mu_f,
+                    out_f, jacobian, st);
 }
 
 }  // namespace
@@ -470,32 +632,42 @@ extern "C" int cfd_ns_cell_residual_p1(
     const void* u, const void* uprev, const void* p, const void* dofmap,
     const void* coords, const void* h, const void* phi, const void* dphi,
     const void* qw, int64_t nc, int64_t nq, double rho, double mu,
-    double dt, double f0, double f1, double eps, void* ru_e, void* rp_e, int is_f64, void* stream) {
-  if (nq < 1 || nq > MAXQ) return (int)cudaErrorInvalidValue;
-  if (nc <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return launch_residual<double>(
-        u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, (int)nq,
-        make_params<double>(rho, mu, dt, f0, f1, eps), ru_e, rp_e, st);
-  return launch_residual<float>(
-      u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, (int)nq,
-      make_params<float>(rho, mu, dt, f0, f1, eps), ru_e, rp_e, st);
+    double dt, double f0, double f1, double eps, void* ru_e, void* rp_e,
+    int is_f64, void* stream) {
+  return dispatch(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq, rho,
+                  mu, dt, f0, f1, eps, ru_e, rp_e, nullptr, 0, 0, 0.0,
+                  nullptr, 0, is_f64, stream);
 }
 
 extern "C" int cfd_ns_cell_jacobian_p1(
     const void* u, const void* uprev, const void* p, const void* dofmap,
     const void* coords, const void* h, const void* phi, const void* dphi,
     const void* qw, int64_t nc, int64_t nq, double rho, double mu,
-    double dt, double f0, double f1, double eps, void* A, int is_f64, void* stream) {
-  if (nq < 1 || nq > MAXQ) return (int)cudaErrorInvalidValue;
-  if (nc <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return launch_jacobian<double>(
-        u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, (int)nq,
-        make_params<double>(rho, mu, dt, f0, f1, eps), A, st);
-  return launch_jacobian<float>(
-      u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, (int)nq,
-      make_params<float>(rho, mu, dt, f0, f1, eps), A, st);
+    double dt, double f0, double f1, double eps, void* A, int is_f64,
+    void* stream) {
+  return dispatch(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq, rho,
+                  mu, dt, f0, f1, eps, A, nullptr, nullptr, 0, 0, 0.0,
+                  nullptr, 1, is_f64, stream);
+}
+
+// K3 with a facet block in the same launch (K7's bodies): after the
+// cells' arguments, the block's dofmap_u, dofmap_p, coords and its six
+// tables (phi_u, dphi_u, phi_p, gdphi, normal, dS), nf, nq, mu and the
+// facet output (ru_f (nf, 3, 2), or A_f (nf, 9, 9) with jacobian = 1)
+extern "C" int cfd_ns_cell_facet_p1(
+    const void* u, const void* uprev, const void* p, const void* dofmap,
+    const void* coords, const void* h, const void* phi, const void* dphi,
+    const void* qw, int64_t nc, int64_t nq, double rho, double mu,
+    double dt, double f0, double f1, double eps, void* out0, void* out1,
+    const void* f_dofmap_u, const void* f_dofmap_p, const void* f_coords,
+    const void* f_phi_u, const void* f_dphi_u, const void* f_phi_p,
+    const void* f_gdphi, const void* f_normal, const void* f_dS, int64_t nf,
+    int64_t nqf, double mu_f, void* out_f, int jacobian, int is_f64,
+    void* stream) {
+  if (nf <= 0) return (int)cudaErrorInvalidValue;
+  const void* fp[9] = {f_dofmap_u, f_dofmap_p, f_coords, f_phi_u, f_dphi_u,
+                       f_phi_p,   f_gdphi,   f_normal, f_dS};
+  return dispatch(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq, rho,
+                  mu, dt, f0, f1, eps, out0, out1, fp, nf, nqf, mu_f, out_f,
+                  jacobian, is_f64, stream);
 }

@@ -26,6 +26,17 @@
 //   mv[pos] (mv given) or 0, whatever the mode gave. It is the identity
 //   Dirichlet rows of the outer operator and of Auu (mv = v), the zero
 //   rows of Aup, and the pressure-Dirichlet rows of S (mv = v_p).
+// - PROLONG, the coarse-grid correction of an aggregation V-cycle read
+//   in place of K8's output (la/amg.py): X is gathered as
+//     xhat[i] = base[i] + xc[agg[i / w] * w + i % w],
+//     base = sc[i] * x[i] (SCALE) or x[i],
+//   in the gather and in mode 2's own-row x alike, with K8's expression
+//   (csrc/amg_prolong.cu), so the launch equals K8 then K1. With xhat
+//   given, each output row's lane also stores xhat[pos] (BlockAMG's
+//   finest level, where the RAS smoother adds to it). Instantiated with
+//   SCALE or without, never with MASK, in 16-byte chunks only, at w = 1
+//   (the SELFP AMG) and 2 (BlockAMG in 2D), 8 nodes a supernode: the
+//   cycles' levels; the host refuses the rest.
 // The order of operations is fixed: the row sum y, then the mode (so the
 // residual is b - y, rounded once), then the mask.
 //
@@ -50,6 +61,13 @@
 //   BlockAMG L1/L2, SELFP L1 (0.6-6 MB): too few bytes to fill the card,
 //     bound by latency: how many loads are in flight and how long each
 //     row's dependent chain is;
+//   with PROLONG, agg (4 bytes a node) and xc (1/7-1/9 of x) on top: a
+//     lane loads its chunk's aggregate ids as one vector beside the x
+//     chunk, then xc through the read-only cache (xc is L2-resident:
+//     31 KB at BlockAMG L1), a node's two values in one load at w = 2;
+//     the correction is formed at every gather of a value (~Kg*R/RPL
+//     times a value, where K8 forms it once), so what it costs is
+//     registers and load instructions, not bytes (kUnrollProlong);
 //   width 1 (gather_micro, P*L rows, K = 8): values + cols + x + y.
 //
 // Design, against those two bounds (the launch plan is chosen on the
@@ -91,6 +109,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -99,6 +118,16 @@ constexpr int kThreads = 256;
 // RPL rows), 8 at one value per lane
 template <int VEC>
 constexpr int kUnroll = VEC == 1 ? 8 : 4;
+// With PROLONG, 2 blocks a round and at least 3 resident blocks a
+// multiprocessor (85 registers a thread at most). The gather's extra
+// values (ids, coarse values, scale) at 4 blocks a round took 96-116
+// registers, 2 blocks of 256 threads a multiprocessor, and the large
+// levels ran 1.3-1.6x slower than K8 and K1 apart; at 2 and 3 they run
+// as fast or faster (device time alone on an H100 80GB HBM3 at 700 W:
+// SELFP L0 13.1-13.4 us against 13.2-13.7 for the pair, BlockAMG L0
+// 24.2-25.5 against 25.2-26.0, the small levels ~1 us under the pair).
+constexpr int kUnrollProlong = 2;
+constexpr int kBlocksProlong = 3;
 
 template <typename T>
 struct Args {
@@ -123,6 +152,9 @@ struct Args {
   const T* sc;                // SCALE: the input scale, x's length
   const unsigned char* mask;  // MASK: one byte per output row
   const T* mv;                // MASK: the masked rows' values, or null
+  const T* pxc;               // PROLONG: the coarse vector xc
+  const int* pagg;            // PROLONG: each fine node's aggregate
+  T* xhat;                    // PROLONG: xhat's output rows, or null
   int CV, KS, lg;  // chunks per row, k splits, log2 of lanes per row set
   int n_lanes;     // (ns * R / RPL) << lg
 };
@@ -155,17 +187,117 @@ __device__ __forceinline__ Chunk<T, VEC> load_chunk(const T* p) {
   return c;
 }
 
+// PROLONG (PW = w, the values a node): where value c0 + e of a
+// supernode's column block lies: node col*g + nd[e] of the fine level,
+// component cp[e] (fixed per lane)
+template <int VEC>
+struct NodeOf {
+  int nd[VEC], cp[VEC];
+};
+
+template <int VEC, int PW>
+__device__ __forceinline__ NodeOf<VEC> node_of(int c0) {
+  NodeOf<VEC> q;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    q.nd[e] = (c0 + e) / PW;
+    q.cp[e] = (c0 + e) % PW;
+  }
+  return q;
+}
+
+// xhat at the chunk of flat index i (column block col) of the one flat
+// x, zero past its end: the base chunk (sc * x or x) and xc[agg[node] *
+// w + component]. A whole chunk (the common case) takes vector loads
+// and no guards: its aggregate ids are contiguous (one vector load
+// beside the x chunk; agg 16-byte aligned, g a multiple of VEC: the
+// host checks), and at w = 2 each node's two coarse values are one 8- or
+// 16-byte load (xc aligned to a node: the host checks). The sum is K8's
+// expression, base + xc[...], in one statement, so the compiler forms it
+// as it does in K8 (sc*x + xc contracts to one fma).
+template <typename T, int VEC, bool SCALE, int PW>
+__device__ __forceinline__ Chunk<T, VEC> load_xhat(const Args<T>& p,
+                                                   int col, int64_t i,
+                                                   const NodeOf<VEC>& q) {
+  using V2 = typename std::conditional<sizeof(T) == 4, float2,
+                                       double2>::type;
+  static_assert(VEC > 1 && VEC % PW == 0, "whole nodes a chunk");
+  constexpr int G = 8;  // nodes a supernode column block (the host checks)
+  const int64_t m = p.m0;
+  const int* ag = p.pagg + (int64_t)col * G;
+  Chunk<T, VEC> xv, sv, cv;
+  if (p.xa0 >= 16 && i + VEC <= m) {
+    xv = load_chunk<T, VEC, false>(p.x0 + i);
+    if constexpr (SCALE) sv = load_chunk<T, VEC, false>(p.sc + i);
+    const int* src = ag + q.nd[0];
+    if constexpr (PW == 1) {
+      int a[VEC];
+      if constexpr (VEC == 4) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(src));
+        a[0] = v.x;
+        a[1] = v.y;
+        a[2] = v.z;
+        a[3] = v.w;
+      } else {
+        const int2 v = __ldg(reinterpret_cast<const int2*>(src));
+        a[0] = v.x;
+        a[1] = v.y;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) cv.v[e] = __ldg(p.pxc + a[e]);
+    } else {  // w = 2: VEC / 2 nodes, two coarse values each
+      const V2* xc2 = reinterpret_cast<const V2*>(p.pxc);
+      if constexpr (VEC == 4) {
+        const int2 v = __ldg(reinterpret_cast<const int2*>(src));
+        const V2 c0 = __ldg(xc2 + v.x), c1 = __ldg(xc2 + v.y);
+        cv.v[0] = c0.x;
+        cv.v[1] = c0.y;
+        cv.v[2] = c1.x;
+        cv.v[3] = c1.y;
+      } else {
+        const V2 c0 = __ldg(xc2 + __ldg(src));
+        cv.v[0] = c0.x;
+        cv.v[1] = c0.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const bool in = i + e < m;
+      xv.v[e] = in ? __ldg(p.x0 + i + e) : T(0);
+      if constexpr (SCALE) sv.v[e] = in ? __ldg(p.sc + i + e) : T(0);
+      cv.v[e] = in ? __ldg(p.pxc + __ldg(ag + q.nd[e]) * PW + q.cp[e])
+                   : T(0);
+    }
+  }
+  Chunk<T, VEC> c;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    if constexpr (SCALE) {
+      c.v[e] = sv.v[e] * xv.v[e] + cv.v[e];
+    } else {
+      c.v[e] = xv.v[e] + cv.v[e];
+    }
+  }
+  return c;
+}
+
 // X[col, c0 : c0 + VEC] from the flat segment(s); zero past an end and
 // for the padded slot. For VEC > 1 the host guarantees w0 % VEC == 0, so
 // a chunk never straddles the two segments.
-template <typename T, int VEC, bool SCALE>
+template <typename T, int VEC, bool SCALE, int PW>
 __device__ __forceinline__ Chunk<T, VEC> load_x(const Args<T>& p, int col,
-                                                int c0) {
+                                                int c0,
+                                                const NodeOf<VEC>& q) {
   Chunk<T, VEC> c;
   if (col < 0 || col >= p.ns) {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) c.v[e] = T(0);
     return c;
+  }
+  if constexpr (PW > 0) {  // one segment (the host checks)
+    return load_xhat<T, VEC, SCALE, PW>(p, col, (int64_t)col * p.w0 + c0,
+                                        q);
   }
   const T* base = p.x0;
   int64_t i = (int64_t)col * p.w0 + c0, m = p.m0;
@@ -212,7 +344,7 @@ __device__ __forceinline__ Chunk<T, VEC> load_x(const Args<T>& p, int col,
 }
 
 // the epilogue: row r of supernode s to its place in the flat output
-template <typename T, bool SCALE, bool MASK>
+template <typename T, bool SCALE, bool MASK, int PW>
 __device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
                                           T acc) {
   int64_t pos;
@@ -227,7 +359,18 @@ __device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
   }
   if (!ok) return;
   T y = acc;
-  if (p.mode == 1) {
+  if constexpr (PW > 0) {  // the own row's xhat, K8's expression
+    // row r of supernode s is value r of its column block (R == C)
+    const T cv = __ldg(p.pxc + __ldg(p.pagg + (int64_t)s * (p.C / PW) +
+                                     r / PW) * PW + r % PW);
+    const T xv = SCALE ? p.sc[pos] * p.x0[pos] + cv : p.x0[pos] + cv;
+    if (p.xhat != nullptr) p.xhat[pos] = xv;
+    if (p.mode == 1) {
+      y = p.b[pos] - acc;
+    } else {  // mode 2 (the host refuses mode 0)
+      y = xv + p.omega * (p.b[pos] - acc) / p.d[pos];
+    }
+  } else if (p.mode == 1) {
     y = p.b[pos] - acc;
   } else if (p.mode == 2) {
     const T xv = SCALE ? p.sc[pos] * p.x0[pos] : p.x0[pos];
@@ -242,9 +385,8 @@ __device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
 // A lane sums RPL rows of one supernode, r0 + j*R/RPL (j < RPL), over its
 // share of the blocks and of the columns: each gathered x chunk serves
 // RPL rows.
-template <typename T, int VEC, int RPL, bool SCALE, bool MASK>
-__global__ void __launch_bounds__(kThreads)
-    sup_spmv_kernel(const Args<T> p) {
+template <typename T, int VEC, int RPL, bool SCALE, bool MASK, int PW>
+__device__ __forceinline__ void sup_spmv_body(const Args<T>& p) {
   const int G = 1 << p.lg;
   const int Kg = p.Kg, KS = p.KS, Rq = p.R / RPL;
   for (int t0 = blockIdx.x * kThreads; t0 < p.n_lanes;
@@ -253,6 +395,8 @@ __global__ void __launch_bounds__(kThreads)
     const int set = t >> p.lg, g = t & (G - 1);
     const int ks = g / p.CV, c0 = (g - ks * p.CV) * VEC;
     const int s = set / Rq, r0 = set - s * Rq;
+    NodeOf<VEC> q{};
+    if constexpr (PW > 0) q = node_of<VEC, PW>(c0);
     T acc[RPL];
 #pragma unroll
     for (int j = 0; j < RPL; ++j) acc[j] = T(0);
@@ -260,7 +404,7 @@ __global__ void __launch_bounds__(kThreads)
       const T* a = p.A + s * p.sA0 + r0 * p.sA2 + c0;
       const int64_t sj = Rq * p.sA2;
       const int* cl = p.cols + (int64_t)s * Kg;
-      constexpr int U = kUnroll<VEC>;
+      constexpr int U = PW > 0 ? kUnrollProlong : kUnroll<VEC>;
       for (int kb = ks; kb < Kg; kb += U * KS) {
         Chunk<T, VEC> av[U][RPL];
         int cv[U];
@@ -278,7 +422,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           if (kb + u * KS < Kg) {
-            const Chunk<T, VEC> xv = load_x<T, VEC, SCALE>(p, cv[u], c0);
+            const Chunk<T, VEC> xv =
+                load_x<T, VEC, SCALE, PW>(p, cv[u], c0, q);
 #pragma unroll
             for (int j = 0; j < RPL; ++j) {
 #pragma unroll
@@ -299,10 +444,24 @@ __global__ void __launch_bounds__(kThreads)
     if (g == 0 && t < p.n_lanes) {
 #pragma unroll
       for (int j = 0; j < RPL; ++j) {
-        store_row<T, SCALE, MASK>(p, s, r0 + j * Rq, acc[j]);
+        store_row<T, SCALE, MASK, PW>(p, s, r0 + j * Rq, acc[j]);
       }
     }
   }
+}
+
+template <typename T, int VEC, int RPL, bool SCALE, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+    sup_spmv_kernel(const Args<T> p) {
+  sup_spmv_body<T, VEC, RPL, SCALE, MASK, 0>(p);
+}
+
+// the fused coarse-grid correction under its own name, so a trace tells
+// its launches from K1's others
+template <typename T, int VEC, int RPL, bool SCALE, int PW>
+__global__ void __launch_bounds__(kThreads, kBlocksProlong)
+    sup_spmv_prolong_kernel(const Args<T> p) {
+  sup_spmv_body<T, VEC, RPL, SCALE, false, PW>(p);
 }
 
 template <typename T, int VEC, int RPL, bool SCALE, bool MASK>
@@ -326,6 +485,47 @@ int launch(const Args<T>& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int RPL, bool SCALE, int PW>
+int launch_prolong(const Args<T>& a, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const auto fn = sup_spmv_prolong_kernel<T, V, RPL, SCALE, PW>;
+  static int resident = 0;  // as in launch()
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident = per_sm * sms;
+  }
+  const int grid = std::min<int64_t>((a.n_lanes + kThreads - 1) / kThreads,
+                                     resident);
+  fn<<<grid, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool SCALE>
+int prolong_w(const Args<T>& a, int pw, int rpl, cudaStream_t st) {
+  if (pw == 1) {
+    return rpl == 2 ? launch_prolong<T, 2, SCALE, 1>(a, st)
+                    : launch_prolong<T, 1, SCALE, 1>(a, st);
+  }
+  if (pw == 2) {
+    return rpl == 2 ? launch_prolong<T, 2, SCALE, 2>(a, st)
+                    : launch_prolong<T, 1, SCALE, 2>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int prolong_rpl(const Args<T>& a, bool scale, int pw, int rpl,
+                cudaStream_t st) {
+  return scale ? prolong_w<T, true>(a, pw, rpl, st)
+               : prolong_w<T, false>(a, pw, rpl, st);
+}
+
 template <typename T, bool SCALE, bool MASK>
 int shapes(const Args<T>& a, int vec, int rpl, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
@@ -342,7 +542,8 @@ int run(const void* A, int64_t sA0, int64_t sA1, int64_t sA2,
         int64_t m0, int w0, int xa0, const void* x1, int64_t m1, int xa1,
         void* out, int64_t n0, int R0, int64_t n1, int mode, const void* b,
         const void* d, double omega, const void* sc, const void* mask,
-        const void* mv, int vec, int rpl, int CV, int KS, int lg,
+        const void* mv, const void* pxc, const void* pagg, int pw,
+        void* xhat, int vec, int rpl, int CV, int KS, int lg,
         void* stream) {
   Args<T> a;
   a.A = static_cast<const T*>(A);
@@ -372,11 +573,21 @@ int run(const void* A, int64_t sA0, int64_t sA1, int64_t sA2,
   a.sc = static_cast<const T*>(sc);
   a.mask = static_cast<const unsigned char*>(mask);
   a.mv = static_cast<const T*>(mv);
+  a.pxc = static_cast<const T*>(pxc);
+  a.pagg = static_cast<const int*>(pagg);
+  a.xhat = static_cast<T*>(xhat);
   a.CV = CV;
   a.KS = KS;
   a.lg = lg;
   a.n_lanes = (int)(((int64_t)ns * (R / rpl)) << lg);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (pxc != nullptr) {  // instantiated: 16-byte chunks, no mask, w 1 or 2
+    if (vec != 16 / (int)sizeof(T) || mask != nullptr ||
+        (rpl != 1 && rpl != 2)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return prolong_rpl<T>(a, sc != nullptr, pw, rpl, st);
+  }
   if (sc != nullptr) {
     return mask != nullptr ? shapes<T, true, true>(a, vec, rpl, st)
                            : shapes<T, true, false>(a, vec, rpl, st);
@@ -392,7 +603,8 @@ extern "C" int cfd_sup_spmv(
     int ns, int Kg, int R, int C, const void* x0, int64_t m0, int w0,
     int xa0, const void* x1, int64_t m1, int xa1, void* out, int64_t n0,
     int R0, int64_t n1, int mode, const void* b, const void* d,
-    double omega, const void* sc, const void* mask, const void* mv, int vec,
+    double omega, const void* sc, const void* mask, const void* mv,
+    const void* pxc, const void* pagg, int pw, void* xhat, int vec,
     int rpl, int CV, int KS, int lg, int is_f64, void* stream) {
   if (ns <= 0 || n0 + n1 <= 0) return (int)cudaGetLastError();
   if (lg < 0 || lg > 5 || CV < 1 || KS < 1 || CV * KS > (1 << lg) ||
@@ -402,12 +614,22 @@ extern "C" int cfd_sup_spmv(
   if (sc != nullptr && (C != w0 || m1 != 0)) {  // the scale: one x only
     return (int)cudaErrorInvalidValue;
   }
+  // the prolongation: one x only, of whole nodes, square, out = x's
+  // rows, 8 nodes a supernode at w 1 or 2, agg and xc aligned
+  if (pxc != nullptr &&
+      (C != w0 || m1 != 0 || (pw != 1 && pw != 2) || C != 8 * pw ||
+       m0 % pw || R != C || R0 != R || n1 != 0 || n0 != m0 || mode == 0 ||
+       pagg == nullptr || reinterpret_cast<uintptr_t>(pagg) % 16 ||
+       reinterpret_cast<uintptr_t>(pxc) % (pw * (is_f64 ? 8 : 4)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (xhat != nullptr && pxc == nullptr) return (int)cudaErrorInvalidValue;
   return is_f64 ? run<double>(A, sA0, sA1, sA2, cols, ns, Kg, R, C, x0, m0,
                               w0, xa0, x1, m1, xa1, out, n0, R0, n1, mode, b,
-                              d, omega, sc, mask, mv, vec, rpl, CV, KS, lg,
-                              stream)
+                              d, omega, sc, mask, mv, pxc, pagg, pw, xhat,
+                              vec, rpl, CV, KS, lg, stream)
                 : run<float>(A, sA0, sA1, sA2, cols, ns, Kg, R, C, x0, m0,
                              w0, xa0, x1, m1, xa1, out, n0, R0, n1, mode, b,
-                             d, omega, sc, mask, mv, vec, rpl, CV, KS, lg,
-                             stream);
+                             d, omega, sc, mask, mv, pxc, pagg, pw, xhat,
+                             vec, rpl, CV, KS, lg, stream);
 }

@@ -6,12 +6,13 @@ exact element Jacobians are the two entry points of kernel K3
 (kernels/ns_cell_residual.py: P1 triangles on CUDA, elsewhere the plain
 vmapped cell kernel and vmap(jacfwd(.)) of it, the analogue of
 jax.vmap(jax.jacfwd(.))). The natural-correction facet term is kernel
-K7 (kernels/ns_facet_natural.py), residual and Jacobian alike; it is
-the one facet term that is ported, and add_facet_term refuses any
-other. Cell and facet contributions are reduced to the nodes by K2, the
-facets over one sorted scatter per facet block, so the residual is the
-same on every run (an index_add on CUDA sums with atomics in no fixed
-order).
+K7's body (kernels/ns_facet_natural.py), residual and Jacobian alike,
+run inside K3's launch: one launch a residual, one a Jacobian build. It
+is the one facet term that is ported: add_facet_term refuses any other,
+and residual and element_jacobians refuse a second facet block. Cell
+and facet contributions are reduced to the nodes by K2, the facets over
+one sorted scatter per facet block, so the residual is the same on
+every run (an index_add on CUDA sums with atomics in no fixed order).
 
 Parameters `prm` are a dict of Python floats: dt, rho, mu, and the body
 force f as a tuple. Velocity u is (n_u, d); p is (n_p,).
@@ -26,8 +27,7 @@ from ..assembly import FacetQuadrature
 from ..elements import LagrangeElement, quadrature
 from ..kernels.ns_cell_residual import (CellTabs, ns_cell_jacobian_p1,
                                         ns_cell_residual_p1)
-from ..kernels.ns_facet_natural import (ns_facet_natural_jac_p1,
-                                        ns_facet_natural_p1)
+from ..kernels.ns_facet_natural import ns_facet_natural_p1
 from ..spaces import FunctionSpace
 from ..utils import SortedScatter, det_and_inv, torch_dtype
 from .facet_terms import natural_correction
@@ -209,44 +209,55 @@ class StabilizedNSForm:
                 block["coords"], block["tabs"], prm["mu"])
 
     def _block_residual(self, block, u, p, aux, prm):
+        """One facet block's residual alone (K7's own launch): the
+        reaction force takes it out of the assembled residual."""
         return block["dofmap_u"], ns_facet_natural_p1(
             *self._fused_args(block, u, p, aux, prm))
 
+    def _facet_block(self, u, p, aux, prm):
+        """(block, K3's facet argument) of the form's one facet block, or
+        (None, None) without one. A second block raises: K3's launch
+        carries one, and no ported scenario has more."""
+        if not self._facet_blocks:
+            return None, None
+        if len(self._facet_blocks) > 1:
+            raise NotImplementedError(
+                f"{len(self._facet_blocks)} facet blocks: the element "
+                "kernel's launch carries one natural-correction block")
+        block = self._facet_blocks[0]
+        return block, self._fused_args(block, u, p, aux, prm)[3:]
+
+    def _cell_args(self, u, p, aux, prm):
+        return (u, aux[0], p, self.dofmap_u, self.dofmap_p,
+                self.cell_coords, self.cell_h, self.tabs, prm["rho"],
+                prm["mu"], prm["dt"], prm["f"], self.eps)
+
     # ------------------------------------------------------------------
     def residual(self, u, p, aux, prm):
-        """Assembled residual (r_u (n_u, d), r_p (n_p,))."""
-        (u_prev,) = aux
-        ru_e, rp_e = ns_cell_residual_p1(
-            u, u_prev, p, self.dofmap_u, self.dofmap_p, self.cell_coords,
-            self.cell_h, self.tabs, prm["rho"], prm["mu"], prm["dt"],
-            prm["f"], self.eps,
-        )
-        ru = self._scatter_u(ru_e.reshape(-1, self.dim))
-        rp = self._scatter_p(rp_e.reshape(-1))
-        # cells first, then each facet block in order: a fixed order of
-        # sums (cfdtpu adds with .at[dm_u].add)
-        for block in self._facet_blocks:
-            _, ru_f = self._block_residual(block, u, p, aux, prm)
+        """Assembled residual (r_u (n_u, d), r_p (n_p,)): one K3 launch
+        with the facet block in it, then the K2 sums."""
+        block, facet = self._facet_block(u, p, aux, prm)
+        out = ns_cell_residual_p1(*self._cell_args(u, p, aux, prm),
+                                  facet=facet)
+        ru = self._scatter_u(out[0].reshape(-1, self.dim))
+        rp = self._scatter_p(out[1].reshape(-1))
+        # cells first, then the facet block: a fixed order of sums
+        # (cfdtpu adds with .at[dm_u].add)
+        if block is not None:
             ru = ru + block["scatter_u"](
-                ru_f.reshape(-1, self.dim).contiguous())
+                out[2].reshape(-1, self.dim).contiguous())
         return ru, rp
 
     # ------------------------------------------------------------------
     def element_jacobians(self, u, p, aux, prm):
         """Exact element Jacobian blocks: (A_cells (nc, nloc, nloc),
-        [(dofmap_flat, A_block) per facet term])."""
-        (u_prev,) = aux
-        A_cells = ns_cell_jacobian_p1(
-            u, u_prev, p, self.dofmap_u, self.dofmap_p, self.cell_coords,
-            self.cell_h, self.tabs, prm["rho"], prm["mu"], prm["dt"],
-            prm["f"], self.eps,
-        )
-        A_blocks = []
-        for block in self._facet_blocks:
-            A_f = ns_facet_natural_jac_p1(
-                *self._fused_args(block, u, p, aux, prm))
-            A_blocks.append((block["dofmap_flat"], A_f))
-        return A_cells, A_blocks
+        [(dofmap_flat, A_block) per facet term]), from one K3 launch."""
+        block, facet = self._facet_block(u, p, aux, prm)
+        out = ns_cell_jacobian_p1(*self._cell_args(u, p, aux, prm),
+                                  facet=facet)
+        if block is None:
+            return out, []
+        return out[0], [(block["dofmap_flat"], out[1])]
 
     # ------------------------------------------------------------------
     # element-block operator (used by the pressure-nullspace test; the

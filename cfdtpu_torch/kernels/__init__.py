@@ -1,10 +1,14 @@
 """Hand-written CUDA kernels of the Newton-Krylov step and their wrappers.
 
-K1 sup_spmv            supernode-ELL SpMV with fused epilogues
+K1 sup_spmv            supernode-ELL SpMV with fused epilogues; with its
+                       prolong option it reads a V-cycle's coarse-grid
+                       correction in its gather (K8 folded in)
 K2 ell_sum             deterministic sorted-segment gather-reduce (CSR scatter)
 K3 ns_cell_residual_p1 fused stabilized-NS cell residual, P1 triangles,
    ns_cell_jacobian_p1 and its exact element Jacobian (the same cell body
-                       on forward-mode dual numbers)
+                       on forward-mode dual numbers); each takes an
+                       optional facet block, whose K7 body then runs in
+                       the same launch
 K4 selfp_triple        SELFP triple products Apu diag(Auu)^-1 Aup
 K5 patch_spmv          in-patch scalar ELL SpMV (the gather microbenchmark)
 K6 ras_apply           restricted additive Schwarz window apply (owned rows)
@@ -18,7 +22,13 @@ K9 krylov_cgs          GMRES Gram-Schmidt step (CGS, CGS2), the active rows,
 
 Every wrapper takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors (or raises); each call of a
-wrapper that launches adds one to its counter, `COUNTERS[name].n`.
+wrapper that launches adds one to its counter, `COUNTERS[name].n`. A
+fused variant also counts under its own name: `sup_spmv_prolong` (K1
+with the coarse-grid correction), `ns_cell_residual_p1_facet` and
+`ns_cell_jacobian_p1_facet` (K3 with a facet block), each a subset of
+its kernel's count; their device kernels carry the same names
+(`sup_spmv_prolong_kernel`, ...), so a trace matches them as a name
+contains them.
 Inside a CUDA graph
 (la/schur.py captures each preconditioner application) a wrapper runs
 once, at capture, and adds one then: the graph's replays launch the
@@ -41,11 +51,12 @@ class LaunchCounter:
 
 COUNTERS = {
     name: LaunchCounter(name)
-    for name in ("sup_spmv", "ell_sum", "ns_cell_residual_p1",
-                 "ns_cell_jacobian_p1", "selfp_triple", "patch_spmv",
-                 "ras_apply", "ns_facet_natural_p1",
-                 "ns_facet_natural_jac_p1", "amg_prolong", "krylov_cgs",
-                 "krylov_lsq")
+    for name in ("sup_spmv", "sup_spmv_prolong", "ell_sum",
+                 "ns_cell_residual_p1", "ns_cell_residual_p1_facet",
+                 "ns_cell_jacobian_p1", "ns_cell_jacobian_p1_facet",
+                 "selfp_triple", "patch_spmv", "ras_apply",
+                 "ns_facet_natural_p1", "ns_facet_natural_jac_p1",
+                 "amg_prolong", "krylov_cgs", "krylov_lsq")
 }
 
 

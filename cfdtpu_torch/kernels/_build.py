@@ -37,11 +37,12 @@ F64 = ctypes.c_double
 # argument signatures of the C entry points (see the .cu files)
 SIGNATURES = {
     # A, A strides (3), cols, ns, Kg, R, C, x0, m0, w0, xa0, x1, m1, xa1,
-    # out, n0, R0, n1, mode, b, d, omega, scale, mask, mask_value, vec,
-    # rpl, CV, KS, lg, is_f64, stream
+    # out, n0, R0, n1, mode, b, d, omega, scale, mask, mask_value, xc,
+    # agg, w, xhat, vec, rpl, CV, KS, lg, is_f64, stream
     "cfd_sup_spmv": [P, I64, I64, I64, P, I32, I32, I32, I32, P, I64, I32,
                      I32, P, I64, I32, P, I64, I32, I64, I32, P, P, F64,
-                     P, P, P, I32, I32, I32, I32, I32, I32, P],
+                     P, P, P, P, P, I32, P, I32, I32, I32, I32, I32, I32,
+                     P],
     # src, row_ptr, pos, out, n_out, F, G, loads, is_f64, stream
     "cfd_ell_sum": [P, P, P, P, I64, I64, I32, I32, I32, P],
     # u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
@@ -51,6 +52,12 @@ SIGNATURES = {
     # as above up to eps, then A_cells, is_f64, stream
     "cfd_ns_cell_jacobian_p1": [P, P, P, P, P, P, P, P, P, I64, I64,
                                 F64, F64, F64, F64, F64, F64, P, I32, P],
+    # as above up to eps, then out0, out1 (ru_e, rp_e; or A_cells, null),
+    # the facet block's dofmap_u, dofmap_p, coords, phi_u, dphi_u, phi_p,
+    # gdphi, normal, dS, nf, nq, mu, its output, jacobian, is_f64, stream
+    "cfd_ns_cell_facet_p1": [P, P, P, P, P, P, P, P, P, I64, I64, F64, F64,
+                             F64, F64, F64, F64, P, P, P, P, P, P, P, P,
+                             P, P, P, I64, I64, F64, P, I32, I32, P],
     # u, uprev, p, dofmap_u, dofmap_p, coords, phi_u, dphi_u, phi_p, gdphi,
     # normal, dS, nf, nq, mu, jacobian, out, is_f64, stream
     "cfd_ns_facet_natural_p1": [P, P, P, P, P, P, P, P, P, P, P, P, I64,

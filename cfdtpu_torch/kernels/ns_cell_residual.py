@@ -15,6 +15,13 @@ Jacobian.
 The CUDA kernels cover P1 triangles only (dim 2, degree 1: velocity,
 pressure and geometry share one basis, and V and Q share the dofmap).
 For any other form a CUDA tensor raises; there is no fallback.
+
+Both entry points take an optional facet block, `facet` = (dofmap_u,
+dofmap_p, coords, tabs, mu): the arguments of K7 (kernels/
+ns_facet_natural.py) after u, u_prev and p. Its natural-correction term
+then comes from the same launch, K7's bodies in a second range of
+blocks, as one more output (ru_f (nf, 3, 2), or A_f (nf, 9, 9)); the
+plain versions run K3's and K7's plain versions in that order.
 """
 
 from __future__ import annotations
@@ -27,10 +34,16 @@ import torch
 from . import COUNTERS
 from ._common import (check_float, check_index, check_same_device, is_f64,
                       on_cuda, require, stream_handle)
+from .ns_facet_natural import _TABS as FACET_TABS
+from .ns_facet_natural import _check_args as _check_facet_args
+from .ns_facet_natural import (ns_facet_natural_jac_plain,
+                               ns_facet_natural_plain)
 from ..utils.geometry import det_and_inv
 
 _COUNT = COUNTERS["ns_cell_residual_p1"]
 _COUNT_JAC = COUNTERS["ns_cell_jacobian_p1"]
+_COUNT_FACET = COUNTERS["ns_cell_residual_p1_facet"]
+_COUNT_JAC_FACET = COUNTERS["ns_cell_jacobian_p1_facet"]
 MAX_POINTS = 16  # quadrature points the CUDA kernels hold (MAXQ)
 
 
@@ -207,50 +220,102 @@ def _check_args(name, u, uprev, p, dofmap_u, dofmap_p, coords, h, tabs):
     return True
 
 
-def _launch(fn_name, counter, outs, u, uprev, p, dofmap_u, coords, h, tabs,
-            rho, mu, dt, f, eps):
+def _launch(fn_name, counters, outs, u, uprev, p, dofmap_u, coords, h,
+            tabs, rho, mu, dt, f, eps, facet=None, out_f=None):
+    """One launch: K3 alone, or with a facet block (its output out_f)."""
     from ._build import check, library
 
     f0, f1 = (float(v) for v in f)
-    with torch.cuda.device(u.device):
-        rc = getattr(library(), "cfd_" + fn_name)(
-            u.data_ptr(), uprev.data_ptr(), p.data_ptr(),
+    cell = (u.data_ptr(), uprev.data_ptr(), p.data_ptr(),
             dofmap_u.data_ptr(), coords.data_ptr(), h.data_ptr(),
             tabs.phi_u.data_ptr(), tabs.dphi_u.data_ptr(),
             tabs.qw.data_ptr(), dofmap_u.shape[0], tabs.qw.shape[0],
-            float(rho), float(mu), float(dt), f0, f1, float(eps),
-            *(o.data_ptr() for o in outs), is_f64(u), stream_handle(u),
-        )
-    counter.n += 1
+            float(rho), float(mu), float(dt), f0, f1, float(eps))
+    with torch.cuda.device(u.device):
+        if facet is None:
+            rc = getattr(library(), "cfd_" + fn_name)(
+                *cell, *(o.data_ptr() for o in outs), is_f64(u),
+                stream_handle(u))
+        else:
+            fdmu, fdmp, fcoords, ftabs, fmu = facet
+            nf, nqf = ftabs["dS"].shape
+            rc = library().cfd_ns_cell_facet_p1(
+                *cell, *(o.data_ptr() for o in outs),
+                *([None] * (2 - len(outs))), fdmu.data_ptr(),
+                fdmp.data_ptr(), fcoords.data_ptr(),
+                *(ftabs[k].data_ptr() for k in FACET_TABS), nf, nqf,
+                float(fmu), out_f.data_ptr(),
+                1 if fn_name == "ns_cell_jacobian_p1" else 0, is_f64(u),
+                stream_handle(u))
+    for c in counters:
+        c.n += 1
     check(rc, fn_name)
 
 
+def _facet_on_cuda(name, u, uprev, p, facet):
+    """K7's argument checks for a facet block (raises on CUDA for a block
+    the kernel does not cover); True where it is on the card."""
+    if len(facet) != 5:
+        raise ValueError(f"{name}: facet is (dofmap_u, dofmap_p, coords, "
+                         "tabs, mu)")
+    return _check_facet_args(name, u, uprev, p, *facet[:4])
+
+
 def ns_cell_residual_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
-                        tabs: CellTabs, rho, mu, dt, f, eps):
-    """Element residuals (ru_e (nc, nbu, d), rp_e (nc, nbp))."""
-    if not _check_args("ns_cell_residual_p1", u, uprev, p, dofmap_u,
-                       dofmap_p, coords, h, tabs):
-        return ns_cell_residual_plain(u, uprev, p, dofmap_u, dofmap_p,
-                                      coords, h, tabs, rho, mu, dt, f, eps)
+                        tabs: CellTabs, rho, mu, dt, f, eps, facet=None):
+    """Element residuals (ru_e (nc, nbu, d), rp_e (nc, nbp)), and with a
+    facet block (module docstring) its ru_f (nf, 3, 2) too, from the
+    same launch."""
+    args = (u, uprev, p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt,
+            f, eps)
+    cuda = _check_args("ns_cell_residual_p1", *args[:8])
+    if facet is not None:
+        cuda = _facet_on_cuda("ns_cell_residual_p1", u, uprev, p,
+                              facet) and cuda
+    if not cuda:
+        out = ns_cell_residual_plain(*args)
+        if facet is None:
+            return out
+        return (*out, ns_facet_natural_plain(u, uprev, p, *facet))
     nc = dofmap_u.shape[0]
     ru_e = torch.empty((nc, 3, 2), dtype=u.dtype, device=u.device)
     rp_e = torch.empty((nc, 3), dtype=u.dtype, device=u.device)
-    _launch("ns_cell_residual_p1", _COUNT, (ru_e, rp_e), u, uprev, p,
-            dofmap_u, coords, h, tabs, rho, mu, dt, f, eps)
-    return ru_e, rp_e
+    launch = (u, uprev, p, dofmap_u, coords, h, tabs, rho, mu, dt, f, eps)
+    if facet is None:
+        _launch("ns_cell_residual_p1", (_COUNT,), (ru_e, rp_e), *launch)
+        return ru_e, rp_e
+    ru_f = torch.empty((facet[0].shape[0], 3, 2), dtype=u.dtype,
+                       device=u.device)
+    _launch("ns_cell_residual_p1", (_COUNT, _COUNT_FACET), (ru_e, rp_e),
+            *launch, facet=facet, out_f=ru_f)
+    return ru_e, rp_e, ru_f
 
 
 def ns_cell_jacobian_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
-                        tabs: CellTabs, rho, mu, dt, f, eps):
+                        tabs: CellTabs, rho, mu, dt, f, eps, facet=None):
     """Exact element Jacobians A_cells (nc, nloc, nloc) of the cell
     residual with respect to the cell's (u, p), in the flat element
-    layout [u(b, i) row-major, then p(b)]."""
-    if not _check_args("ns_cell_jacobian_p1", u, uprev, p, dofmap_u,
-                       dofmap_p, coords, h, tabs):
-        return ns_cell_jacobian_plain(u, uprev, p, dofmap_u, dofmap_p,
-                                      coords, h, tabs, rho, mu, dt, f, eps)
+    layout [u(b, i) row-major, then p(b)]. With a facet block (module
+    docstring), (A_cells, A_f (nf, 9, 9)) from the same launch."""
+    args = (u, uprev, p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt,
+            f, eps)
+    cuda = _check_args("ns_cell_jacobian_p1", *args[:8])
+    if facet is not None:
+        cuda = _facet_on_cuda("ns_cell_jacobian_p1", u, uprev, p,
+                              facet) and cuda
+    if not cuda:
+        A = ns_cell_jacobian_plain(*args)
+        if facet is None:
+            return A
+        return A, ns_facet_natural_jac_plain(u, uprev, p, *facet)
     A = torch.empty((dofmap_u.shape[0], 9, 9), dtype=u.dtype,
                     device=u.device)
-    _launch("ns_cell_jacobian_p1", _COUNT_JAC, (A,), u, uprev, p, dofmap_u,
-            coords, h, tabs, rho, mu, dt, f, eps)
-    return A
+    launch = (u, uprev, p, dofmap_u, coords, h, tabs, rho, mu, dt, f, eps)
+    if facet is None:
+        _launch("ns_cell_jacobian_p1", (_COUNT_JAC,), (A,), *launch)
+        return A
+    A_f = torch.empty((facet[0].shape[0], 9, 9), dtype=u.dtype,
+                      device=u.device)
+    _launch("ns_cell_jacobian_p1", (_COUNT_JAC, _COUNT_JAC_FACET), (A,),
+            *launch, facet=facet, out_f=A_f)
+    return A, A_f

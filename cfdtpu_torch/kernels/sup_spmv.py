@@ -22,11 +22,20 @@ returned as
     mode "residual": b - y
     mode "jacobi":   x + omega * (b - y) / d   (x is the gathered vector)
 
-and two options around every mode:
+and options around the modes:
     scale (x's shape; x_split None): x is read as scale * x, in the
         gather and in mode "jacobi"'s x alike;
     mask (bool, n_out): the masked rows return mask_value (n_out) or 0,
-        whatever the mode gave.
+        whatever the mode gave;
+    prolong = (xc, agg, w): the coarse-grid correction of an aggregation
+        V-cycle (K8's, kernels/amg_prolong.py) read in place: x is read
+        as xhat = (scale * x or x) + xc[agg[i // w] * w + i % w], in the
+        gather and in mode "jacobi"'s x alike; xhat_out (n_out), if
+        given, receives xhat. Modes "residual" and "jacobi" on a square
+        level (x and the output of one length, one flat x) of 8 nodes a
+        supernode at w = 1 or 2, with scale or without, never with mask:
+        the combinations the V-cycles use, the ones the kernel is built
+        for; the rest raise ValueError.
 """
 
 from __future__ import annotations
@@ -38,9 +47,11 @@ import torch
 from . import COUNTERS
 from ._common import (check_float, check_index, check_same_device, is_f64,
                       on_cuda, require, stream_handle)
+from .amg_prolong import amg_prolong_plain
 
 MODES = {"y": 0, "residual": 1, "jacobi": 2}
 _COUNT = COUNTERS["sup_spmv"]
+_COUNT_PROLONG = COUNTERS["sup_spmv_prolong"]
 
 UNROLL_SCALAR = 8  # kUnroll<1> of the kernel: blocks a lane loads at once
 LANES_WANTED = 3 * 2 ** 14  # lanes that keep an H100's 132 SMs busy
@@ -56,12 +67,17 @@ def _pad_rows(v, ns: int, width: int):
 
 def sup_spmv_plain(A, cols, x, n_out, mode="y", b=None, d=None, omega=0.0,
                    x_split=None, y_split=None, scale=None, mask=None,
-                   mask_value=None):
+                   mask_value=None, prolong=None, xhat_out=None):
     """The plain PyTorch version: the padded supernode rows, the gather
     and the batched einsum, as cfdtpu's jnp operator applies do, then the
-    elementwise ops around them in cfdtpu, in the kernel's order."""
+    elementwise ops around them in cfdtpu, in the kernel's order. With
+    prolong, K8's plain version forms xhat first."""
     ns, _, R, C = A.shape
-    if scale is not None:
+    if prolong is not None:
+        x = amg_prolong_plain(*prolong, x, scale)
+        if xhat_out is not None:
+            xhat_out.copy_(x)
+    elif scale is not None:
         x = scale * x
     if x_split is None:
         X = _pad_rows(x, ns, C)
@@ -143,7 +159,7 @@ def launch_plan(A, x_split=None) -> Plan:
 
 
 def _check(A, cols, x, n_out, mode, b, d, x_split, y_split, scale, mask,
-           mask_value):
+           mask_value, prolong=None, xhat_out=None):
     require(mode in MODES, f"sup_spmv: unknown mode {mode!r}")
     require(A.dim() == 4, "sup_spmv: A must be (ns, Kg, R, C)")
     ns, Kg, R, C = A.shape
@@ -196,17 +212,43 @@ def _check(A, cols, x, n_out, mode, b, d, x_split, y_split, scale, mask,
         require(tuple(mask_value.shape) == (n_out,)
                 and mask_value.is_contiguous(),
                 f"sup_spmv: mask_value must be contiguous ({n_out},)")
+    xc = agg = None
+    if prolong is not None:
+        xc, agg, w = prolong
+        require(mode in ("residual", "jacobi") and mask is None
+                and x_split is None and y_split is None and R == C
+                and x.shape[0] == n_out,
+                "sup_spmv: prolong is built for modes residual and jacobi "
+                "on a square level (one flat x of n_out), with scale or "
+                "without, and no mask")
+        check_float("xc", xc, A.dtype)
+        check_index("agg", agg)
+        require(w in (1, 2) and C == 8 * w and agg.dim() == 1
+                and agg.shape[0] * w == x.shape[0],
+                f"sup_spmv: prolong is built for widths 1 and 2 with 8 "
+                f"nodes a supernode; width {w} does not fit C={C} and x "
+                f"({x.shape[0]},) with agg ({agg.shape[0]},)")
+        require(xc.dim() == 1 and xc.is_contiguous()
+                and xc.shape[0] % w == 0,
+                "sup_spmv: xc must be contiguous (n_coarse*w,)")
+    if xhat_out is not None:
+        require(prolong is not None, "sup_spmv: xhat_out needs prolong")
+        check_float("xhat_out", xhat_out, A.dtype)
+        require(tuple(xhat_out.shape) == (n_out,)
+                and xhat_out.is_contiguous(),
+                f"sup_spmv: xhat_out must be contiguous ({n_out},)")
     check_same_device(("A", A), ("cols", cols), ("x", x), ("b", b),
                       ("d", d), ("scale", scale), ("mask", mask),
-                      ("mask_value", mask_value))
+                      ("mask_value", mask_value), ("xc", xc), ("agg", agg),
+                      ("xhat_out", xhat_out))
 
 
 def sup_spmv(A, cols, x, n_out=None, mode="y", b=None, d=None, omega=0.0,
              x_split=None, y_split=None, scale=None, mask=None,
-             mask_value=None):
+             mask_value=None, prolong=None, xhat_out=None):
     if n_out is None:
         n_out = A.shape[0] * A.shape[2]
-    opts = (scale, mask, mask_value)
+    opts = (scale, mask, mask_value, prolong, xhat_out)
     _check(A, cols, x, n_out, mode, b, d, x_split, y_split, *opts)
     if not on_cuda(A):
         return sup_spmv_plain(A, cols, x, n_out, mode, b, d, omega, x_split,
@@ -222,9 +264,20 @@ def _align(p: int) -> int:
 
 
 def _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
-            plan: Plan, scale=None, mask=None, mask_value=None):
+            plan: Plan, scale=None, mask=None, mask_value=None, prolong=None,
+            xhat_out=None):
     """One kernel launch into one torch.empty, with the given plan."""
     from ._build import check, library
+
+    xc, agg, w = (None, None, 0) if prolong is None else prolong
+    if prolong is not None:
+        require(plan.vec == 16 // A.element_size(),
+                "sup_spmv: prolong is built for rows read in 16-byte "
+                f"chunks; this plan reads {plan.vec} value(s) a lane")
+        require(agg.data_ptr() % 16 == 0
+                and (w != 2 or xc.data_ptr() % (2 * xc.element_size()) == 0),
+                "sup_spmv: prolong's agg must be 16-byte aligned, and xc "
+                "aligned to a node's two values at width 2")
 
     ns, Kg, R, C = A.shape
     m0, w0 = (x.shape[0], C) if x_split is None else x_split
@@ -244,10 +297,13 @@ def _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
             R0, n_out - n0, m, b.data_ptr() if m >= 1 else None,
             d.data_ptr() if m == 2 else None, float(omega),
             *(None if t is None else t.data_ptr()
-              for t in (scale, mask, mask_value)), plan.vec,
+              for t in (scale, mask, mask_value, xc, agg)), w,
+            None if xhat_out is None else xhat_out.data_ptr(), plan.vec,
             plan.rpl, plan.cv, plan.ks, plan.lanes.bit_length() - 1,
             is_f64(A), stream_handle(A),
         )
     _COUNT.n += 1
+    if prolong is not None:
+        _COUNT_PROLONG.n += 1
     check(rc, "sup_spmv")
     return out

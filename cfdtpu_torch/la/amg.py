@@ -12,12 +12,16 @@ for the node-block levels), with its epilogues fusing the l1-Jacobi
 update and the pre-restriction residual; restriction and Galerkin value
 coarsening are K2 (ell_sum) over SortedScatter maps of the aggregates
 and of the coarse entry map (width d and d*d for the block variants);
-the RAS smoother is K6 (ras_apply) with its x + RAS(r) epilogue; the
-coarse-grid correction x + P xc is K8 (amg_prolong). The first l1-Jacobi
-pre-smooth from x0 = 0, x = omega b / d, is never stored at n_smooth = 1:
-the level's residual is K1 on b with the input scale s = omega / d (kept
-per level in the built state) and the correction is K8 on the base s b.
-The coarsest solve is a dense inverse.
+the RAS smoother is K6 (ras_apply) with its x + RAS(r) epilogue. The
+coarse-grid correction x + P xc is never stored: the first post-smooth's
+K1 launch reads it in its gather (K1's prolong option, K8's expression),
+and on BlockAMG's finest level with the RAS smoother that launch also
+writes it, for K6 to add to. The first l1-Jacobi pre-smooth from x0 = 0,
+x = omega b / d, is never stored at n_smooth = 1 either: the level's
+residual is K1 on b with the input scale s = omega / d (kept per level
+in the built state) and the correction's base is s b. The coarsest
+solve is a dense inverse. On the CPU the plain versions run K8's and
+K1's in that order, as the cycle did before the fusion.
 
 Not ported yet: the K-cycle (_gcr2), Chebyshev smoothing, the W-cycle
 and the weighted p-multigrid level (PLevel). Their flags raise
@@ -98,8 +102,8 @@ class AMGLevel:
 
     restrict and coarsen_vals (and their node-block variants) are K2
     reductions (SortedScatter over the aggregate ids and over the coarse
-    entry ids); the cycle's x + P xc is K8 (prolong_add). `agg` is int32
-    on the device."""
+    entry ids); x + P xc alone is K8 (prolong_add), which the V-cycles
+    leave to K1's prolong option. `agg` is int32 on the device."""
 
     __slots__ = ("agg", "n_coarse", "_restrict", "_coarsen",
                  "row", "col", "n", "_coarse_coo")
@@ -247,13 +251,15 @@ class AMG:
         return out, torch.linalg.inv(A)
 
     def _matvec(self, k, sup_vals, x, mode="y", b=None, d=None,
-                scale=None):
+                scale=None, prolong=None):
         """Level-k y = A x (K1), or with its epilogue: mode "residual"
         gives b - A x, mode "jacobi" gives x + omega (b - A x) / d; with
-        scale, x is read as scale * x."""
+        scale, x is read as scale * x; with prolong = (xc, agg, 1), as
+        that plus P xc."""
         maps, _ = self.sup[k]
         return sup_spmv(sup_vals, maps.sup_cols, x, n_out=maps.n,
-                        mode=mode, b=b, d=d, omega=self.omega, scale=scale)
+                        mode=mode, b=b, d=d, omega=self.omega, scale=scale,
+                        prolong=prolong)
 
     def _l1_diag_sup(self, k, sup_vals):
         """l1-Jacobi smoothing diagonal d_i = sum_j |A_ij| (a plain
@@ -282,20 +288,22 @@ class AMG:
             vals, d, s = level_vals[k]
             lvl = self.levels[k]
             # the first pre-smooth from x0 = 0 is x = s b (s = omega / d):
-            # K1 reads it through its input scale and K8 adds to it, so
-            # at n_smooth = 1 it is never stored
+            # at n_smooth = 1 K1 reads it through its input scale, and it
+            # is never stored
             if self.n_smooth == 1:
-                r = self._matvec(k, vals, b, mode="residual", b=b, scale=s)
-                xc = descend(k + 1, lvl.restrict(r))
-                x = lvl.prolong_add(xc, b, scale=s)
+                base, scale = b, s
             else:
                 x = self._matvec(k, vals, b, mode="jacobi", b=b, d=d,
                                  scale=s)
-                x = smooth(k, vals, d, x, b, self.n_smooth - 2)
-                r = self._matvec(k, vals, x, mode="residual", b=b)
-                xc = descend(k + 1, lvl.restrict(r))
-                x = lvl.prolong_add(xc, x)
-            return smooth(k, vals, d, x, b, self.n_smooth)
+                base, scale = smooth(k, vals, d, x, b,
+                                     self.n_smooth - 2), None
+            r = self._matvec(k, vals, base, mode="residual", b=b,
+                             scale=scale)
+            xc = descend(k + 1, lvl.restrict(r))
+            # the first post-smooth reads x + P xc in its gather
+            x = self._matvec(k, vals, base, mode="jacobi", b=b, d=d,
+                             scale=scale, prolong=(xc, lvl.agg, 1))
+            return smooth(k, vals, d, x, b, self.n_smooth - 1)
 
         return descend(0, b)
 
@@ -359,13 +367,15 @@ class BlockAMG(AMG):
         return out, torch.linalg.inv(A), ras_inv
 
     def _matvec_block(self, k, sup_vals, x, mode="y", b=None, dg=None,
-                      scale=None):
+                      scale=None, prolong=None, xhat_out=None):
         """Level-k (m*d,) block matvec (K1 at width g*d), with K1's
-        residual / l1-Jacobi epilogues and input scale as in
-        AMG._matvec."""
+        residual / l1-Jacobi epilogues, input scale and prolongation as
+        in AMG._matvec (prolong = (xc, agg, d)); xhat_out receives the
+        vector read."""
         maps, _ = self.sup[k]
         return sup_spmv(sup_vals, maps.sup_cols, x, n_out=maps.n * self.d,
-                        mode=mode, b=b, d=dg, omega=self.omega, scale=scale)
+                        mode=mode, b=b, d=dg, omega=self.omega, scale=scale,
+                        prolong=prolong, xhat_out=xhat_out)
 
     def _l1_diag_block(self, k, sup_vals):
         maps, _ = self.sup[k]
@@ -396,24 +406,33 @@ class BlockAMG(AMG):
                 return coarse_inv @ b
             vals, dg, s = level_vals[k]
             lvl = self.levels[k]
+            scale = None
             if k == 0 and ras_inv is not None:
-                x = ras.apply(ras_inv, b)  # pre-smooth from x0 = 0
-                x = smooth(k, vals, dg, x, b, self.n_smooth - 1)
+                base = ras.apply(ras_inv, b)  # pre-smooth from x0 = 0
+                base = smooth(k, vals, dg, base, b, self.n_smooth - 1)
             elif self.n_smooth == 1:
-                # x = s b (s = omega / dg), read through K1's scale and
-                # K8's base, never stored (AMG.v_cycle)
-                r = self._matvec_block(k, vals, b, mode="residual", b=b,
-                                       scale=s)
-                xc = descend(k + 1, lvl.restrict_block(r, d))
-                x = lvl.prolong_add(xc, b, width=d, scale=s)
-                return smooth(k, vals, dg, x, b, self.n_smooth)
+                # x = s b (s = omega / dg), read through K1's scale, never
+                # stored (AMG.v_cycle)
+                base, scale = b, s
             else:
                 x = self._matvec_block(k, vals, b, mode="jacobi", b=b,
                                        dg=dg, scale=s)
-                x = smooth(k, vals, dg, x, b, self.n_smooth - 2)
-            r = self._matvec_block(k, vals, x, mode="residual", b=b)
+                base = smooth(k, vals, dg, x, b, self.n_smooth - 2)
+            r = self._matvec_block(k, vals, base, mode="residual", b=b,
+                                   scale=scale)
             xc = descend(k + 1, lvl.restrict_block(r, d))
-            x = lvl.prolong_add(xc, x, width=d)
-            return smooth(k, vals, dg, x, b, self.n_smooth)
+            # the first post-smooth reads x + P xc in its gather; with the
+            # RAS smoother its residual launch also stores x + P xc, to
+            # which K6 adds RAS(r)
+            pro = (xc, lvl.agg, d)
+            if k == 0 and ras_inv is not None:
+                xhat = torch.empty_like(base)
+                r = self._matvec_block(k, vals, base, mode="residual", b=b,
+                                       prolong=pro, xhat_out=xhat)
+                x = ras.apply(ras_inv, r, base=xhat)
+            else:
+                x = self._matvec_block(k, vals, base, mode="jacobi", b=b,
+                                       dg=dg, scale=scale, prolong=pro)
+            return smooth(k, vals, dg, x, b, self.n_smooth - 1)
 
         return descend(0, b)

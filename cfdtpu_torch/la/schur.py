@@ -139,11 +139,15 @@ def _uu_amg(form, inner_method, ras_opts):
 
 def build_schur_state(form, A, bc_mask_u, pin_pressure: bool,
                       m_u: int = 8, m_p: int = 10, full: bool = True,
-                      bc_mask_p=None, inner_method: str = "amg_p",
+                      bc_mask_p=None, *, inner_method: str,
                       ras_opts: tuple[int, int] = (16, 4)):
     """Numeric preconditioner state: the operator values, the velocity
     diagonal, the velocity-block AMG / RAS values of the *_up / *_sup
-    methods and the SELFP-AMG level values."""
+    methods and the SELFP-AMG level values.
+
+    inner_method is required: cfdtpu's default, "gmres", is not ported,
+    and no other default may stand in for it. It takes that default
+    (and make_schur_precond comes with it) once "gmres" is ported."""
     _check_method(inner_method)
     n_u_flat = form.n_u_flat
     d_full = form.jacobian_diagonal(A, ())
@@ -218,11 +222,12 @@ class CapturedPrecond:
 def make_schur_precond_from_state(form, state, bc_mask_u,
                                   pin_pressure: bool, m_u: int = 8,
                                   m_p: int = 10, full: bool = True,
-                                  bc_mask_p=None,
-                                  inner_method: str = "amg_p",
+                                  bc_mask_p=None, *,
+                                  inner_method: str,
                                   ras_opts: tuple[int, int] = (16, 4)):
     """v -> M v approximating J^-1 v from a prebuilt numeric state.
     Closure construction only: the state can be reused across steps.
+    inner_method is required, as in build_schur_state.
 
     On CUDA the application is a CapturedPrecond kept in the state (one
     per set of arguments), so a state carried across steps (pc_lag_steps)

@@ -253,16 +253,21 @@ class Scenario(ABC):
 
     # ------------------------------------------------------------------
     # Checkpoint / resume: one npz of (u_sol, p_sol, u_prev, p_prev, t,
-    # step), the same format as cfdtpu's, so either package resumes from
-    # the other's checkpoint (io/state.py)
+    # step) and the multistep history the solver holds, the same format
+    # as cfdtpu's, so either package resumes from the other's checkpoint
+    # (io/state.py)
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str, t: float, step: int) -> None:
+        from ..io.state import CKPT_HISTORY
+
         s = self.solver
+        extra = {name: to_numpy(getattr(s, name)) for name in CKPT_HISTORY
+                 if getattr(s, name, None) is not None}
         np.savez(
             path,
             u_sol=to_numpy(s.u_sol), p_sol=to_numpy(s.p_sol),
             u_prev=to_numpy(s.u_prev), p_prev=to_numpy(s.p_prev),
-            t=t, step=step,
+            t=t, step=step, **extra,
         )
 
     def load_checkpoint(self, path: str) -> tuple[float, int]:

@@ -18,20 +18,32 @@ Run from the root of a checkout. Phases, each raising on failure:
    the rasamg_sup block-AMG levels (K1 at width 16), K1's epilogue
    options at their solver sites (row mask, input scale, residual from
    any vector), block transfers and facet-residual scatter (K2), the RAS
-   windows (K6), K8 at every AMG level with both bases, K9's step at
+   windows (K6), K8 at every AMG level with both bases, K1 with the
+   coarse-grid correction in its gather (K8 folded in) at every level of
+   both hierarchies (mode jacobi from the bases x and s*b, and on
+   BlockAMG's finest level the RAS smoother's residual with x-hat
+   stored), K3 with the facet block in its launch (K7's bodies; residual
+   and Jacobian), K9's step at
    the FGMRES sites (CGS2 with the Givens tail, j = 0, 9, 19, its state
    restored before each compared call) and the S-stage sites (CGS, j = 0,
    4), K9's least squares (m = 5, 20) and its triangular mode (j = 5,
    20), and the gather_micro shapes (K5, beside K1 at width 1):
    ||kernel - plain||_inf <= 1e-5 ||plain||_inf (float32: the sums run
-   in another order), and called twice, bitwise equal. Each site is
+   in another order), and called twice, bitwise equal; a fused site is
+   also compared bit for bit with the launches it replaces on the same
+   inputs (K8 then K1; K3 and K7 apart), whose device time is printed
+   beside its own. Each site is
    timed (median device time of 25 CUDA-event-timed calls, host
    dispatch excluded) warm and cold (a 128 MiB buffer written before
    each call, outside its events, so the L2 holds none of its inputs):
-   the kernel, its plain version and its library yardstick, one
+   the kernel, its plain version (5 calls, after the one-launch phases:
+   timing it between the traces left the profiler dropping records) and
+   its library yardstick, one
    PyTorch call computing the same function that the port never calls
    (K1: torch.sparse_bsr_tensor @ x over the same blocks, CSR over
-   the same entries where the blocks are not square or 1 x 1; K2:
+   the same entries where the blocks are not square or 1 x 1, and
+   with the correction in its gather that product plus
+   torch.index_select of xc; K2:
    index_add_; K5: a CSR sparse product; K6: torch.bmm of the owned
    inverse rows with pre-gathered windows, the gather left out; K8:
    torch.index_select of xc, the gather without the add; K9: the whole
@@ -39,10 +51,12 @@ Run from the root of a checkout. Phases, each raising on failure:
    torch.addmv), then the norm and the scaled store (not the Givens
    tail), torch.linalg.solve_ex of the normal equations, and
    torch.linalg.solve_triangular with torch.addmv for the triangular
-   mode; K3, K4 and K7: none); and the kernel's and the yardstick's
+   mode; K3, K3+K7, K4 and K7: none); and the kernel's and the yardstick's
    device time alone
    (utils/cudatime.device_ms: torch.profiler's trace of 20 warm calls,
-   without the launch that the event-timed times carry). Each site
+   without the launch that the event-timed times carry; a trace that
+   comes back empty is taken again, a second later, up to 5 times, here
+   and in every phase that traces). Each site
    prints its bound: the bytes it must move and the operations it does
    (the *_bytes functions, the K3_OPS and K7_OPS counts), over 3.35 TB/s
    and 67 TFLOP/s, the larger of the two, and its share of the cold
@@ -56,16 +70,19 @@ Run from the root of a checkout. Phases, each raising on failure:
    device kernel, K1; the SELFP Schur action two (no mean removal: DFG
    pins no pressure); the near-true one three beside its V-cycle's; one
    replayed preconditioner application (rasamg_sup and amg_p) one
-   cudaGraphLaunch and no kernel launch, its device kernels printed
-   beside those of the eager application; each K9 step at the FGMRES
+   cudaGraphLaunch and no kernel launch, as many device kernels as the
+   eager application, no K8 among them, and 177 (rasamg_sup) and 169
+   (amg_p), the counts before K8 was folded into K1, less the fused K1
+   launches (one for each K8 launch folded); each K9 step at the FGMRES
    site (with its Givens tail) and at the S stage one device kernel, and
    each triangular solve one;
-   one form.residual call must issue K3 once, K7 once and K2 three times,
-   and one form.element_jacobians call exactly two device kernels, K3's
-   and K7's Jacobians (no vmap or jacfwd work). The device kernels of
-   both calls are printed beside those of the same calls made with the
-   plain facet term and the plain vmap(jacfwd) Jacobians, which is what
-   the form dispatched before K7 and the Jacobian kernels existed.
+   one form.residual call must issue 5 device kernels, K3 with the
+   facet block in its launch, K2 three times and the add, and one
+   form.element_jacobians call exactly one, K3's Jacobian with the facet
+   block's (no vmap or jacfwd work). The device kernels of both calls
+   are printed beside those of the same calls made with the plain facet
+   term and the plain vmap(jacfwd) Jacobians, which is what the form
+   dispatched before K7 and the Jacobian kernels existed.
 4. determinism: two float32 form.residual calls on one state are
    bitwise equal, and so are two element_jacobians + assemble results,
    two assemble_wss results, two element-block apply_element_matrices
@@ -84,13 +101,15 @@ Run from the root of a checkout. Phases, each raising on failure:
    waits (synchronisations and blocking copies), per KSP iteration too,
    the waits and FGMRES's discarded lookahead iterations per solve, the
    card's idle share). Every step must
-   converge with a finite state, no linear solve may hit ksp_max_it, K1,
-   K2, K3 (both entry points), K4, K6, K7 (both entry points), K8 and
-   K9 (both) must have launched in steps 1-10 (a kernel inside the
-   preconditioner's CUDA graph counts at capture), and the window may
-   take at most 30 host launches (kernel and graph) per KSP iteration.
+   converge with a finite state, no linear solve may hit ksp_max_it, K1
+   (and K1 with the correction in its gather), K2, K3 with the facet
+   block (both entry points), K4, K6 and K9 (both) must have launched in
+   steps 1-10 (a kernel inside the preconditioner's CUDA graph counts at
+   capture), K8 and K7 no time there nor in the window (folded), and the
+   window may take at most 30 host launches (kernel and graph) per KSP
+   iteration.
 6. the amg_p slice (the solver's default inner method): 8 float32 steps
-   from rest, steps 5-8 measured, the same checks for K1-K4 and K7-K9.
+   from rest, steps 5-8 measured, the same checks for K1-K4 and K9.
 7. parity: float64 at res_scale 1.0, 2 steps through the kernels on the
    card and 2 steps through the plain versions (which the wrappers take
    only for CPU tensors, so that run is on the host), for rasamg_sup and
@@ -135,13 +154,25 @@ RASAMG_FLAGS = ["--pc_inner_method", "rasamg_sup", "--pc_inner_u", "0",
                 "--pc_inner_p", "5", "--pc_ras_size", "32",
                 "--snes_lag_jacobian", "True", "--pc_lag_steps", "4",
                 "--stats_every", "4", "--ksp_restart", "20"]
-ELEMENT_KERNELS = ("ns_cell_residual_p1", "ns_cell_jacobian_p1",
-                   "ns_facet_natural_p1", "ns_facet_natural_jac_p1")
-PC_KERNELS = ("amg_prolong", "krylov_cgs", "krylov_lsq")
+# the element kernels the slices launch: K3 with the facet block in its
+# launch (K7's bodies), residual and Jacobian
+ELEMENT_KERNELS = ("ns_cell_residual_p1", "ns_cell_residual_p1_facet",
+                   "ns_cell_jacobian_p1", "ns_cell_jacobian_p1_facet")
+# K1 with the V-cycles' coarse-grid correction in its gather (K8 folded)
+PC_KERNELS = ("sup_spmv_prolong", "krylov_cgs", "krylov_lsq")
 PATH_A_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
                   *ELEMENT_KERNELS, *PC_KERNELS)
 AMG_P_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", *ELEMENT_KERNELS,
                  *PC_KERNELS)
+# folded into another kernel's launch on the slices: held at their
+# kernel-phase sites, launched no time on paths A and amg_p
+FOLDED = {"amg_prolong": "sup_spmv_prolong",
+          "ns_facet_natural_p1": "ns_cell_residual_p1_facet",
+          "ns_facet_natural_jac_p1": "ns_cell_jacobian_p1_facet"}
+# device kernels of one replayed preconditioner application before K8
+# was folded into K1: the graph now holds that less the fused K1 launches
+# (one per K8 launch it replaces)
+UNFOLDED_GRAPH_KERNELS = {"rasamg_sup": 177, "amg_p": 169}
 # float64 res 1.0, 2 steps: (Newton, KSP) per step, the same in every
 # tree since the float64 slices were first run
 PARITY_COUNTS = {"rasamg_sup": [(11, 52), (36, 161)],
@@ -174,6 +205,15 @@ SOURCES = {
                                 "K7 facet jacobian", "A"),
     "amg_prolong": ("cfdtpu_torch/csrc/amg_prolong.cu",
                     "cfdtpu/la/amg.py:173", "K8 block-amg L0 base x", "A"),
+    "sup_spmv_prolong": ("cfdtpu_torch/csrc/sup_spmv.cu",
+                         "cfdtpu/la/amg.py:706",
+                         "K1+K8 block-amg L0 residual + xhat base x", "A"),
+    "ns_cell_residual_p1_facet": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
+                                  "cfdtpu/forms/navier_stokes.py:190",
+                                  "K3+K7 residual", "A"),
+    "ns_cell_jacobian_p1_facet": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
+                                  "cfdtpu/forms/navier_stokes.py:384",
+                                  "K3+K7 jacobian", "A"),
     "krylov_cgs": ("cfdtpu_torch/csrc/krylov.cu", "cfdtpu/la/gmres.py:192",
                    "K9 cgs2+givens fgmres j=19", "A"),
     "krylov_lsq": ("cfdtpu_torch/csrc/krylov.cu", "cfdtpu/la/gmres.py:78",
@@ -190,6 +230,43 @@ def log(*a):
 def require(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+# torch.profiler loses whole traces for a while now and then (a burst of
+# empty traces in a full run on an H100, through the end of the
+# kernel phase and the first one-launch call): a helper that comes back
+# with nothing is asked again, a second apart, a few times
+TRACE_TRIES = 5
+PROFILER_RETRIES = {"device_ms": 0, "launches": 0}
+
+
+def traced_ms(fn):
+    """utils/cudatime.device_ms, asked again while it returns None."""
+    from cfdtpu_torch.utils.cudatime import device_ms
+
+    for i in range(TRACE_TRIES):
+        ms = device_ms(fn)
+        if ms is not None or i == TRACE_TRIES - 1:
+            return ms
+        PROFILER_RETRIES["device_ms"] += 1
+        time.sleep(1.0)
+
+
+def traced_launches(fn):
+    """utils/cudatime.launches, asked again while its fullest trace holds
+    no device activity (every call traced here issues some)."""
+    from cfdtpu_torch.utils.cudatime import launches
+
+    for i in range(TRACE_TRIES):
+        calls, names = launches(fn)
+        if names or i == TRACE_TRIES - 1:
+            return calls, names
+        PROFILER_RETRIES["launches"] += 1
+        time.sleep(1.0)
+
+
+def traced_kernels(fn):
+    return traced_launches(fn)[1]
 
 
 # ----------------------------------------------------------------------
@@ -295,17 +372,20 @@ def kernel_sites(torch, np, sc, seed=0):
 
     sites = []
 
-    def add(name, label, kern, plain, nbytes, flops, lib=None, reset=None):
+    def add(name, label, kern, plain, nbytes, flops, lib=None, reset=None,
+            pair=None):
+        """pair: for a fused site, the launches it replaces on the same
+        inputs (compared bit for bit and timed beside it)."""
         sites.append(dict(name=name, label=label, kern=kern, plain=plain,
-                          bytes=nbytes, flops=flops, lib=lib, reset=reset))
+                          bytes=nbytes, flops=flops, lib=lib, reset=reset,
+                          pair=pair))
 
-    def k1(label, A, cols, x, n_out, **kw):
-        """A K1 site: kernel and plain version on the same flat operands;
-        yardstick torch.sparse_bsr_tensor(...) @ x over the same blocks
-        (the padded slots point at one extra zero block column), or, for
-        the views with blocks that are not square and for 1 x 1 blocks,
-        which BSR products refuse, torch.sparse_csr_tensor(...) @ x over
-        the same entries."""
+    def k1_library(A, cols):
+        """K1's yardstick: torch.sparse_bsr_tensor(...) @ x over the same
+        blocks (the padded slots point at one extra zero block column),
+        or, for the views with blocks that are not square and for 1 x 1
+        blocks, which BSR products refuse, torch.sparse_csr_tensor(...) @
+        x over the same entries."""
         ns, Kg, R, C = A.shape
 
         def lib():
@@ -326,10 +406,16 @@ def kernel_sites(torch, np, sc, seed=0):
                     A.permute(0, 2, 1, 3).reshape(-1).contiguous(),
                     size=(ns * R, (ns + 1) * C))
             return lambda: mat @ xd
+        return lib
 
+    def k1(label, A, cols, x, n_out, **kw):
+        """A K1 site: kernel and plain version on the same flat operands,
+        the library yardstick of k1_library."""
+        ns, Kg, R, C = A.shape
         add("sup_spmv", label, lambda: sup_spmv(A, cols, x, n_out, **kw),
             lambda: sup_spmv_plain(A, cols, x, n_out, **kw),
-            k1_bytes(A, x, n_out, kw), 2 * ns * Kg * R * C, lib)
+            k1_bytes(A, x, n_out, kw), 2 * ns * Kg * R * C,
+            k1_library(A, cols))
 
     cols = nb._sup.sup_cols
     gd = nb.g * nb.dim
@@ -399,6 +485,64 @@ def kernel_sites(torch, np, sc, seed=0):
 
     k8_levels("amg", amg, levels, 1)
     k8_levels("block-amg", bamg, blevels, bamg.d)
+
+    def k1_prolong_levels(tag, h, lvls, w):
+        """K1 with the coarse-grid correction read in its gather (K8
+        folded in) at every level of hierarchy h: the first post-smooth
+        (mode jacobi) from the base x (n_smooth >= 2) and s * b
+        (n_smooth = 1), and on BlockAMG's finest level the RAS smoother's
+        residual with xhat stored. Beside each, the pair it replaces (K8,
+        then K1 on K8's output); yardstick K1's library call and
+        torch.index_select of xc (the gather of K8's)."""
+        for k, lvl in enumerate(h.levels):
+            ev, d, sc = lvls[k]
+            cols_k = h.sup[k][0].sup_cols
+            m = d.shape[0]
+            xc, x, b = rand(lvl.n_coarse * w), rand(m), rand(m)
+            cases = [("jacobi", "x", x, None), ("jacobi", "s*b", b, sc)]
+            if w > 1 and k == 0:
+                cases.append(("residual + xhat", "x", x, None))
+            for mode_l, base_l, base, scale in cases:
+                mode = mode_l.split()[0]
+                kw = dict(mode=mode, b=b, d=d, omega=h.omega)
+                pro = (xc, lvl.agg, w)
+                store = mode_l.endswith("xhat")
+                xk, xp = (torch.empty_like(base) if store else None
+                          for _ in range(2))
+
+                def kern(a=(ev, cols_k, base, m, kw, scale, pro, xk)):
+                    A, c, x0, n, kw, sc_, pro_, xh = a
+                    y = sup_spmv(A, c, x0, n, scale=sc_, prolong=pro_,
+                                 xhat_out=xh, **kw)
+                    return y if xh is None else (y, xh)
+
+                def plain(a=(ev, cols_k, base, m, kw, scale, pro, xp)):
+                    A, c, x0, n, kw, sc_, pro_, xh = a
+                    y = sup_spmv_plain(A, c, x0, n, scale=sc_, prolong=pro_,
+                                       xhat_out=xh, **kw)
+                    return y if xh is None else (y, xh)
+
+                def pair(a=(ev, cols_k, base, m, kw, scale, pro, store)):
+                    A, c, x0, n, kw, sc_, pro_, st = a
+                    xh = amg_prolong(*pro_, x0, sc_)
+                    y = sup_spmv(A, c, xh, n, **kw)
+                    return (y, xh) if st else y
+
+                def lib(a=(ev, cols_k, xc, lvl.agg, w)):
+                    mat = k1_library(a[0], a[1])()
+                    return lambda: (mat(), torch.index_select(
+                        a[2].reshape(-1, a[4]), 0, a[3]))
+
+                ns_, Kg_, R_, C_ = ev.shape
+                add("sup_spmv_prolong",
+                    f"K1+K8 {tag} L{k} {mode_l} base {base_l}", kern, plain,
+                    k1_bytes(ev, base, m, dict(kw, scale=scale))
+                    + nbytes(xc, lvl.agg, xk),
+                    2 * ns_ * Kg_ * R_ * C_ + m * (1 if scale is None else 2),
+                    lib, pair=pair)
+
+    k1_prolong_levels("amg", amg, levels, 1)
+    k1_prolong_levels("block-amg", bamg, blevels, bamg.d)
 
     def k9_cgs(tag, n, rows, j, reorth, tail):
         """krylov_cgs at step j of a basis of `rows` rows of length n (an
@@ -567,6 +711,29 @@ def kernel_sites(torch, np, sc, seed=0):
         lambda: ns_facet_natural_jac_p1(*fargs),
         lambda: ns_facet_natural_jac_plain(*fargs),
         k7_bytes(fargs, 81), 9 * nf * (K7_JAC_OPS[0] + nqf * K7_JAC_OPS[1]))
+    # K3 with the facet block in its launch (K7's bodies after the cells'
+    # blocks), as the form calls it; beside it the two launches it
+    # replaces. Its bytes: K3's and K7's, less the facet dofs' u, u_prev
+    # and p, which K3's count of u, u_prev and p holds already
+    facet = fargs[3:]
+    shared = nf * 3 * 5 * u.element_size()
+    add("ns_cell_residual_p1_facet", "K3+K7 residual",
+        lambda: ns_cell_residual_p1(*args, facet=facet),
+        lambda: (*ns_cell_residual_plain(*args),
+                 ns_facet_natural_plain(*fargs)),
+        k3_bytes(args[:8], (ru_e, rp_e)) + k7_bytes(fargs, 6) - shared,
+        k3_ops(f, K3_OPS) + nf * (K7_OPS[0] + nqf * K7_OPS[1]),
+        pair=lambda: (*ns_cell_residual_p1(*args),
+                      ns_facet_natural_p1(*fargs)))
+    add("ns_cell_jacobian_p1_facet", "K3+K7 jacobian",
+        lambda: ns_cell_jacobian_p1(*args, facet=facet),
+        lambda: (ns_cell_jacobian_plain(*args),
+                 ns_facet_natural_jac_plain(*fargs)),
+        k3_bytes(args[:8], (A_cells,)) + k7_bytes(fargs, 81) - shared,
+        k3_ops(f, K3_OPS) + 3 * k3_ops(f, K3_JAC_TANGENT_OPS)
+        + 9 * nf * (K7_JAC_OPS[0] + nqf * K7_JAC_OPS[1]),
+        pair=lambda: (ns_cell_jacobian_p1(*args),
+                      ns_facet_natural_jac_p1(*fargs)))
     inv = rand(nb.n_nodes, nb.dim)
     coo_v = vals["coo"]
     sargs = (coo_v, nb._sp_e1, nb._sp_e2, nb._sp_K, inv)
@@ -716,10 +883,12 @@ def flat_outputs(out):
 
 def phase_kernels(torch, np, sc, tol, timed):
     """Compare every kernel site with its plain version, and with a
-    second call of itself (bitwise). With `timed`, time the kernel, the plain version and the library
-    yardstick with a warm L2 and with the L2 flushed before each call
-    (cuda_ms(flush_l2=True)); returns {site: row dict}."""
-    from cfdtpu_torch.utils.cudatime import cuda_ms, device_ms
+    second call of itself (bitwise). With `timed`, time the kernel and
+    the library yardstick with a warm L2 and with the L2 flushed before
+    each call (cuda_ms(flush_l2=True)), and their device time alone;
+    returns ({site: row dict}, {site: plain version}): the plain
+    versions are timed later (phase_plain_times)."""
+    from cfdtpu_torch.utils.cudatime import cuda_ms
 
     def both(fn):
         if not timed or fn is None:
@@ -727,14 +896,15 @@ def phase_kernels(torch, np, sc, tol, timed):
         return cuda_ms(fn), cuda_ms(fn, flush_l2=True)
 
     def dev(fn):
-        return None if not timed or fn is None else device_ms(fn)
+        return None if not timed or fn is None else traced_ms(fn)
 
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f}"
 
-    rows = {}
+    rows, plains = {}, {}
     for st in kernel_sites(torch, np, sc):
         label, kern, plain = st["label"], st["kern"], st["plain"]
+        plains[label] = plain
         # a kernel that updates a state in place starts each compared call
         # from the same state (the timed calls need not)
         reset = st["reset"] or (lambda: None)
@@ -760,10 +930,17 @@ def phase_kernels(torch, np, sc, tol, timed):
                 f"{label}: two calls are not bitwise equal")
         row = dict(name=st["name"], max_abs_err=err, bytes=st["bytes"],
                    flops=st["flops"])
+        pair = st["pair"]
+        if pair is not None:  # a fused site: the launches it replaces
+            apart = flat_outputs(pair())
+            row["equals_pair"] = all(torch.equal(g, a)
+                                     for g, a in zip(got, apart))
+            row["pair_max_abs_err"] = max(float((g - a).abs().max())
+                                          for g, a in zip(got, apart))
+            row["pair_device_ms"] = dev(pair)
         row["bound_ms"], row["bound_by"] = bound_ms(st["bytes"], st["flops"])
         row["warm_ms"], row["ms"] = both(kern)
         row["device_ms"] = dev(kern)
-        row["plain_warm_ms"], row["plain_ms"] = both(plain)
         lib, note = None, ""
         if timed and st["lib"] is not None:
             try:
@@ -785,34 +962,63 @@ def phase_kernels(torch, np, sc, tol, timed):
                        100 * row["bound_ms"] / row["device_ms"])
             dev_share = ("" if dev_pct is None else
                          f", bound = {dev_pct:.1f}% of it")
+            if pair is not None:
+                dev_share += (f"; the launches it replaces: device "
+                              f"{fmt(row['pair_device_ms'])}, bitwise "
+                              f"equal {row['equals_pair']} (max diff "
+                              f"{row['pair_max_abs_err']:.2e})")
             log(f"[kernels] {label:44s} err {err:.2e} kernel warm/cold "
                 f"{row['warm_ms']:.4f}/{row['ms']:.4f} ms (device "
-                f"{fmt(row['device_ms'])}{dev_share})  plain "
-                f"{row['plain_warm_ms']:.4f}/{row['plain_ms']:.4f}  library "
+                f"{fmt(row['device_ms'])}{dev_share})  library "
                 f"{lib_s}  bound {row['bound_ms']:.4f} ({row['bound_by']}: "
                 f"{st['bytes'] / 1e6:.3f} MB, {st['flops'] / 1e6:.2f} "
                 f"MFLOP) = {100 * share:.1f}% of cold, {tbps:.3f} TB/s; "
                 f"bitwise repeatable{note}")
         else:
+            eq = ("" if pair is None else
+                  f"; bitwise equal to the launches it replaces "
+                  f"{row['equals_pair']} (max diff "
+                  f"{row['pair_max_abs_err']:.2e})")
             log(f"[kernels] {label:44s} max_abs_err {err:.3e}; bitwise "
-                "repeatable")
-    return rows
+                f"repeatable{eq}")
+    return rows, plains
+
+
+PLAIN_CALLS = 5  # timed calls of a plain version (up to ~40 ms each)
+
+
+def phase_plain_times(rows, plains):
+    """The plain versions' times, warm and cold (cuda_ms), after every
+    phase that reads a profiler trace but the slices': on an H100,
+    timing them between the kernel phase's traces (25 calls each,
+    the vmap(jacfwd) Jacobians among them) left torch.profiler dropping
+    nearly every record from the K3+K7 Jacobian site on, run after run,
+    with 77 GB of the card free; without them no trace was lost."""
+    from cfdtpu_torch.utils.cudatime import cuda_ms
+
+    for label, plain in plains.items():
+        row = rows[label]
+        row["plain_warm_ms"] = cuda_ms(plain, n=PLAIN_CALLS, warmup=1)
+        row["plain_ms"] = cuda_ms(plain, n=PLAIN_CALLS, warmup=1,
+                                  flush_l2=True)
+        log(f"[plain] {label:44s} warm/cold {row['plain_warm_ms']:.4f}/"
+            f"{row['plain_ms']:.4f} ms, {row['plain_ms'] / row['ms']:.1f}x "
+            f"the kernel's cold time")
 
 
 def phase_one_launch(torch, np, sc):
     """Each operator apply the solver calls is one device kernel: K1,
     with no fill, copy or concatenation around it; each K9 Gram-Schmidt
     step (FGMRES's CGS2 with its Givens tail, the S stage's CGS) and each
-    triangular solve one device kernel; form.residual issues K3 once, K7
-    once and K2 three times; form.element_jacobians issues K3's and K7's
-    Jacobian kernels and nothing else (torch.profiler)."""
+    triangular solve one device kernel; form.residual issues 5 device
+    kernels, K3 with the facet block in its launch, K2 three times and
+    the add; form.element_jacobians one, K3's Jacobian with the facet
+    block's (torch.profiler)."""
     from cfdtpu_torch.kernels.krylov import (Givens, krylov_cgs,
                                              krylov_lsq_tri)
     from cfdtpu_torch.kernels.ns_cell_residual import ns_cell_jacobian_plain
     from cfdtpu_torch.kernels.ns_facet_natural import (
         ns_facet_natural_jac_plain, ns_facet_natural_plain)
-    from cfdtpu_torch.utils.cudatime import device_kernels
-
     s = sc.solver
     f, nb = s.form, s._nodebsr
     u, up, p = developed_state(torch, np, s, 3)
@@ -842,7 +1048,7 @@ def phase_one_launch(torch, np, sc):
     }
     out = {}
     for label, fn in calls.items():
-        names = device_kernels(fn)
+        names = traced_kernels(fn)
         log(f"[one launch] {label}: device activities {names}")
         require(len(names) == 1 and "sup_spmv" in names[0],
                 f"{label} issued {names}, not one K1 kernel")
@@ -869,7 +1075,7 @@ def phase_one_launch(torch, np, sc):
             (lambda: krylov_lsq_tri(G.R, G.g, Zf, wf, 20), "krylov_lsq"),
     }
     for label, (fn, key) in k9.items():
-        names = device_kernels(fn)
+        names = traced_kernels(fn)
         log(f"[one launch] {label}: device activities {names}")
         require(len(names) == 1 and key in names[0],
                 f"{label} issued {names}, not one K9 kernel")
@@ -883,35 +1089,33 @@ def phase_one_launch(torch, np, sc):
     cargs = (u, up, p, f.dofmap_u, f.dofmap_p, f.cell_coords, f.cell_h,
              f.tabs, prm["rho"], prm["mu"], prm["dt"], prm["f"], f.eps)
     fargs = f._fused_args(f._facet_blocks[0], u, p, (up,), prm)
-    res = device_kernels(lambda: f.residual(u, p, (up,), prm))
-    jac = device_kernels(lambda: f.element_jacobians(u, p, (up,), prm))
+    res = traced_kernels(lambda: f.residual(u, p, (up,), prm))
+    jac = traced_kernels(lambda: f.element_jacobians(u, p, (up,), prm))
     plain = {
-        "facet residual": device_kernels(
+        "facet residual": traced_kernels(
             lambda: ns_facet_natural_plain(*fargs)),
-        "cell jacobians": device_kernels(
+        "cell jacobians": traced_kernels(
             lambda: ns_cell_jacobian_plain(*cargs)),
-        "facet jacobians": device_kernels(
+        "facet jacobians": traced_kernels(
             lambda: ns_facet_natural_jac_plain(*fargs)),
     }
     n_plain = {k: len(v) for k, v in plain.items()}
-    res_before = len(res) - 1 + n_plain["facet residual"]
+    res_before = len(res) + n_plain["facet residual"]
     jac_before = n_plain["cell jacobians"] + n_plain["facet jacobians"]
-    log(f"[one launch] form.residual: {len(res)} device kernels {res}; "
-        f"with the plain facet term ({n_plain['facet residual']} kernels) "
-        f"in K7's place: {res_before}")
+    log(f"[one launch] form.residual: {len(res)} device kernels {res} (6 "
+        f"with K7 a launch of its own); with the plain facet term "
+        f"({n_plain['facet residual']} kernels) beside K3: {res_before}")
     log(f"[one launch] form.element_jacobians: {len(jac)} device kernels "
-        f"{jac}; as plain vmap(jacfwd) of the cell kernel "
+        f"{jac} (2 with K7 apart); as plain vmap(jacfwd) of the cell kernel "
         f"({n_plain['cell jacobians']}) and of the facet kernel "
         f"({n_plain['facet jacobians']}): {jac_before}")
-    require(count(res, "ns_cell_residual_p1") == 1
-            and count(res, "ns_facet_natural_p1") == 1
+    require(len(res) == 5 and count(res, "ns_cell_residual_p1_facet") == 1
             and count(res, "ell_sum") == 3,
-            f"form.residual issued {res}, not K3 once, K7 once and K2 "
-            "three times")
-    require(len(jac) == 2 and count(jac, "ns_cell_jacobian_p1") == 1
-            and count(jac, "ns_facet_natural_jac_p1") == 1,
-            f"form.element_jacobians issued {jac}, not one Jacobian kernel "
-            "per cell block and one per facet block")
+            f"form.residual issued {res}, not 5 device kernels: K3 with "
+            "the facet block once, K2 three times and the add")
+    require(len(jac) == 1 and count(jac, "ns_cell_jacobian_p1_facet") == 1,
+            f"form.element_jacobians issued {jac}, not one K3 Jacobian "
+            "launch with the facet block")
     out["form.residual"] = {"kernels": res, "with_plain_facet": res_before}
     out["form.element_jacobians"] = {"kernels": jac, "plain": jac_before}
     return out
@@ -962,7 +1166,6 @@ def phase_pc_launches(torch, np, sc):
     equal to the eager application at the first build."""
     from cfdtpu_torch.la.schur import (_near_true_schur, _sub_ops,
                                        _uu_amg, make_schur_precond_from_state)
-    from cfdtpu_torch.utils.cudatime import device_kernels, launches
 
     s = sc.solver
     nb = s._nodebsr
@@ -984,12 +1187,12 @@ def phase_pc_launches(torch, np, sc):
     }
     out = {}
     for label, fn in ops.items():
-        names = device_kernels(fn)
+        names = traced_kernels(fn)
         log(f"[pc launches] {label}: device activities {names}")
         require(len(names) == 1 and "sup_spmv" in names[0],
                 f"{label} issued {names}, not one K1 kernel")
         out[label] = names
-    names = device_kernels(lambda: S(vp))
+    names = traced_kernels(lambda: S(vp))
     log(f"[pc launches] SELFP S (no mean removal): {names}")
     require(len(names) == 2 and all("sup_spmv" in n for n in names),
             f"the SELFP S issued {names}, not two K1 kernels")
@@ -998,8 +1201,8 @@ def phase_pc_launches(torch, np, sc):
     ntS = _near_true_schur(uu_amg, st["uu_built"], Aup, Apu, App, mask_u,
                            mask_p, False)
     w = Aup(vp)
-    vc = device_kernels(lambda: uu_amg.v_cycle(st["uu_built"], w))
-    names = device_kernels(lambda: ntS(vp))
+    vc = traced_kernels(lambda: uu_amg.v_cycle(st["uu_built"], w))
+    names = traced_kernels(lambda: ntS(vp))
     k1 = sum("sup_spmv" in n for n in names)
     log(f"[pc launches] near-true S: {len(names)} device kernels, its "
         f"V-cycle {len(vc)}; {names}")
@@ -1015,14 +1218,27 @@ def phase_pc_launches(torch, np, sc):
     for method, (state, kw) in states.items():
         pc = make_schur_precond_from_state(nb, state, mask_u, False, **kw)
         same, finite = replay_vs_eager(torch, np, s, pc, 13)
-        calls, names = launches(lambda: pc(v))
-        e_calls, e_names = launches(lambda: pc.eager(v))
+        calls, names = traced_launches(lambda: pc(v))
+        e_calls, e_names = traced_launches(lambda: pc.eager(v))
         dk, ek = kernels_of(names), kernels_of(e_names)
+        fused = sum("sup_spmv_prolong" in n for n in ek)
+        k8 = sum("amg_prolong" in n for n in dk + ek)
+        want = UNFOLDED_GRAPH_KERNELS[method] - fused
         log(f"[pc launches] {method}: one replayed application: host "
             f"{calls} (cudaGraphLaunch {calls['graph']}, kernel launches "
             f"{calls['kernel']}), {len(dk)} device kernels in the graph; "
             f"the eager application: host {e_calls}, {len(ek)} device "
-            f"kernels; replay bitwise equal to eager: {same}")
+            f"kernels, {fused} of them K1 with the correction in its "
+            f"gather, {k8} K8; unfolded {UNFOLDED_GRAPH_KERNELS[method]} "
+            f"less {fused} = {want}; replay bitwise equal to eager: {same}")
+        require(k8 == 0 and fused > 0,
+                f"{method}: {k8} K8 launches and {fused} fused K1 launches "
+                "in one application")
+        require(len(dk) == len(ek) == want,
+                f"{method}: {len(dk)} device kernels in the graph, "
+                f"{len(ek)} eager, not the unfolded "
+                f"{UNFOLDED_GRAPH_KERNELS[method]} less the {fused} K8 "
+                "launches folded into K1")
         require(calls["graph"] == 1 and calls["kernel"] == 0,
                 f"{method}: a replayed application made {calls}, not one "
                 "cudaGraphLaunch and no kernel launch")
@@ -1031,7 +1247,7 @@ def phase_pc_launches(torch, np, sc):
                 f"(finite {finite})")
         out[method] = {"host": calls, "graph_device_kernels": len(dk),
                        "eager_host": e_calls, "eager_device_kernels": len(ek),
-                       "replay_equals_eager": same}
+                       "fused_k1": fused, "replay_equals_eager": same}
     return out
 
 
@@ -1149,11 +1365,12 @@ def run_steps(sc, out_dir, steps, on_step=None):
 class StepProfile:
     """torch.profiler over the steps after `start` (from on_step(start)
     to on_step(stop)): each port kernel's calls and device time (matched
-    by its name in COUNTERS), the other device activities' (the largest
-    by name), the host's kernel and graph launches, cudaMemcpyAsync calls
-    and waits (utils/cudatime.host_calls), FGMRES's discarded lookahead
-    iterations, and the share of the window's wall time in which the card
-    was idle."""
+    by the names in COUNTERS that its name holds: a fused variant's
+    calls count under its kernel too), the other device activities'
+    (the largest by name), the host's kernel and graph launches,
+    cudaMemcpyAsync calls and waits (utils/cudatime.host_calls), FGMRES's
+    discarded lookahead iterations, and the share of the window's wall
+    time in which the card was idle."""
 
     def __init__(self, start, stop):
         self.start, self.stop = start, stop
@@ -1192,11 +1409,13 @@ class StepProfile:
         kernels = {name: [0, 0.0] for name in COUNTERS}
         other = {}
         for a, b, n in dev:
-            name = next((k for k in COUNTERS if k in n), None)
-            slot = (kernels[name] if name is not None
-                    else other.setdefault(n[:60], [0, 0.0]))
-            slot[0] += 1
-            slot[1] += (b - a) / 1e3
+            # every counter whose name the kernel's holds: a fused
+            # variant counts under its kernel's name and its own
+            slots = [kernels[k] for k in COUNTERS if k in n] or [
+                other.setdefault(n[:60], [0, 0.0])]
+            for slot in slots:
+                slot[0] += 1
+                slot[1] += (b - a) / 1e3
         busy, end = 0.0, float("-inf")  # union of the device intervals
         for a, b, _ in sorted(dev):
             if b > end:
@@ -1312,6 +1531,14 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
     for name in required:
         require(launches[name] > 0,
                 f"kernel {name} never launched on the {tag} path")
+    for name, into in FOLDED.items():
+        require(launches[name] == 0,
+                f"kernel {name} launched {launches[name]} times on the "
+                f"{tag} path: it is folded into {into}")
+        if profile_steps:
+            calls = prof.result["kernels"][name]["calls"]
+            require(calls == 0, f"kernel {name} ran {calls} times in the "
+                                f"{tag} window: it is folded into {into}")
     if profile_steps:
         require(prof.result["host_launches_per_ksp"]
                 <= MAX_HOST_LAUNCHES_PER_KSP,
@@ -1458,9 +1685,11 @@ def main(argv=None):
         f"{floor_ms:.4f} ms (the floor of a small site)")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sc = scenario(0.3, "float32", 4, RASAMG_KW)
-        rows = phase_kernels(torch, np, sc, 1e-5, timed=True)
+        rows, plains = phase_kernels(torch, np, sc, 1e-5, timed=True)
         one_launch = phase_one_launch(torch, np, sc)
         one_launch["preconditioner"] = phase_pc_launches(torch, np, sc)
+        phase_plain_times(rows, plains)
+        del plains  # their inputs, before the slices' peak memory
         sc64 = scenario(1.0, "float64", 1, RASAMG_KW)
         phase_kernels(torch, np, sc64, 1e-12, timed=False)
         del sc64
@@ -1505,8 +1734,14 @@ def main(argv=None):
             "window_calls": window[name]["calls"],
             "window_device_ms": window[name]["device_ms"],
         })
+        if "equals_pair" in r:
+            entries[-1].update(equals_pair=r["equals_pair"],
+                               pair_device_ms=r["pair_device_ms"])
+        if name in FOLDED:
+            entries[-1]["folded_into"] = FOLDED[name]
     log(f"[done] chip_smoke command time "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t_start:.1f} s; empty profiler traces "
+        f"taken again: {PROFILER_RETRIES}")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
@@ -1517,6 +1752,7 @@ def main(argv=None):
                        "launches": launches, "parity": parity,
                        "determinism": determinism, "gather_micro": gm,
                        "one_launch": one_launch,
+                       "profiler_retries": PROFILER_RETRIES,
                        "kernels": entries}, fh, indent=1, default=str)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The element layer of cfdtpu_torch against cfdtpu (JAX): K3's Jacobian
 entry point ns_cell_jacobian_p1 and K7 ns_facet_natural_p1 (residual
 and Jacobian), each through its wrapper on CPU tensors (which takes the
-plain version), on the DFG 2D-1 mesh at res_scale 1.0 in float64, from
-random states made with numpy.
+plain version), and K3's entry points with the facet block in their
+launch (K3 + K7, as the form calls them), on the DFG 2D-1 mesh at
+res_scale 1.0 in float64, from random states made with numpy.
 
 Tolerances: 1e-12 relative to the largest magnitude of the reference
 where both sides run the same algorithm in float64 (only the order of
@@ -125,6 +126,55 @@ def test_form_element_jacobians_match_cfdtpu(pair):
     _close(got_c, A_cells)
     _close(got_f, A_f)
     np.testing.assert_array_equal(dmf.numpy(), np.asarray(jdmf))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_residual_matches_cfdtpu(pair, seed):
+    """ns_cell_residual_p1 with the facet block: the cells' residuals as
+    K3 alone gives them, the facet block's as cfdtpu's _block_residual
+    (1e-12), and the form's assembled residual as cfdtpu's."""
+    js, ts = pair
+    u, up, p = _state(ts, seed)
+    cargs = _cell_args(ts, u, up, p)
+    ru_e, rp_e, ru_f = ns_cell_residual_p1(
+        *cargs, facet=_facet_args(ts, u, up, p)[3:])
+    alone = ns_cell_residual_p1(*cargs)
+    assert torch.equal(ru_e, alone[0]) and torch.equal(rp_e, alone[1])
+    (jblock,) = js.form._facet_blocks
+    J = jnp.asarray
+    _, ref = js.form._block_residual(jblock, J(u), J(p), (J(up),),
+                                     js.params())
+    _close(ru_f, ref)
+    T = torch.as_tensor
+    got = ts.form.residual(T(u), T(p), (T(up),), ts.params())
+    for g, r in zip(got, js.form.residual(J(u), J(p), (J(up),),
+                                          js.params())):
+        _close(g, r)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_jacobian_matches_cfdtpu(pair, seed):
+    """ns_cell_jacobian_p1 with the facet block: (A_cells, A_f) as
+    cfdtpu's element_jacobians (1e-12)."""
+    js, ts = pair
+    u, up, p = _state(ts, seed)
+    A_cells, ((_, A_f),) = _jax_jacobians(js, u, up, p)
+    got_c, got_f = ns_cell_jacobian_p1(*_cell_args(ts, u, up, p),
+                                       facet=_facet_args(ts, u, up, p)[3:])
+    _close(got_c, A_cells)
+    _close(got_f, A_f)
+
+
+def test_second_facet_block_raises(pair, monkeypatch):
+    """K3's launch carries one facet block: a form with two refuses to
+    split itself, on any device."""
+    _, ts = pair
+    u, up, p = (torch.as_tensor(a) for a in _state(ts, 7))
+    (block,) = ts.form._facet_blocks
+    monkeypatch.setattr(ts.form, "_facet_blocks", [block, block])
+    for call in (ts.form.residual, ts.form.element_jacobians):
+        with pytest.raises(NotImplementedError, match="facet blocks"):
+            call(u, p, (up,), ts.params())
 
 
 def _flat_direction(dm_u, dm_p, du, dp):

@@ -484,9 +484,10 @@ def test_element_kernels_reject_other_forms(sc):
 
 
 def test_form_calls_issue_only_the_fused_kernels(sc):
-    """form.residual issues K3 once, K7 once and K2 three times;
-    form.element_jacobians exactly two device kernels, K3's and K7's
-    Jacobians (torch.profiler)."""
+    """form.residual issues 5 device kernels: K3 once with the facet
+    block in its launch (K7's body), K2 three times and the add;
+    form.element_jacobians exactly one, K3's Jacobian with the facet
+    block's (torch.profiler)."""
     from cfdtpu_torch.utils.cudatime import device_kernels
 
     s = sc.solver
@@ -498,12 +499,168 @@ def test_form_calls_issue_only_the_fused_kernels(sc):
     def count(names, key):
         return sum(key + "_kernel" in n for n in names)
 
-    assert count(res, "ns_cell_residual_p1") == 1, res
-    assert count(res, "ns_facet_natural_p1") == 1, res
+    assert len(res) == 5, res
+    assert count(res, "ns_cell_residual_p1_facet") == 1, res
+    assert count(res, "ns_facet_natural_p1") == 0, res
     assert count(res, "ell_sum") == 3, res
-    assert len(jac) == 2, jac
-    assert count(jac, "ns_cell_jacobian_p1") == 1, jac
-    assert count(jac, "ns_facet_natural_jac_p1") == 1, jac
+    assert len(jac) == 1, jac
+    assert count(jac, "ns_cell_jacobian_p1_facet") == 1, jac
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("kind", ["residual", "jacobian"])
+def test_k3_with_facet_block_matches_k3_and_k7(sc, kind, dt):
+    """K3's launch with the facet block against K3 and K7 launched
+    apart on the same inputs: bitwise equal, within the tolerance of the
+    plain versions, two calls bitwise equal, one launch counted."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels import ns_cell_residual as k3
+    from cfdtpu_torch.kernels import ns_facet_natural as k7
+
+    dtype, tol = _dev_tol(dt)
+    cargs, fargs = _element_args(sc.solver, dtype, seed=9)
+    cell, facet, plain_c, plain_f = {
+        "residual": (k3.ns_cell_residual_p1, k7.ns_facet_natural_p1,
+                     k3.ns_cell_residual_plain, k7.ns_facet_natural_plain),
+        "jacobian": (k3.ns_cell_jacobian_p1, k7.ns_facet_natural_jac_p1,
+                     k3.ns_cell_jacobian_plain,
+                     k7.ns_facet_natural_jac_plain),
+    }[kind]
+    kernels.reset_counts()
+    got = cell(*cargs, facet=fargs[3:])
+    again = cell(*cargs, facet=fargs[3:])
+    name = f"ns_cell_{kind}_p1_facet"
+    assert kernels.counts()[name] == 2
+    assert kernels.counts()["ns_facet_natural_p1"] == 0
+    assert kernels.counts()["ns_facet_natural_jac_p1"] == 0
+    apart = cell(*cargs)
+    apart = (apart if isinstance(apart, tuple) else (apart,)) + (
+        facet(*fargs),)
+    ref = plain_c(*cargs)
+    ref = (ref if isinstance(ref, tuple) else (ref,)) + (plain_f(*fargs),)
+    torch.cuda.synchronize()
+    assert len(got) == len(apart) == len(ref)
+    for g, a, b, r in zip(got, again, apart, ref):
+        assert torch.equal(g, a) and torch.equal(g, b)
+        _close_tol(g, r, tol)
+
+
+def _k1_prolong_sites(dtype, rng):
+    """(label, A, cols, prolong, n) for every level of both hierarchies
+    of a small DFG mesh (coarse size 40, so it has levels), plus a level
+    whose x ends 3 nodes short of its last supernode."""
+    from cfdtpu_torch.la.amg import AMG, BlockAMG
+    from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+
+    nb = DFG1Benchmark("stabilized_schur", dt=0.05, T=1.0, res_scale=2.5,
+                       dtype="float64", device="cuda").solver._nodebsr
+    sp_row, sp_col, _ = nb.sp_structure()
+    hs = {1: AMG(sp_row, sp_col, nb.n_nodes, coarse_size=40,
+                 agg_row=nb.block_row_np, agg_col=nb.block_col_np,
+                 device="cuda"),
+          nb.dim: BlockAMG(nb.block_row_np, nb.block_col_np, nb.n_nodes,
+                           d=nb.dim, coarse_size=40, device="cuda")}
+
+    def dev(shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device="cuda")
+
+    out = []
+    for w, h in hs.items():
+        for k, lvl in enumerate(h.levels):
+            maps = h.sup[k][0]
+            g = maps.g * w
+            out.append((f"w={w} L{k}", dev((maps.ns, maps.Kg, g, g)),
+                        maps.sup_cols, (dev(lvl.n_coarse * w), lvl.agg, w),
+                        lvl.n * w))
+        ns, kg, n = 37, 9, 37 * 8 - 3
+        cols = rng.integers(0, ns, (ns, kg))
+        cols[:, -2:] = ns
+        agg = torch.as_tensor(rng.integers(0, 5, n), dtype=torch.int32,
+                              device="cuda")
+        out.append((f"w={w} short", dev((ns, kg, 8 * w, 8 * w)),
+                    torch.as_tensor(cols, dtype=torch.int32, device="cuda"),
+                    (dev(5 * w), agg, w), n * w))
+    return out
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_k1_prolong_matches_k8_then_k1(dt):
+    """K1 with the coarse-grid correction in its gather against K8 then
+    K1 on K8's output, at every level of both hierarchies (w = 1 and 2),
+    with the base x and s * x, in modes jacobi and residual, and x-hat
+    stored: bitwise equal, within the tolerance of the plain version,
+    two calls bitwise equal; one K1 launch counted a call and no K8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.amg_prolong import amg_prolong
+    from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(21)
+    for label, A, cols, pro, n in _k1_prolong_sites(dtype, rng):
+        def dev(a):
+            return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+        x, b = dev(rng.standard_normal(n)), dev(rng.standard_normal(n))
+        d, s = dev(1.0 + rng.random(n)), dev(0.5 + rng.random(n))
+        for scale in (None, s):
+            for mode in ("jacobi", "residual"):
+                kw = dict(mode=mode, b=b, d=d, omega=0.67)
+                xhat = (torch.empty_like(x) if mode == "residual" and
+                        scale is None else None)
+                kernels.reset_counts()
+                got = sup_spmv(A, cols, x, n, scale=scale, prolong=pro,
+                               xhat_out=xhat, **kw)
+                again = sup_spmv(A, cols, x, n, scale=scale, prolong=pro,
+                                 **kw)
+                c = kernels.counts()
+                assert c["sup_spmv_prolong"] == c["sup_spmv"] == 2, label
+                assert c["amg_prolong"] == 0
+                pair_x = amg_prolong(*pro, x, scale)
+                pair = sup_spmv(A, cols, pair_x, n, **kw)
+                ref = sup_spmv_plain(A, cols, x, n, scale=scale,
+                                     prolong=pro, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), label
+                assert torch.equal(got, pair), (label, mode, scale is None)
+                _close_tol(got, ref, tol)
+                if xhat is not None:
+                    assert torch.equal(xhat, pair_x), label
+
+
+@pytest.mark.parametrize("method", ["amg_p", "rasamg_sup"])
+def test_captured_vcycle_has_no_k8(sc, method):
+    """One captured preconditioner application holds no amg_prolong
+    kernel: each V-cycle level's correction is read by a fused K1
+    (sup_spmv_prolong) launch (torch.profiler over a replay). At this
+    mesh the SELFP AMG has one level only (amg_p: no correction at all);
+    rasamg_sup's BlockAMG has more."""
+    from cfdtpu_torch.la.schur import (_uu_amg, build_schur_state,
+                                       make_schur_precond_from_state)
+    from cfdtpu_torch.utils.cudatime import device_kernels
+
+    s = sc.solver
+    nb = s._nodebsr
+    u, up, p = _state(s, seed=5)
+    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
+    n_uf = nb.n_u_flat
+    mask = torch.zeros(n_uf, dtype=torch.bool, device="cuda")
+    kw = dict(m_u=0 if method == "rasamg_sup" else 6,
+              m_p=5 if method == "rasamg_sup" else 10,
+              inner_method=method, ras_opts=(32, 4))
+    state = build_schur_state(nb, vals, mask, False, **kw)
+    pc = make_schur_precond_from_state(nb, state, mask, False, **kw)
+    v = s.tensor(np.random.default_rng(5).standard_normal(n_uf + nb.n_nodes))
+    names = device_kernels(lambda: pc(v))
+    levels = len(nb.sp_amg().levels)
+    if method == "rasamg_sup":
+        levels += len(_uu_amg(nb, method, kw["ras_opts"]).levels)
+    assert not any("amg_prolong" in n for n in names), names
+    fused = sum("sup_spmv_prolong" in n for n in names)
+    assert (fused > 0) == (levels > 0), (levels, names)
+    assert method == "amg_p" or fused > 0
 
 
 @pytest.mark.parametrize("dt", ["f64", "f32"])

@@ -191,3 +191,12 @@ def test_pressure_nullspace_test_agrees(case):
     same initial Jacobian."""
     assert (case["ts"]._test_pressure_nullspace()
             == case["js"]._test_pressure_nullspace())
+
+
+@pytest.mark.parametrize("fn", [build_schur_state,
+                                make_schur_precond_from_state])
+def test_inner_method_is_required(fn):
+    """No default inner method: cfdtpu's ("gmres") is not ported, and
+    the port's functions may not default to another one."""
+    with pytest.raises(TypeError, match="inner_method"):
+        fn(None, None, None, False, m_u=6, m_p=10)

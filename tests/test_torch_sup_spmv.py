@@ -5,6 +5,11 @@ sup_matvec, and for two segments cfdtpu/la/nodebsr.py's concatenated
 u and p supernode rows and its split output), and the kernel's launch
 plan.
 
+The prolong option (K8's coarse-grid correction read in the gather) is
+held against K8's plain version followed by K1's (bit for bit) and
+against the einsum on base + xc[agg] (1e-12), at widths 1 and 2, both
+modes it serves, with and without the input scale.
+
 Every (R, C) class K1 serves is one case: the full 12x12 operator (one
 and two segments), its uu / up / pu / pp / p-coupled views, the 8x8 AMG
 and 16x16 BlockAMG levels and width 1. Inputs are made with numpy from
@@ -21,6 +26,7 @@ import torch
 
 import cfdtpu  # noqa: F401  (JAX in float64 at highest precision)
 from cfdtpu_torch import kernels
+from cfdtpu_torch.kernels.amg_prolong import amg_prolong_plain
 from cfdtpu_torch.kernels.sup_spmv import (LANES_WANTED, UNROLL_SCALAR,
                                            launch_plan, sup_spmv,
                                            sup_spmv_plain)
@@ -219,3 +225,89 @@ def test_wrapper_rejects_bad_input(bad):
         kw = dict(y_split=(NS * 12, 12))
     with pytest.raises(ValueError, match="sup_spmv"):
         sup_spmv(A, cols, x, NS * 12, **kw)
+
+
+# K1's prolong option: the coarse-grid correction of a V-cycle read in
+# the gather (K8 folded into the post-smooth launch), at the SELFP AMG's
+# width (w = 1, 8x8 blocks) and BlockAMG's (w = 2, 16x16)
+PROLONG = {1: "amg 8x8", 2: "block-amg 16x16"}
+N_COARSE = 5
+
+
+def _prolong_case(w, seed=0):
+    """A square level whose x ends inside a supernode, 3 nodes short of
+    ns*g (not a whole number of 16-byte chunks), with padded slots; its
+    aggregates and a coarse vector."""
+    A, cols, _, _, _, _ = _case(PROLONG[w], np.float64, seed)
+    rng = np.random.default_rng(seed + 50)
+    m = NS * A.shape[3] - 3 * w
+    vec = {k: torch.as_tensor(rng.standard_normal(m)) for k in ("x", "b")}
+    vec["d"] = torch.as_tensor(1.0 + rng.random(m))
+    vec["s"] = torch.as_tensor(0.5 + rng.random(m))
+    agg = torch.as_tensor(rng.integers(0, N_COARSE, m // w).astype(np.int32))
+    xc = torch.as_tensor(rng.standard_normal(N_COARSE * w))
+    return A, torch.as_tensor(cols), vec, (xc, agg, w), m
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["x", "s*x"])
+@pytest.mark.parametrize("mode", ["residual", "jacobi"])
+@pytest.mark.parametrize("w", [1, 2])
+def test_prolong_is_k8_then_k1(w, mode, scaled):
+    """sup_spmv(prolong=(xc, agg, w)) is K8's plain version followed by
+    K1's on its output, bit for bit, and within 1e-12 of cfdtpu's einsum
+    on xhat = base + xc[agg] (numpy)."""
+    A, cols, v, pro, m = _prolong_case(w)
+    scale = v["s"] if scaled else None
+    kw = dict(mode=mode, b=v["b"], d=v["d"], omega=0.67)
+    kernels.reset_counts()
+    got = sup_spmv(A, cols, v["x"], m, scale=scale, prolong=pro, **kw)
+    assert kernels.counts()["sup_spmv"] == 0  # CPU tensors: no launch
+    xhat = amg_prolong_plain(*pro, v["x"], scale)
+    assert torch.equal(got, sup_spmv_plain(A, cols, xhat, m, **kw))
+    xc, agg, _ = (t.numpy() if torch.is_tensor(t) else t for t in pro)
+    base = v["x"].numpy() * (1.0 if scale is None else scale.numpy())
+    xh = base + xc.reshape(-1, w)[agg].reshape(-1)
+    y = np.asarray(_jnp_reference(A.numpy(), cols.numpy(), jnp.asarray(xh),
+                                  None, None, m))
+    b, d = v["b"].numpy(), v["d"].numpy()
+    ref = b - y if mode == "residual" else xh + 0.67 * (b - y) / d
+    assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("w", [1, 2])
+def test_prolong_xhat_out_is_k8(w):
+    """xhat_out receives K8's plain output, the vector the launch read
+    (BlockAMG's finest level with the RAS smoother)."""
+    A, cols, v, pro, m = _prolong_case(w, seed=1)
+    xhat = torch.full((m,), float("nan"), dtype=A.dtype)
+    r = sup_spmv(A, cols, v["x"], m, mode="residual", b=v["b"], prolong=pro,
+                 xhat_out=xhat)
+    ref = amg_prolong_plain(*pro, v["x"])
+    assert torch.equal(xhat, ref)
+    assert torch.equal(r, sup_spmv_plain(A, cols, ref, m, mode="residual",
+                                         b=v["b"]))
+
+
+@pytest.mark.parametrize("bad", ["mode y", "mask", "x split", "y split",
+                                 "width", "xhat without prolong"])
+def test_prolong_refuses_what_is_not_built(bad):
+    """The kernel is built for prolong in modes residual and jacobi on a
+    square level of one flat x, with scale or without, never with a
+    mask: the wrapper refuses every other combination, on any device."""
+    A, cols, v, pro, m = _prolong_case(2, seed=2)
+    kw = dict(mode="jacobi", b=v["b"], d=v["d"], prolong=pro)
+    if bad == "mode y":
+        kw = dict(prolong=pro)
+    elif bad == "mask":
+        kw["mask"] = torch.zeros(m, dtype=torch.bool)
+    elif bad == "x split":
+        kw.update(mode="residual", d=None, x_split=(m - 16, 8))
+    elif bad == "y split":
+        kw.update(mode="residual", d=None, y_split=(m - 16, 8))
+    elif bad == "width":
+        kw["prolong"] = (pro[0], pro[1], 3)
+    else:
+        kw = dict(mode="residual", b=v["b"],
+                  xhat_out=torch.empty(m, dtype=A.dtype))
+    with pytest.raises(ValueError, match="sup_spmv"):
+        sup_spmv(A, cols, v["x"], m, **kw)

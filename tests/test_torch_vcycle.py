@@ -1,7 +1,10 @@
 """The preconditioner application's new kernel paths against cfdtpu (JAX):
 K8 (the coarse-grid correction x + P xc), both AMG V-cycles at
-n_smooth 1 (K1's input scale and K8's scaled base take the first
-pre-smooth) and 2, and K1's epilogue options at their solver sites: the
+n_smooth 1 (K1's input scale takes the first pre-smooth) and 2 in their
+fused form (the correction read in the first post-smooth's K1 gather,
+K1's prolong option; on BlockAMG's RAS level that launch also stores
+it), the same cycles bit for bit against K8 then K1 on the CPU, and
+K1's epilogue options at their solver sites: the
 fieldsplit sub-blocks Auu and Aup, the SELFP Schur action S, the
 near-true Schur action of the *_sup methods, r_p - Apu z_u and the
 outer matvec. DFG 2D-1 at res_scale 1.0 (9,861 DOF), float64, on one
@@ -25,6 +28,7 @@ from cfdtpu.scenarios.dfg_1 import DFG1Benchmark as JaxDFG
 
 from cfdtpu_torch import kernels
 from cfdtpu_torch.kernels.amg_prolong import amg_prolong
+from cfdtpu_torch.la import amg as amg_module
 from cfdtpu_torch.la.amg import AMG, BlockAMG
 from cfdtpu_torch.la.schur import _near_true_schur, _safe, _sub_ops
 from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark as TorchDFG
@@ -156,6 +160,73 @@ def test_selfp_amg_vcycle_matches_cfdtpu(case, n_smooth):
     got = th.v_cycle(tbuilt, T(r))
     assert_close(got, jh.v_cycle(jbuilt, jnp.asarray(r)), 1e-11)
     assert kernels.counts()["amg_prolong"] == 0  # CPU: plain versions
+
+
+def _unfused_v_cycle(h, built, b, block):
+    """The cycle as it ran before K1's prolong option: K8 (prolong_add)
+    stores x + P xc, then the post-smooths read it."""
+    level_vals, coarse_inv = built[0], built[1]
+    ras_inv = built[2] if block else None
+    w = h.d if block else 1
+    mv = h._matvec_block if block else h._matvec
+
+    def jacobi(k, vals, dg, x, b, **kw):
+        return mv(k, vals, x, "jacobi", b, dg, **kw)
+
+    def smooth(k, vals, dg, x, b, iters):
+        for _ in range(iters):
+            if k == 0 and ras_inv is not None:
+                r = mv(k, vals, x, "residual", b)
+                x = h.fine_smoother.apply(ras_inv, r, base=x)
+            else:
+                x = jacobi(k, vals, dg, x, b)
+        return x
+
+    def descend(k, b):
+        if k == len(h.levels):
+            return coarse_inv @ b
+        vals, dg, s = level_vals[k]
+        lvl = h.levels[k]
+        if k == 0 and ras_inv is not None:
+            x = h.fine_smoother.apply(ras_inv, b)
+            x = smooth(k, vals, dg, x, b, h.n_smooth - 1)
+            scale = None
+        elif h.n_smooth == 1:
+            x, scale = b, s
+        else:
+            x = smooth(k, vals, dg, jacobi(k, vals, dg, b, b, scale=s), b,
+                       h.n_smooth - 2)
+            scale = None
+        r = mv(k, vals, x, "residual", b, scale=scale)
+        rc = lvl.restrict_block(r, w) if block else lvl.restrict(r)
+        x = lvl.prolong_add(descend(k + 1, rc), x, width=w, scale=scale)
+        return smooth(k, vals, dg, x, b, h.n_smooth)
+
+    return descend(0, b)
+
+
+@pytest.mark.parametrize("kind", ["amg", "block", "block + ras"])
+@pytest.mark.parametrize("n_smooth", [1, 2])
+def test_vcycle_fold_equals_k8_then_k1(case, kind, n_smooth, monkeypatch):
+    """On the CPU the fused cycle is K8's plain version then K1's, as the
+    cycle ran before the fold: bit for bit, and no K8 call left."""
+    if kind == "amg":
+        h = _amg_pair(case, n_smooth)[1]
+        built = h.build(T(case["sp"]))
+        n = case["tnb"].n_nodes
+    else:
+        h = _block_pair(case, n_smooth, kind == "block + ras")[1]
+        built = h.build(T(case["uu"]))
+        n = case["tnb"].n_u_flat
+    r = T(np.random.default_rng(53 + n_smooth).standard_normal(n))
+    calls = []
+    k8 = amg_module.amg_prolong
+    monkeypatch.setattr(amg_module, "amg_prolong",
+                        lambda *a: calls.append(1) or k8(*a))
+    got = h.v_cycle(built, r)
+    assert not calls
+    assert torch.equal(got, _unfused_v_cycle(h, built, r, kind != "amg"))
+    assert len(calls) == len(h.levels) > 1
 
 
 @pytest.mark.parametrize("ras", [False, True])
