@@ -42,6 +42,13 @@
 // shuffles for eight rows, not forty): a per-row chain of shuffles and
 // loads behind a branch made each pass a latency chain.
 //
+// At j = -1 an elementwise scale sc may come with w: the step normalises
+// u = sc * w (each value rounded once, then squared and summed in the
+// same order), so that after y = A v (K1) it is one power-iteration
+// step of sc * A, with ||sc * y|| left in hcol[0]: lambda_max of the
+// Chebyshev smoothers (la/chebyshev.py, cfdtpu/la/chebyshev.py:33-51)
+// without a read on the host.
+//
 // Bound: the active rows, w and V[j+1] once: at the FGMRES site of the
 // DFG 2D-1 slice (n = 106,275, j = 19, CGS2, float32) 9.35 MB, 2.79 us
 // at 3.35 TB/s. What holds it is latency, not bytes: the slices' load
@@ -334,6 +341,7 @@ template <typename T>
 struct CgsArgs {
   T* V;
   const T* w;
+  const T* sc;  // j = -1 only: u = sc * w (a power-iteration step), or null
   T* h;
   unsigned* epoch;          // launches so far (the exchange's tag)
   unsigned long long* xch;  // the exchange: 2 (j + 1) + 1 rows of slots
@@ -458,9 +466,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     uc = u;
   }
+  // the scaled normalisation (j = -1): u = sc * w, each value rounded
+  // once before its square, as the plain version forms it
+  const T* scb = a.sc != nullptr ? a.sc + c0 : nullptr;
   T acc = T(0);
   for (int c = threadIdx.x; c < cnt; c += kThreads) {
-    acc = fma(uc[c], uc[c], acc);
+    const T v = scb != nullptr ? scb[c] * uc[c] : uc[c];
+    acc = fma(v, v, acc);
   }
   acc = warp_sum(acc);
   if (lane == 0) red[warp] = acc;
@@ -476,7 +488,9 @@ __global__ void __launch_bounds__(kThreads)
   gather(x3, 1, tag, sum);
   const T wn = sqrt(sum[0]);
   const T den = wn > a.tiny ? wn : a.tiny;
-  for (int c = threadIdx.x; c < cnt; c += kThreads) dst[c] = uc[c] / den;
+  for (int c = threadIdx.x; c < cnt; c += kThreads) {
+    dst[c] = (scb != nullptr ? scb[c] * uc[c] : uc[c]) / den;
+  }
   if (blockIdx.x == 0) {
     // every block has read the epoch (each published the norm after it)
     if (threadIdx.x == 0) *a.epoch = ep + 1u;
@@ -530,13 +544,15 @@ int launch_cgs(const CgsArgs<T>& a, int nb, int smem, cudaStream_t st) {
 }
 
 template <typename T>
-int cgs(void* V, int64_t n, int j, const void* w, void* h, int64_t hstride,
+int cgs(void* V, int64_t n, int j, const void* w, const void* sc, void* h,
+        int64_t hstride,
         int reorth, void* xch, int nb, int cols, int smem, double tiny,
         void* R, void* cs, void* sn, void* g, void* stat, const void* tol,
         int m, cudaStream_t st) {
   CgsArgs<T> a;
   a.V = static_cast<T*>(V);
   a.w = static_cast<const T*>(w);
+  a.sc = static_cast<const T*>(sc);
   a.h = static_cast<T*>(h);
   a.epoch = static_cast<unsigned*>(xch);
   a.xch = static_cast<unsigned long long*>(xch) + 1;
@@ -699,7 +715,8 @@ int launch_tri(const LsqArgs<T>& a, int nb, cudaStream_t st) {
 }  // namespace
 
 extern "C" int cfd_krylov_cgs(void* V, int64_t n, int j, const void* w,
-                              void* h, int64_t hstride, int reorth,
+                              const void* sc, void* h, int64_t hstride,
+                              int reorth,
                               void* xch, int nb, int cols, int smem,
                               double tiny, void* R, void* cs, void* sn,
                               void* g, void* stat, const void* tol, int m,
@@ -709,14 +726,17 @@ extern "C" int cfd_krylov_cgs(void* V, int64_t n, int j, const void* w,
   if (n <= 0 || nb <= 0 || nb > kMaxBlocks || j < -1 || rows > kMaxRows
       || (int64_t)nb * cols < n || smem < 0 || smem > kSmemCgs
       || (smem > 0 && smem < need)
-      || (R != nullptr && (m < rows || m > kMaxRows))) {
+      || (R != nullptr && (m < rows || m > kMaxRows))
+      || (sc != nullptr && j != -1)) {
     return (int)cudaErrorInvalidValue;
   }
   const auto st = static_cast<cudaStream_t>(stream);
-  return is_f64 ? cgs<double>(V, n, j, w, h, hstride, reorth, xch, nb, cols,
-                              smem, tiny, R, cs, sn, g, stat, tol, m, st)
-                : cgs<float>(V, n, j, w, h, hstride, reorth, xch, nb, cols,
-                             smem, tiny, R, cs, sn, g, stat, tol, m, st);
+  return is_f64 ? cgs<double>(V, n, j, w, sc, h, hstride, reorth, xch, nb,
+                              cols, smem, tiny, R, cs, sn, g, stat, tol, m,
+                              st)
+                : cgs<float>(V, n, j, w, sc, h, hstride, reorth, xch, nb,
+                             cols, smem, tiny, R, cs, sn, g, stat, tol, m,
+                             st);
 }
 
 extern "C" int cfd_krylov_lsq(const void* H, int m, const void* beta,

@@ -14,6 +14,12 @@
 //   out[pos(s, r)] = y                                 mode 0
 //                  = b[pos] - y                        mode 1 (residual)
 //                  = x[pos] + omega*(b[pos]-y)/d[pos]  mode 2 (l1-Jacobi)
+//                  = x[pos] + dn[pos]                  mode 3 (Chebyshev)
+//     dn = ca * (dprev or x)[pos] + cc * (w[pos] * (b[pos] - y)),
+//     stored into dout where given: one step of la/chebyshev.py's sweep
+//     (cfdtpu/la/chebyshev.py:72-77; ca, cc host numbers), the AMG
+//     levels' smoothers (cfdtpu/la/amg.py:485-492, 596-611) and the
+//     chebyshev inner method's Auu sweep (la/schur.py:254-260)
 //
 // Two options around the modes, each a template parameter, so the modes
 // without them compile to the code they had before the options existed:
@@ -37,8 +43,14 @@
 //   SCALE or without, never with MASK, in 16-byte chunks only, at w = 1
 //   (the SELFP AMG) and 2 (BlockAMG in 2D), 8 nodes a supernode: the
 //   cycles' levels; the host refuses the rest.
+// - ADD (a runtime pointer, modes 2 and 3, no MASK): out += add[pos]
+//   after the mode, one more rounding: the W-cycle's x1 + x2
+//   (cfdtpu/la/amg.py:503-510, 675-690) in the epilogue of the second
+//   visit's last launch, x2 + x1, which equals x1 + x2 bit for bit.
+// In mode 3 a MASK makes its rows identity rows of the product (y = x
+// there, Auu's where(mask, v, A v)) and mv is not read.
 // The order of operations is fixed: the row sum y, then the mode (so the
-// residual is b - y, rounded once), then the mask.
+// residual is b - y, rounded once), then the add, then the mask.
 //
 // X is never built. It is read from the solver's flat vector(s): one
 // vector x0 of w0 = C values per supernode, or two (u at width w0 = g*d,
@@ -155,6 +167,11 @@ struct Args {
   const T* pxc;               // PROLONG: the coarse vector xc
   const int* pagg;            // PROLONG: each fine node's aggregate
   T* xhat;                    // PROLONG: xhat's output rows, or null
+  const T* cw;                // mode 3: the sweep's scale w
+  const T* dprev;             // mode 3: the previous step's d, or null
+  T* dout;                    // mode 3: this step's d, or null
+  const T* add;               // modes 2, 3: added to the output, or null
+  T ca, cc;                   // mode 3: the step's coefficients
   int CV, KS, lg;  // chunks per row, k splits, log2 of lanes per row set
   int n_lanes;     // (ns * R / RPL) << lg
 };
@@ -343,6 +360,16 @@ __device__ __forceinline__ Chunk<T, VEC> load_x(const Args<T>& p, int col,
   return c;
 }
 
+// mode 3's step at row pos: xv the row's x (as read), y its product
+template <typename T>
+__device__ __forceinline__ T cheby_row(const Args<T>& p, int64_t pos,
+                                       T xv, T y) {
+  const T dp = p.dprev != nullptr ? p.dprev[pos] : xv;
+  const T dn = p.ca * dp + p.cc * (p.cw[pos] * (p.b[pos] - y));
+  if (p.dout != nullptr) p.dout[pos] = dn;
+  return xv + dn;
+}
+
 // the epilogue: row r of supernode s to its place in the flat output
 template <typename T, bool SCALE, bool MASK, int PW>
 __device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
@@ -367,17 +394,28 @@ __device__ __forceinline__ void store_row(const Args<T>& p, int s, int r,
     if (p.xhat != nullptr) p.xhat[pos] = xv;
     if (p.mode == 1) {
       y = p.b[pos] - acc;
-    } else {  // mode 2 (the host refuses mode 0)
+    } else if (p.mode == 2) {
       y = xv + p.omega * (p.b[pos] - acc) / p.d[pos];
+    } else {  // mode 3 (the host refuses mode 0)
+      y = cheby_row(p, pos, xv, acc);
     }
   } else if (p.mode == 1) {
     y = p.b[pos] - acc;
-  } else if (p.mode == 2) {
+  } else if (p.mode >= 2) {
     const T xv = SCALE ? p.sc[pos] * p.x0[pos] : p.x0[pos];
-    y = xv + p.omega * (p.b[pos] - acc) / p.d[pos];
+    if (p.mode == 2) {
+      y = xv + p.omega * (p.b[pos] - acc) / p.d[pos];
+    } else {
+      T yp = acc;
+      if constexpr (MASK) {
+        if (p.mask[pos]) yp = xv;  // identity rows
+      }
+      y = cheby_row(p, pos, xv, yp);
+    }
   }
+  if (p.add != nullptr) y = y + p.add[pos];
   if constexpr (MASK) {
-    if (p.mask[pos]) y = p.mv != nullptr ? p.mv[pos] : T(0);
+    if (p.mode != 3 && p.mask[pos]) y = p.mv != nullptr ? p.mv[pos] : T(0);
   }
   p.out[pos] = y;
 }
@@ -543,8 +581,9 @@ int run(const void* A, int64_t sA0, int64_t sA1, int64_t sA2,
         void* out, int64_t n0, int R0, int64_t n1, int mode, const void* b,
         const void* d, double omega, const void* sc, const void* mask,
         const void* mv, const void* pxc, const void* pagg, int pw,
-        void* xhat, int vec, int rpl, int CV, int KS, int lg,
-        void* stream) {
+        void* xhat, const void* cw, const void* dprev, void* dout,
+        const void* add, double ca, double cc, int vec, int rpl, int CV,
+        int KS, int lg, void* stream) {
   Args<T> a;
   a.A = static_cast<const T*>(A);
   a.sA0 = sA0;
@@ -576,6 +615,12 @@ int run(const void* A, int64_t sA0, int64_t sA1, int64_t sA2,
   a.pxc = static_cast<const T*>(pxc);
   a.pagg = static_cast<const int*>(pagg);
   a.xhat = static_cast<T*>(xhat);
+  a.cw = static_cast<const T*>(cw);
+  a.dprev = static_cast<const T*>(dprev);
+  a.dout = static_cast<T*>(dout);
+  a.add = static_cast<const T*>(add);
+  a.ca = static_cast<T>(ca);
+  a.cc = static_cast<T>(cc);
   a.CV = CV;
   a.KS = KS;
   a.lg = lg;
@@ -604,8 +649,9 @@ extern "C" int cfd_sup_spmv(
     int xa0, const void* x1, int64_t m1, int xa1, void* out, int64_t n0,
     int R0, int64_t n1, int mode, const void* b, const void* d,
     double omega, const void* sc, const void* mask, const void* mv,
-    const void* pxc, const void* pagg, int pw, void* xhat, int vec,
-    int rpl, int CV, int KS, int lg, int is_f64, void* stream) {
+    const void* pxc, const void* pagg, int pw, void* xhat, const void* cw,
+    const void* dprev, void* dout, const void* add, double ca, double cc,
+    int vec, int rpl, int CV, int KS, int lg, int is_f64, void* stream) {
   if (ns <= 0 || n0 + n1 <= 0) return (int)cudaGetLastError();
   if (lg < 0 || lg > 5 || CV < 1 || KS < 1 || CV * KS > (1 << lg) ||
       rpl < 1 || R % rpl || ((int64_t)ns * (R / rpl) << lg) >= (1LL << 30)) {
@@ -624,12 +670,80 @@ extern "C" int cfd_sup_spmv(
     return (int)cudaErrorInvalidValue;
   }
   if (xhat != nullptr && pxc == nullptr) return (int)cudaErrorInvalidValue;
+  // mode 3: square, one x (its rows are the output's), w given; add:
+  // modes 2 and 3 without a mask
+  if (mode == 3 && (cw == nullptr || b == nullptr || C != w0 || m1 != 0 ||
+                    R != C || R0 != R || n1 != 0 || n0 != m0 ||
+                    mv != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((mode != 3 && (cw != nullptr || dprev != nullptr || dout != nullptr)) ||
+      (add != nullptr && (mode < 2 || mask != nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
   return is_f64 ? run<double>(A, sA0, sA1, sA2, cols, ns, Kg, R, C, x0, m0,
                               w0, xa0, x1, m1, xa1, out, n0, R0, n1, mode, b,
                               d, omega, sc, mask, mv, pxc, pagg, pw, xhat,
-                              vec, rpl, CV, KS, lg, stream)
+                              cw, dprev, dout, add, ca, cc, vec, rpl, CV,
+                              KS, lg, stream)
                 : run<float>(A, sA0, sA1, sA2, cols, ns, Kg, R, C, x0, m0,
                              w0, xa0, x1, m1, xa1, out, n0, R0, n1, mode, b,
                              d, omega, sc, mask, mv, pxc, pagg, pw, xhat,
-                             vec, rpl, CV, KS, lg, stream);
+                             cw, dprev, dout, add, ca, cc, vec, rpl, CV, KS,
+                             lg, stream);
+}
+
+// cheby_update: mode 3's step alone, after an operator that is not one
+// K1 launch (la/chebyshev.py; the SELFP S of the chebyshev inner
+// methods, two launches): y = A x given,
+//   dn = ca * (dprev or x) + cc * (w * (b - y)),  out = x + dn,
+// dn into dout where given. Elementwise and bound by its bytes (five
+// vectors in, two out: 0.99 MB at the S stage of 35,425 float32 values,
+// 0.30 us at 3.35 TB/s), so by its launch: one pass, one thread a value.
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cheby_update_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                        const T* __restrict__ b, const T* __restrict__ w,
+                        const T* __restrict__ dprev, T* __restrict__ out,
+                        T* __restrict__ dout, int64_t n, T ca, T cc) {
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * kThreads) {
+    const T xv = x[i];
+    const T dp = dprev != nullptr ? dprev[i] : xv;
+    const T dn = ca * dp + cc * (w[i] * (b[i] - y[i]));
+    if (dout != nullptr) dout[i] = dn;
+    out[i] = xv + dn;
+  }
+}
+
+template <typename T>
+int cheby_update_run(const void* x, const void* y, const void* b,
+                     const void* w, const void* dprev, void* out,
+                     void* dout, int64_t n, double ca, double cc,
+                     cudaStream_t st) {
+  const int grid =
+      (int)std::min<int64_t>((n + kThreads - 1) / kThreads, 1 << 20);
+  cheby_update_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(b), static_cast<const T*>(w),
+      static_cast<const T*>(dprev), static_cast<T*>(out),
+      static_cast<T*>(dout), n, static_cast<T>(ca), static_cast<T>(cc));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cfd_cheby_update(const void* x, const void* y, const void* b,
+                                const void* w, const void* dprev, void* out,
+                                void* dout, int64_t n, double ca, double cc,
+                                int is_f64, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  return is_f64 ? cheby_update_run<double>(x, y, b, w, dprev, out, dout, n,
+                                           ca, cc, st)
+                : cheby_update_run<float>(x, y, b, w, dprev, out, dout, n,
+                                          ca, cc, st);
 }

@@ -2,7 +2,10 @@
 
 K1 sup_spmv            supernode-ELL SpMV with fused epilogues; with its
                        prolong option it reads a V-cycle's coarse-grid
-                       correction in its gather (K8 folded in)
+                       correction in its gather (K8 folded in); its
+                       cheby mode ends in a Chebyshev step
+   cheby_update        that step alone, elementwise, after an operator
+                       that is not one K1 launch
 K2 ell_sum             deterministic sorted-segment gather-reduce (CSR scatter)
 K3 ns_cell_residual_p1 fused stabilized-NS cell residual, P1 triangles,
    ns_cell_jacobian_p1 and its exact element Jacobian (the same cell body
@@ -16,19 +19,29 @@ K7 ns_facet_natural_p1 natural-correction facet term, P1 triangles,
    ns_facet_natural_jac_p1 and its element Jacobian
 K8 amg_prolong         AMG coarse-grid correction base + xc[agg]
 K9 krylov_cgs          GMRES Gram-Schmidt step (CGS, CGS2), the active rows,
-                       one launch; in FGMRES it ends in the Givens update
+                       one launch; in FGMRES it ends in the Givens update;
+                       its normalisation (j = -1) takes an elementwise
+                       scale: a power-iteration step (la/chebyshev.py)
    krylov_lsq          gmres_fixed's small least-squares solve and Z^T y,
                        and (krylov_lsq_tri) FGMRES's triangle and x + Z^T y
+K10 block_jacobi       node-block Jacobi z = blockdiag(inv) v (d = 1: a
+                       diagonal scale);
+    block_jacobi_inv   the (d x d) inverses of the diagonal velocity
+                       blocks with the Dirichlet identity rows
+K11 amg_gcr2           the K-cycle's GCR(2) step, two launches
 
 Every wrapper takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors (or raises); each call of a
 wrapper that launches adds one to its counter, `COUNTERS[name].n`. A
-fused variant also counts under its own name: `sup_spmv_prolong` (K1
-with the coarse-grid correction), `ns_cell_residual_p1_facet` and
+fused variant or option also counts under its own name:
+`sup_spmv_prolong` (K1 with the coarse-grid correction), `sup_spmv_cheby`
+(K1's cheby mode), `krylov_cgs_scaled` (K9's scaled normalisation),
+`ns_cell_residual_p1_facet` and
 `ns_cell_jacobian_p1_facet` (K3 with a facet block), each a subset of
-its kernel's count; their device kernels carry the same names
-(`sup_spmv_prolong_kernel`, ...), so a trace matches them as a name
-contains them.
+its kernel's count; the fused variants' device kernels carry the same
+names (`sup_spmv_prolong_kernel`, ...), so a trace matches them as a
+name contains them (the two options run in their kernel's device
+kernel, and a trace counts them under it).
 Inside a CUDA graph
 (la/schur.py captures each preconditioner application) a wrapper runs
 once, at capture, and adds one then: the graph's replays launch the
@@ -56,7 +69,9 @@ COUNTERS = {
                  "ns_cell_jacobian_p1", "ns_cell_jacobian_p1_facet",
                  "selfp_triple", "patch_spmv", "ras_apply",
                  "ns_facet_natural_p1", "ns_facet_natural_jac_p1",
-                 "amg_prolong", "krylov_cgs", "krylov_lsq")
+                 "amg_prolong", "krylov_cgs", "krylov_lsq",
+                 "sup_spmv_cheby", "cheby_update", "krylov_cgs_scaled",
+                 "block_jacobi", "block_jacobi_inv", "amg_gcr2")
 }
 
 

@@ -38,11 +38,14 @@ F64 = ctypes.c_double
 SIGNATURES = {
     # A, A strides (3), cols, ns, Kg, R, C, x0, m0, w0, xa0, x1, m1, xa1,
     # out, n0, R0, n1, mode, b, d, omega, scale, mask, mask_value, xc,
-    # agg, w, xhat, vec, rpl, CV, KS, lg, is_f64, stream
+    # agg, w, xhat, cheby w, dprev, dout, add, ca, cc, vec, rpl, CV, KS,
+    # lg, is_f64, stream
     "cfd_sup_spmv": [P, I64, I64, I64, P, I32, I32, I32, I32, P, I64, I32,
                      I32, P, I64, I32, P, I64, I32, I64, I32, P, P, F64,
-                     P, P, P, P, P, I32, P, I32, I32, I32, I32, I32, I32,
-                     P],
+                     P, P, P, P, P, I32, P, P, P, P, P, F64, F64, I32, I32,
+                     I32, I32, I32, I32, P],
+    # x, y, b, w, dprev, out, dout, n, ca, cc, is_f64, stream
+    "cfd_cheby_update": [P, P, P, P, P, P, P, I64, F64, F64, I32, P],
     # src, row_ptr, pos, out, n_out, F, G, loads, is_f64, stream
     "cfd_ell_sum": [P, P, P, P, I64, I64, I32, I32, I32, P],
     # u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
@@ -70,14 +73,21 @@ SIGNATURES = {
     "cfd_ras_apply": [P, P, P, P, I64, I64, I64, I64, I64, I64, I32, I32, P],
     # xc, agg, x, scale, out, n, width, is_f64, stream
     "cfd_amg_prolong": [P, P, P, P, P, I64, I32, I32, P],
-    # V, n, j, w, h, h stride, reorth, exchange, blocks, columns a block,
-    # shared bytes, tiny, R, cs, sn, g, stat, tol, m, is_f64, stream
-    "cfd_krylov_cgs": [P, I64, I32, P, P, I64, I32, P, I32, I32, I32, F64,
-                       P, P, P, P, P, P, I32, I32, P],
+    # V, n, j, w, scale, h, h stride, reorth, exchange, blocks, columns a
+    # block, shared bytes, tiny, R, cs, sn, g, stat, tol, m, is_f64,
+    # stream
+    "cfd_krylov_cgs": [P, I64, I32, P, P, P, I64, I32, P, I32, I32, I32,
+                       F64, P, P, P, P, P, P, I32, I32, P],
     # H, m, beta, Z, n, out, blocks, tiny, is_f64, stream
     "cfd_krylov_lsq": [P, I32, P, P, I64, P, I32, F64, I32, P],
     # R, R row stride, g, Z, n, x, j, out, blocks, is_f64, stream
     "cfd_krylov_tri": [P, I64, P, P, I64, P, I32, P, I32, I32, P],
+    # inv, v, out, n, d, divide, is_f64, stream
+    "cfd_block_jacobi": [P, P, P, I64, I32, I32, I32, P],
+    # vals, bs, diag_pos, mask, inv, n, d, is_f64, stream
+    "cfd_block_jacobi_inv": [P, I32, P, P, P, I64, I32, I32, P],
+    # second, q1, b or q2, z1, z2, r, coef, out, n, tiny, is_f64, stream
+    "cfd_amg_gcr2": [I32, P, P, P, P, P, P, P, I64, F64, I32, P],
     # stream (csrc/empty.cu: the launch floor, not a kernel of the port)
     "cfd_empty": [P],
 }

@@ -12,7 +12,10 @@ vector), once, or twice with reorth (CGS2), in place:
 
 V is (rows, n) row-major; h any 1-D view of at least j+2 entries (the
 Hessenberg column H[:, j], or a row of a transposed copy). w is read
-only. One launch (cgs_plan gives its grid and whether the active rows
+only. At j = -1 an elementwise `scale` (w's shape) may stand beside w:
+the step then normalises u = scale * w, so that after y = A v it is one
+power-iteration step of scale * A (la/chebyshev.py). One launch
+(cgs_plan gives its grid and whether the active rows
 stay in shared memory), which exchanges its block sums through a
 buffer kept per device (_exchange): one such launch runs at a time.
 
@@ -52,6 +55,7 @@ from ._common import (check_float, check_same_device, is_f64, on_cuda,
                       require, sm_count, stream_handle)
 
 _COUNT_CGS = COUNTERS["krylov_cgs"]
+_COUNT_SCALED = COUNTERS["krylov_cgs_scaled"]
 _COUNT_LSQ = COUNTERS["krylov_lsq"]
 
 THREADS = 256  # kThreads in the .cu
@@ -164,9 +168,11 @@ def givens_plain(h, j: int, G: Givens, gtiny: float) -> None:
 
 
 def krylov_cgs_plain(V, w, j: int, h, reorth: bool,
-                     givens: Givens | None = None) -> None:
+                     givens: Givens | None = None, scale=None) -> None:
     """The plain PyTorch version: cfdtpu's products over the active rows,
     then the Givens tail."""
+    if scale is not None:
+        w = scale * w
     if j >= 0:
         Va = V[: j + 1]
         hh = Va @ w
@@ -184,7 +190,7 @@ def krylov_cgs_plain(V, w, j: int, h, reorth: bool,
 
 
 def krylov_cgs(V, w, j: int, h, reorth: bool,
-               givens: Givens | None = None) -> None:
+               givens: Givens | None = None, scale=None) -> None:
     check_float("V", V)
     check_float("w", w, V.dtype)
     check_float("h", h, V.dtype)
@@ -197,14 +203,19 @@ def krylov_cgs(V, w, j: int, h, reorth: bool,
             f"krylov_cgs: j={j} outside [-1, {min(rows, MAX_ROWS + 1) - 2}]")
     require(h.dim() == 1 and h.shape[0] >= j + 2,
             f"krylov_cgs: h must be 1-D with at least {j + 2} entries")
-    check_same_device(("V", V), ("w", w), ("h", h))
+    if scale is not None:
+        check_float("scale", scale, V.dtype)
+        require(j == -1 and scale.shape == w.shape and scale.is_contiguous(),
+                "krylov_cgs: scale is built for the normalisation (j = -1), "
+                "contiguous of w's shape")
+    check_same_device(("V", V), ("w", w), ("h", h), ("scale", scale))
     G = givens
     if G is not None:
         require(j + 1 <= G.m <= MAX_ROWS,
                 f"krylov_cgs: Givens of m={G.m} for step j={j}")
         check_same_device(("V", V), ("R", G.R))
     if not on_cuda(V):
-        return krylov_cgs_plain(V, w, j, h, reorth, G)
+        return krylov_cgs_plain(V, w, j, h, reorth, G, scale)
     from ._build import check, library
 
     nb, cols, smem = cgs_plan(n, j, V.element_size(),
@@ -214,11 +225,15 @@ def krylov_cgs(V, w, j: int, h, reorth: bool,
              G.g.data_ptr(), G.stat.data_ptr(), G.tol.data_ptr(), G.m))
     with torch.cuda.device(V.device):
         rc = library().cfd_krylov_cgs(
-            V.data_ptr(), n, j, w.data_ptr(), h.data_ptr(), h.stride(0),
+            V.data_ptr(), n, j, w.data_ptr(),
+            None if scale is None else scale.data_ptr(), h.data_ptr(),
+            h.stride(0),
             int(bool(reorth)), _exchange(V.device).data_ptr(), nb, cols,
             smem, tiny(V.dtype),
             *tail, is_f64(V), stream_handle(V))
     _COUNT_CGS.n += 1
+    if scale is not None:
+        _COUNT_SCALED.n += 1
     check(rc, "krylov_cgs")
 
 

@@ -21,6 +21,9 @@ returned as
     mode "y":        y
     mode "residual": b - y
     mode "jacobi":   x + omega * (b - y) / d   (x is the gathered vector)
+    mode "cheby":    one Chebyshev step, cheb = (w, dprev, a, c):
+                     dn = a * (dprev or x) + c * w * (b - y),
+                     returned x + dn; d_out, if given, receives dn
 
 and options around the modes:
     scale (x's shape; x_split None): x is read as scale * x, in the
@@ -36,6 +39,14 @@ and options around the modes:
         supernode at w = 1 or 2, with scale or without, never with mask:
         the combinations the V-cycles use, the ones the kernel is built
         for; the rest raise ValueError.
+    add (n_out; modes jacobi and cheby, no mask): returned + add, one
+        more rounding after the mode's (the W-cycle's x1 + x2).
+In mode "cheby" a mask makes its rows identity rows of the product
+(y = x there, as where(mask, v, A v) does), and mask_value is refused.
+
+cheby_update(x, y, b, w, dprev, a, c, d_out=None): mode "cheby"'s update
+alone, for an operator that is not one K1 launch (y = its product of x):
+elementwise, x + dn with dn as above.
 """
 
 from __future__ import annotations
@@ -49,9 +60,11 @@ from ._common import (check_float, check_index, check_same_device, is_f64,
                       on_cuda, require, stream_handle)
 from .amg_prolong import amg_prolong_plain
 
-MODES = {"y": 0, "residual": 1, "jacobi": 2}
+MODES = {"y": 0, "residual": 1, "jacobi": 2, "cheby": 3}
 _COUNT = COUNTERS["sup_spmv"]
 _COUNT_PROLONG = COUNTERS["sup_spmv_prolong"]
+_COUNT_CHEBY = COUNTERS["sup_spmv_cheby"]
+_COUNT_UPDATE = COUNTERS["cheby_update"]
 
 UNROLL_SCALAR = 8  # kUnroll<1> of the kernel: blocks a lane loads at once
 LANES_WANTED = 3 * 2 ** 14  # lanes that keep an H100's 132 SMs busy
@@ -67,7 +80,8 @@ def _pad_rows(v, ns: int, width: int):
 
 def sup_spmv_plain(A, cols, x, n_out, mode="y", b=None, d=None, omega=0.0,
                    x_split=None, y_split=None, scale=None, mask=None,
-                   mask_value=None, prolong=None, xhat_out=None):
+                   mask_value=None, prolong=None, xhat_out=None, cheb=None,
+                   d_out=None, add=None):
     """The plain PyTorch version: the padded supernode rows, the gather
     and the batched einsum, as cfdtpu's jnp operator applies do, then the
     elementwise ops around them in cfdtpu, in the kernel's order. With
@@ -92,13 +106,58 @@ def sup_spmv_plain(A, cols, x, n_out, mode="y", b=None, d=None, omega=0.0,
         n0, R0 = y_split
         y = torch.cat([y[:, :R0].reshape(-1)[:n0],
                        y[:, R0:].reshape(-1)[: n_out - n0]])
+    if mode == "cheby":
+        if mask is not None:  # identity rows
+            y = torch.where(mask, x, y)
+        return cheby_update_plain(x, y, b, *cheb, d_out, add)
     if mode == "residual":
         y = b - y
     elif mode == "jacobi":
         y = x + omega * (b - y) / d
+    if add is not None:
+        y = y + add
     if mask is not None:
         y = torch.where(mask, 0.0 if mask_value is None else mask_value, y)
     return y
+
+
+def cheby_update_plain(x, y, b, w, dprev, a, c, d_out=None, add=None):
+    """One Chebyshev step after y = A x, in the kernels' order."""
+    dn = a * (x if dprev is None else dprev) + c * (w * (b - y))
+    if d_out is not None:
+        d_out.copy_(dn)
+    out = x + dn
+    return out if add is None else out + add
+
+
+def _check_vec(name, t, n, dtype):
+    check_float(name, t, dtype)
+    require(tuple(t.shape) == (n,) and t.is_contiguous(),
+            f"{name} must be contiguous ({n},)")
+
+
+def cheby_update(x, y, b, w, dprev, a, c, d_out=None):
+    n = x.shape[0]
+    for name, t in (("x", x), ("y", y), ("b", b), ("w", w),
+                    ("dprev", dprev), ("d_out", d_out)):
+        if t is not None:
+            _check_vec(f"cheby_update: {name}", t, n, x.dtype)
+    check_same_device(("x", x), ("y", y), ("b", b), ("w", w),
+                      ("dprev", dprev), ("d_out", d_out))
+    if not on_cuda(x):
+        return cheby_update_plain(x, y, b, w, dprev, a, c, d_out)
+    from ._build import check, library
+
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = library().cfd_cheby_update(
+            x.data_ptr(), y.data_ptr(), b.data_ptr(), w.data_ptr(),
+            None if dprev is None else dprev.data_ptr(), out.data_ptr(),
+            None if d_out is None else d_out.data_ptr(), n, float(a),
+            float(c), is_f64(x), stream_handle(x))
+    _COUNT_UPDATE.n += 1
+    check(rc, "cheby_update")
+    return out
 
 
 class Plan(NamedTuple):
@@ -159,7 +218,8 @@ def launch_plan(A, x_split=None) -> Plan:
 
 
 def _check(A, cols, x, n_out, mode, b, d, x_split, y_split, scale, mask,
-           mask_value, prolong=None, xhat_out=None):
+           mask_value, prolong=None, xhat_out=None, cheb=None, d_out=None,
+           add=None):
     require(mode in MODES, f"sup_spmv: unknown mode {mode!r}")
     require(A.dim() == 4, "sup_spmv: A must be (ns, Kg, R, C)")
     ns, Kg, R, C = A.shape
@@ -186,11 +246,12 @@ def _check(A, cols, x, n_out, mode, b, d, x_split, y_split, scale, mask,
                 and 0 <= n_out - n0 <= ns * (R - R0),
                 f"sup_spmv: y_split {y_split} does not fit n_out {n_out} "
                 f"and R={R}")
-    if mode == "jacobi":
+    if mode in ("jacobi", "cheby"):
         require(x_split is None and y_split is None and R == C
                 and x.shape[0] == n_out,
-                "sup_spmv: mode jacobi needs a square A and x of n_out")
-    need = {"y": (), "residual": ("b",), "jacobi": ("b", "d")}[mode]
+                f"sup_spmv: mode {mode} needs a square A and x of n_out")
+    need = {"y": (), "residual": ("b",), "jacobi": ("b", "d"),
+            "cheby": ("b",)}[mode]
     for name, t in (("b", b), ("d", d)):
         if name in need:
             require(t is not None, f"sup_spmv: mode {mode} needs {name}")
@@ -212,14 +273,32 @@ def _check(A, cols, x, n_out, mode, b, d, x_split, y_split, scale, mask,
         require(tuple(mask_value.shape) == (n_out,)
                 and mask_value.is_contiguous(),
                 f"sup_spmv: mask_value must be contiguous ({n_out},)")
+    cw = dprev = None
+    if mode == "cheby":
+        require(cheb is not None and len(cheb) == 4 and mask_value is None,
+                "sup_spmv: mode cheby needs cheb = (w, dprev, a, c), and "
+                "its mask takes no mask_value")
+        cw, dprev = cheb[:2]
+        _check_vec("sup_spmv: w", cw, n_out, A.dtype)
+        if dprev is not None:
+            _check_vec("sup_spmv: dprev", dprev, n_out, A.dtype)
+    else:
+        require(cheb is None and d_out is None,
+                "sup_spmv: cheb and d_out need mode cheby")
+    if d_out is not None:
+        _check_vec("sup_spmv: d_out", d_out, n_out, A.dtype)
+    if add is not None:
+        require(mode in ("jacobi", "cheby") and mask is None,
+                "sup_spmv: add is built for modes jacobi and cheby, no mask")
+        _check_vec("sup_spmv: add", add, n_out, A.dtype)
     xc = agg = None
     if prolong is not None:
         xc, agg, w = prolong
-        require(mode in ("residual", "jacobi") and mask is None
+        require(mode in ("residual", "jacobi", "cheby") and mask is None
                 and x_split is None and y_split is None and R == C
                 and x.shape[0] == n_out,
-                "sup_spmv: prolong is built for modes residual and jacobi "
-                "on a square level (one flat x of n_out), with scale or "
+                "sup_spmv: prolong is built for modes residual, jacobi and "
+                "cheby on a square level (one flat x of n_out), with scale or "
                 "without, and no mask")
         check_float("xc", xc, A.dtype)
         check_index("agg", agg)
@@ -240,15 +319,17 @@ def _check(A, cols, x, n_out, mode, b, d, x_split, y_split, scale, mask,
     check_same_device(("A", A), ("cols", cols), ("x", x), ("b", b),
                       ("d", d), ("scale", scale), ("mask", mask),
                       ("mask_value", mask_value), ("xc", xc), ("agg", agg),
-                      ("xhat_out", xhat_out))
+                      ("xhat_out", xhat_out), ("w", cw), ("dprev", dprev),
+                      ("d_out", d_out), ("add", add))
 
 
 def sup_spmv(A, cols, x, n_out=None, mode="y", b=None, d=None, omega=0.0,
              x_split=None, y_split=None, scale=None, mask=None,
-             mask_value=None, prolong=None, xhat_out=None):
+             mask_value=None, prolong=None, xhat_out=None, cheb=None,
+             d_out=None, add=None):
     if n_out is None:
         n_out = A.shape[0] * A.shape[2]
-    opts = (scale, mask, mask_value, prolong, xhat_out)
+    opts = (scale, mask, mask_value, prolong, xhat_out, cheb, d_out, add)
     _check(A, cols, x, n_out, mode, b, d, x_split, y_split, *opts)
     if not on_cuda(A):
         return sup_spmv_plain(A, cols, x, n_out, mode, b, d, omega, x_split,
@@ -265,7 +346,7 @@ def _align(p: int) -> int:
 
 def _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
             plan: Plan, scale=None, mask=None, mask_value=None, prolong=None,
-            xhat_out=None):
+            xhat_out=None, cheb=None, d_out=None, add=None):
     """One kernel launch into one torch.empty, with the given plan."""
     from ._build import check, library
 
@@ -284,6 +365,7 @@ def _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
     n0, R0 = (n_out, R) if y_split is None else y_split
     out = torch.empty((n_out,), dtype=A.dtype, device=A.device)
     m = MODES[mode]
+    cw, dprev, ca, cc = (None, None, 0.0, 0.0) if cheb is None else cheb
     x0 = x.data_ptr()
     x1 = x0 + m0 * x.element_size()
     xa0, xa1 = (_align(p) if plan.vec > 1 else 0 for p in (x0, x1))
@@ -298,12 +380,17 @@ def _launch(A, cols, x, n_out, mode, b, d, omega, x_split, y_split,
             d.data_ptr() if m == 2 else None, float(omega),
             *(None if t is None else t.data_ptr()
               for t in (scale, mask, mask_value, xc, agg)), w,
-            None if xhat_out is None else xhat_out.data_ptr(), plan.vec,
+            None if xhat_out is None else xhat_out.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (cw, dprev, d_out, add)), float(ca), float(cc),
+            plan.vec,
             plan.rpl, plan.cv, plan.ks, plan.lanes.bit_length() - 1,
             is_f64(A), stream_handle(A),
         )
     _COUNT.n += 1
     if prolong is not None:
         _COUNT_PROLONG.n += 1
+    if m == 3:
+        _COUNT_CHEBY.n += 1
     check(rc, "sup_spmv")
     return out

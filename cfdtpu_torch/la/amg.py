@@ -3,9 +3,10 @@
 
 The counterpart of cfdtpu/la/amg.py: plain (unsmoothed) aggregation
 with piecewise-constant transfer, Galerkin coarse operators, l1-Jacobi
-smoothing (or, on BlockAMG's finest level, an optional RAS smoother)
-and a dense coarsest inverse. The aggregates and every index map are
-built once in numpy, exactly as in cfdtpu.
+or Chebyshev smoothing (or, on BlockAMG's finest level, an optional RAS
+smoother), a dense coarsest inverse, and the V-, W- and K-cycle. The
+aggregates and every index map are built once in numpy, exactly as in
+cfdtpu.
 
 Kernels: level matvecs are K1 (sup_spmv) at supernode width g=8 (g*d
 for the node-block levels), with its epilogues fusing the l1-Jacobi
@@ -23,9 +24,23 @@ in the built state) and the correction's base is s b. The coarsest
 solve is a dense inverse. On the CPU the plain versions run K8's and
 K1's in that order, as the cycle did before the fusion.
 
-Not ported yet: the K-cycle (_gcr2), Chebyshev smoothing, the W-cycle
-and the weighted p-multigrid level (PLevel). Their flags raise
-NotImplementedError when set.
+Chebyshev smoothing (cheby_degree > 0) replaces l1-Jacobi on every level
+but a RAS one, on [0.25, 1.05] lambda_max(D_l1^-1 A) per level, lambda
+power-iterated at build (la/chebyshev.py; n_smooth then has no say, as
+in cfdtpu): each step is one K1 launch in its cheby mode, the first
+pre-smoothing step x = w b K1's input scale (never stored), the first
+post-smoothing step the launch that reads x + P xc in its gather.
+
+The W-cycle (gamma = 2) visits a coarse level twice, x1 + descend(rc -
+A x1); its sum is no launch of its own: K1's `add` option adds x1 in
+the epilogue of the second visit's last launch, one rounding of x2 + x1
+after x2's own, which is the reference's x1 + x2 bit for bit in float64
+(the addition commutes exactly), and the parent's gather reads one
+coarse vector as in the V-cycle. The K-cycle (kcycle, on coarse levels
+k >= 1, nonlinear in b) is cfdtpu's _gcr2 with the level's cycle as
+preconditioner: two K1 products and K11's two launches. Not ported:
+the weighted p-multigrid level (PLevel); linear_parents raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,10 +48,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.amg_gcr2 import gcr2_first, gcr2_second
 from ..kernels.amg_prolong import amg_prolong
 from ..kernels.sup_spmv import sup_spmv
 from ..utils.geometry import SortedScatter
+from .chebyshev import cheby_coeffs, cheby_scale, estimate_lambda_max
 from .superell import SuperMaps, place
+
+# the Chebyshev smoothers' interval [CHEB_FRAC, 1] * lambda_max
+CHEB_FRAC = 0.25
 
 
 def build_aggregates(row, col, n: int, pairwise: bool = False
@@ -156,6 +176,8 @@ class AMG:
 
     build(vals) -> per-level values; v_cycle(built, r) -> z."""
 
+    width = 1  # values a node carries (BlockAMG: d)
+
     def __init__(self, row: np.ndarray, col: np.ndarray, n: int,
                  coarse_size: int = 800, max_levels: int = 6,
                  omega: float = 0.67, n_smooth: int = 1,
@@ -170,6 +192,7 @@ class AMG:
         if linear_parents is not None:
             raise NotImplementedError(
                 "the weighted p-multigrid level (PLevel) is not ported")
+        self.kcycle, self.cheby_degree, self.wcycle = False, 0, False
         self.set_cycle(kcycle=kcycle, cheby=cheby_degree, wcycle=wcycle)
         self.device = torch.device(device)
         self.omega = omega
@@ -202,15 +225,18 @@ class AMG:
             r.astype(np.int64) * m + c.astype(np.int64), device=self.device)
 
     def set_cycle(self, kcycle=None, cheby=None, wcycle=None):
-        """Cycle options; only the plain V-cycle with l1-Jacobi is
-        ported, so setting any of these raises."""
-        if kcycle:
-            raise NotImplementedError("AMG K-cycle is not ported")
-        if cheby:
-            raise NotImplementedError("AMG Chebyshev smoothing is not "
-                                      "ported")
-        if wcycle:
-            raise NotImplementedError("AMG W-cycle is not ported")
+        """The cycle's options, mutable on a cached hierarchy (as cfdtpu's
+        factories flip them); None leaves a setting as it is. kcycle: the
+        K-cycle's GCR(2) coarse corrections (nonlinear in b; v_cycle's
+        kcycle=False forces a linear cycle per call); wcycle: gamma = 2;
+        cheby: the Chebyshev smoothers' degree, 0 for l1-Jacobi (a
+        change needs a new build: lambda is computed there)."""
+        if kcycle is not None:
+            self.kcycle = bool(kcycle)
+        if cheby is not None:
+            self.cheby_degree = int(cheby)
+        if wcycle is not None:
+            self.wcycle = bool(wcycle)
 
     # -- per-PC-build value pass ----------------------------------------
     def _build_sup(self, r, c, m):
@@ -230,16 +256,29 @@ class AMG:
         return place(pos, vals, maps.ns * maps.Kg * g * g,
                      (maps.ns, maps.Kg, g, g))
 
+    def _level(self, k, ev, cheby: bool):
+        """(sup values, l1 diagonal, omega / diagonal, Chebyshev data):
+        with cheby, (lambda_max of D_l1^-1 A, a (1,) tensor, and the
+        sweep's scale w = cheby_scale(1 / d, lambda, CHEB_FRAC)), else
+        None."""
+        d = self._l1_diag(k, ev)
+        cheb = None
+        if cheby:
+            inv = 1.0 / d
+            lam = estimate_lambda_max(
+                lambda v, _k=k, _ev=ev: self._matvec(_k, _ev, v), inv)
+            cheb = (lam, cheby_scale(inv, lam, CHEB_FRAC))
+        return ev, d, self.omega / d, cheb
+
     def build(self, vals):
         """Galerkin-coarsen the values, precompute the l1 smoothing
-        diagonals and the dense inverse of the coarsest level; returns
-        (per-level (sup values, l1 diagonal, omega / diagonal), coarsest
+        diagonals (and the Chebyshev scales) and the dense inverse of the
+        coarsest level; returns (per-level _level tuples, coarsest
         inverse)."""
         out = []
         for k, lvl in enumerate(self.levels):
-            ev = self._place(k, vals)
-            d = self._l1_diag_sup(k, ev)
-            out.append((ev, d, self.omega / d))
+            out.append(self._level(k, self._place(k, vals),
+                                   self.cheby_degree > 0))
             vals = lvl.coarsen_vals(vals)
         m = self.n_coarsest
         A = torch.zeros((m * m,), dtype=vals.dtype, device=vals.device)
@@ -250,60 +289,134 @@ class AMG:
         # dense inverse: the coarsest solve is then one matvec per cycle
         return out, torch.linalg.inv(A)
 
-    def _matvec(self, k, sup_vals, x, mode="y", b=None, d=None,
-                scale=None, prolong=None):
-        """Level-k y = A x (K1), or with its epilogue: mode "residual"
-        gives b - A x, mode "jacobi" gives x + omega (b - A x) / d; with
-        scale, x is read as scale * x; with prolong = (xc, agg, 1), as
-        that plus P xc."""
+    def _matvec(self, k, sup_vals, x, mode="y", b=None, d=None, **kw):
+        """Level-k y = A x (K1, width g * self.width), or with K1's
+        epilogues: mode "residual" gives b - A x, mode "jacobi" x +
+        omega (b - A x) / d, mode "cheby" a Chebyshev step (cheb, d_out);
+        scale reads x as scale * x, prolong = (xc, agg, width) as that
+        plus P xc (xhat_out receives it), add is added to the result."""
         maps, _ = self.sup[k]
-        return sup_spmv(sup_vals, maps.sup_cols, x, n_out=maps.n,
-                        mode=mode, b=b, d=d, omega=self.omega, scale=scale,
-                        prolong=prolong)
+        return sup_spmv(sup_vals, maps.sup_cols, x,
+                        n_out=maps.n * self.width, mode=mode, b=b, d=d,
+                        omega=self.omega, **kw)
 
-    def _l1_diag_sup(self, k, sup_vals):
+    def _l1_diag(self, k, sup_vals):
         """l1-Jacobi smoothing diagonal d_i = sum_j |A_ij| (a plain
         reduction over the supernode values)."""
         maps, _ = self.sup[k]
         d = torch.sum(torch.abs(sup_vals), dim=(1, 3)).reshape(-1)
-        return torch.clamp(d[: maps.n], min=1e-30)
+        return torch.clamp(d[: maps.n * self.width], min=1e-30)
+
+    def _restrict(self, k, r):
+        return self.levels[k].restrict(r)
 
     def v_cycle(self, built, b, kcycle=None):
-        """One V(n_smooth, n_smooth) cycle for A x = b, x0 = 0. Only the
-        plain cycle is ported: kcycle=True raises (la/schur.py passes
-        kcycle=False where the cycle must stay linear)."""
-        if kcycle:
-            raise NotImplementedError("AMG K-cycle is not ported")
-        level_vals, coarse_inv = built
-        nl = len(self.levels)
+        """One cycle for A x = b, x0 = 0: V(n_smooth, n_smooth), or W
+        (wcycle), or K (the hierarchy's kcycle, or this call's; pass
+        kcycle=False wherever the result must be linear in b), with
+        l1-Jacobi or Chebyshev smoothing."""
+        return self._cycle(built[0], built[1], None, b, kcycle)
 
-        def smooth(k, vals, d, x, b, iters):
-            for _ in range(iters):
-                x = self._matvec(k, vals, x, mode="jacobi", b=b, d=d)
+    def _cycle(self, level_vals, coarse_inv, ras_inv, b, kcycle):
+        nl = len(self.levels)
+        kc = self.kcycle if kcycle is None else kcycle
+        w = self.width
+        mv = self._matvec
+        ras = self.fine_smoother if ras_inv is not None else None
+        coeffs = cheby_coeffs(self.cheby_degree, CHEB_FRAC)
+
+        def jacobi_sweeps(k, x, b, n, add=None, **first):
+            """n l1-Jacobi (or, with RAS, RAS) sweeps; `first` goes to
+            the first launch (scale, prolong), add to the last's output."""
+            vals, d = level_vals[k][:2]
+            for i in range(n):
+                a = add if i == n - 1 else None
+                kw = first if i == 0 else {}
+                if k == 0 and ras is not None:
+                    r = mv(k, vals, x, mode="residual", b=b, **kw)
+                    x = ras.apply(ras_inv, r, base=x)
+                else:
+                    x = mv(k, vals, x, mode="jacobi", b=b, d=d, add=a, **kw)
             return x
 
-        def descend(k, b):
+        def cheb_steps(k, x, b, steps, add=None, **first):
+            """K1 launches in cheby mode with the (a, c) of `steps`, each
+            on the previous one's x and d; `first` goes to the first
+            launch (scale: x read as scale * x and d taken as that;
+            prolong), add to the last's output."""
+            vals, _, _, (_, ws) = level_vals[k]
+            d = None
+            for i, (a, c) in enumerate(steps):
+                last = i == len(steps) - 1
+                d_out = None if last else torch.empty_like(b)
+                kw = first if i == 0 else {}
+                x = mv(k, vals, x, mode="cheby", b=b,
+                       cheb=(ws, d, a, c), d_out=d_out,
+                       add=add if last else None, **kw)
+                d = d_out
+            return x
+
+        def csolve(k, rc):
+            """The coarse-level correction at level k."""
+            if k == nl:
+                return descend(k, rc)
+            vals = level_vals[k][0]
+            if kc:
+                # the K-cycle: GCR(2) preconditioned by this level's cycle
+                z1 = descend(k, rc)
+                q1 = mv(k, vals, z1)
+                r, coef = gcr2_first(q1, rc)
+                z2 = descend(k, r)
+                return gcr2_second(q1, mv(k, vals, z2), z1, z2, r, coef)
+            if self.wcycle:
+                # gamma = 2, linear in b; x1 + x2 in the second visit's
+                # last launch
+                x1 = descend(k, rc)
+                return descend(k, mv(k, vals, x1, mode="residual", b=rc),
+                               add=x1)
+            return descend(k, rc)
+
+        def descend(k, b, add=None):
+            """x ~ A_k^-1 b from x0 = 0; with add, x + add (k >= 1)."""
             if k == nl:
                 return coarse_inv @ b
-            vals, d, s = level_vals[k]
+            vals, d, s, cheb = level_vals[k]
             lvl = self.levels[k]
-            # the first pre-smooth from x0 = 0 is x = s b (s = omega / d):
-            # at n_smooth = 1 K1 reads it through its input scale, and it
-            # is never stored
-            if self.n_smooth == 1:
+            # pre-smooth: the iterate is `base`, read as scale * base
+            scale = None
+            if k == 0 and ras is not None:
+                base = ras.apply(ras_inv, b)  # pre-smooth from x0 = 0
+                base = jacobi_sweeps(k, base, b, self.n_smooth - 1)
+            elif cheb is not None:
+                # x0 = w b, never stored: read through K1's input scale
+                base, scale = b, cheb[1]
+                if coeffs:
+                    base = cheb_steps(k, b, b, coeffs, scale=scale)
+                    scale = None
+            elif self.n_smooth == 1:
+                # x = s b (s = omega / d), read through K1's scale, never
+                # stored
                 base, scale = b, s
             else:
-                x = self._matvec(k, vals, b, mode="jacobi", b=b, d=d,
-                                 scale=s)
-                base, scale = smooth(k, vals, d, x, b,
-                                     self.n_smooth - 2), None
-            r = self._matvec(k, vals, base, mode="residual", b=b,
-                             scale=scale)
-            xc = descend(k + 1, lvl.restrict(r))
+                base = jacobi_sweeps(k, b, b, self.n_smooth - 1, scale=s)
+            r = mv(k, vals, base, mode="residual", b=b, scale=scale)
+            xc = csolve(k + 1, self._restrict(k, r))
             # the first post-smooth reads x + P xc in its gather
-            x = self._matvec(k, vals, base, mode="jacobi", b=b, d=d,
-                             scale=scale, prolong=(xc, lvl.agg, 1))
-            return smooth(k, vals, d, x, b, self.n_smooth - 1)
+            pro = dict(prolong=(xc, lvl.agg, w), scale=scale)
+            if k == 0 and ras is not None:
+                # its residual launch also stores x + P xc, to which K6
+                # adds RAS(r)
+                xhat = torch.empty_like(base)
+                r = mv(k, vals, base, mode="residual", b=b, xhat_out=xhat,
+                       **pro)
+                x = ras.apply(ras_inv, r, base=xhat)
+                return jacobi_sweeps(k, x, b, self.n_smooth - 1)
+            if cheb is not None:
+                # x + cheb(b - A x): its first step x + w (b - A x) (a = 0,
+                # c = 1) reads x + P xc
+                return cheb_steps(k, base, b, [(0.0, 1.0), *coeffs],
+                                  add=add, **pro)
+            return jacobi_sweeps(k, base, b, self.n_smooth, add=add, **pro)
 
         return descend(0, b)
 
@@ -317,7 +430,7 @@ class BlockAMG(AMG):
     smoothing (row sums of |A_ij| per component row), and a dense
     coarsest inverse over node blocks. fine_smoother: an optional
     la/ras.RASPrecond used as the finest-level smoother (coarser levels
-    keep l1-Jacobi).
+    keep l1-Jacobi or Chebyshev).
 
     Vectors are (n*d,) flat, component-major per node (the solver's u
     layout).
@@ -325,7 +438,7 @@ class BlockAMG(AMG):
 
     def __init__(self, row, col, n, d: int, coarse_size: int = 400,
                  fine_smoother=None, **kw):
-        self.d = int(d)
+        self.d = self.width = int(d)
         self.fine_smoother = fine_smoother
         super().__init__(row, col, n, coarse_size=coarse_size, **kw)
         # per-level block placement positions into (ns, Kg, g*d, g*d)
@@ -346,16 +459,16 @@ class BlockAMG(AMG):
 
     def build(self, vals):
         """vals: (nnz, d, d) block values on the finest graph. Returns
-        (per-level (sup values, l1 diagonal, omega / diagonal), coarsest
-        inverse, RAS window inverses or None)."""
+        (per-level _level tuples, coarsest inverse, RAS window inverses
+        or None); no Chebyshev data on a RAS level."""
         d = self.d
         ras_inv = (self.fine_smoother.build(vals)
                    if self.fine_smoother is not None else None)
         out = []
         for k, lvl in enumerate(self.levels):
-            ev = self._place_block(k, vals)
-            dg = self._l1_diag_block(k, ev)
-            out.append((ev, dg, self.omega / dg))
+            cheby = self.cheby_degree > 0 and not (k == 0
+                                                   and ras_inv is not None)
+            out.append(self._level(k, self._place_block(k, vals), cheby))
             vals = lvl.coarsen_block_vals(vals)
         m = self.n_coarsest
         A = torch.zeros((m * m, d, d), dtype=vals.dtype, device=vals.device)
@@ -366,73 +479,8 @@ class BlockAMG(AMG):
             m * d, dtype=vals.dtype, device=vals.device)
         return out, torch.linalg.inv(A), ras_inv
 
-    def _matvec_block(self, k, sup_vals, x, mode="y", b=None, dg=None,
-                      scale=None, prolong=None, xhat_out=None):
-        """Level-k (m*d,) block matvec (K1 at width g*d), with K1's
-        residual / l1-Jacobi epilogues, input scale and prolongation as
-        in AMG._matvec (prolong = (xc, agg, d)); xhat_out receives the
-        vector read."""
-        maps, _ = self.sup[k]
-        return sup_spmv(sup_vals, maps.sup_cols, x, n_out=maps.n * self.d,
-                        mode=mode, b=b, d=dg, omega=self.omega, scale=scale,
-                        prolong=prolong, xhat_out=xhat_out)
-
-    def _l1_diag_block(self, k, sup_vals):
-        maps, _ = self.sup[k]
-        dsum = torch.sum(torch.abs(sup_vals), dim=(1, 3)).reshape(-1)
-        return torch.clamp(dsum[: maps.n * self.d], min=1e-30)
+    def _restrict(self, k, r):
+        return self.levels[k].restrict_block(r, self.d)
 
     def v_cycle(self, built, b, kcycle=None):
-        if kcycle:
-            raise NotImplementedError("AMG K-cycle is not ported")
-        level_vals, coarse_inv, ras_inv = built
-        nl = len(self.levels)
-        d = self.d
-        ras = self.fine_smoother
-
-        def smooth(k, vals, dg, x, b, iters):
-            if k == 0 and ras_inv is not None:
-                for _ in range(iters):
-                    r = self._matvec_block(k, vals, x, mode="residual", b=b)
-                    x = ras.apply(ras_inv, r, base=x)  # x + RAS(r)
-                return x
-            for _ in range(iters):
-                x = self._matvec_block(k, vals, x, mode="jacobi", b=b,
-                                       dg=dg)
-            return x
-
-        def descend(k, b):
-            if k == nl:
-                return coarse_inv @ b
-            vals, dg, s = level_vals[k]
-            lvl = self.levels[k]
-            scale = None
-            if k == 0 and ras_inv is not None:
-                base = ras.apply(ras_inv, b)  # pre-smooth from x0 = 0
-                base = smooth(k, vals, dg, base, b, self.n_smooth - 1)
-            elif self.n_smooth == 1:
-                # x = s b (s = omega / dg), read through K1's scale, never
-                # stored (AMG.v_cycle)
-                base, scale = b, s
-            else:
-                x = self._matvec_block(k, vals, b, mode="jacobi", b=b,
-                                       dg=dg, scale=s)
-                base = smooth(k, vals, dg, x, b, self.n_smooth - 2)
-            r = self._matvec_block(k, vals, base, mode="residual", b=b,
-                                   scale=scale)
-            xc = descend(k + 1, lvl.restrict_block(r, d))
-            # the first post-smooth reads x + P xc in its gather; with the
-            # RAS smoother its residual launch also stores x + P xc, to
-            # which K6 adds RAS(r)
-            pro = (xc, lvl.agg, d)
-            if k == 0 and ras_inv is not None:
-                xhat = torch.empty_like(base)
-                r = self._matvec_block(k, vals, base, mode="residual", b=b,
-                                       prolong=pro, xhat_out=xhat)
-                x = ras.apply(ras_inv, r, base=xhat)
-            else:
-                x = self._matvec_block(k, vals, base, mode="jacobi", b=b,
-                                       dg=dg, scale=scale, prolong=pro)
-            return smooth(k, vals, dg, x, b, self.n_smooth - 1)
-
-        return descend(0, b)
+        return self._cycle(built[0], built[1], built[2], b, kcycle)

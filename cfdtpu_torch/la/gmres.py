@@ -120,6 +120,10 @@ def fgmres(
     estimate) or after `maxiter` inner iterations in total, checked
     between restart cycles, as in cfdtpu.
 
+    K9's Gram-Schmidt sweeps read the active basis rows only, as
+    cfdtpu's with ortho_chunk > 0 do (the same products in another
+    order), so the port has no such option.
+
     Returns (x, info) with info = {iters, resnorm, converged, discarded}
     as Python numbers (discarded: lookahead iterations queued and not
     used).

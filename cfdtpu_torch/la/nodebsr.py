@@ -11,7 +11,9 @@ Kernels on this path: assembly reduces element blocks with K2
 sub-blocks and the fused SELFP p-column — is K1 (sup_spmv) on a
 strided view of the one value array; the SELFP values are K4
 (selfp_triple) reduced by K2. The velocity-block hooks (uu_vals,
-uu_amg, uu_ras) serve the *_up / *_sup methods of la/schur.py.
+uu_amg, uu_ras) serve the *_up / *_sup methods of la/schur.py; the
+node-block Jacobi preconditioner (uu_block_jacobi) is K10, its inverses
+and its applies.
 
 Not ported yet: the g=1 per-node ELL branch, pp_amg, bbt_vals and the
 PCD p-scatter.
@@ -22,9 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.block_jacobi import block_jacobi, block_jacobi_inv
 from ..kernels.selfp_triple import selfp_triple
 from ..kernels.sup_spmv import sup_spmv
-from ..utils.geometry import SortedScatter, det_and_inv
+from ..utils.geometry import SortedScatter
 from .superell import SuperMaps, place
 
 
@@ -135,21 +138,11 @@ class NodeBSR:
     def uu_block_jacobi(self, vals, bc_mask_u):
         """Exact inverse of the (dim x dim) diagonal velocity blocks — a
         node-block Jacobi PC for the A_uu inner sweeps. BC rows become
-        identity."""
-        d = self.dim
-        db = vals["coo"][self._diag_pos][:, :d, :d]  # (n_nodes, d, d)
-        mask = bc_mask_u.reshape(self.n_nodes, d)
-        eye = torch.eye(d, dtype=db.dtype, device=db.device)
-        # identity rows/cols at Dirichlet components
-        db = torch.where(mask[:, :, None], eye[None], db)
-        db = torch.where(mask[:, None, :], eye[None], db)
-        _, inv = det_and_inv(db)
-
-        def apply(v):
-            vn = v.reshape(self.n_nodes, d)
-            return torch.einsum("nab,nb->na", inv, vn).reshape(-1)
-
-        return apply
+        identity. The inverses are one K10 launch here, each apply one
+        more."""
+        inv = block_jacobi_inv(vals["coo"], self._diag_pos, bc_mask_u,
+                               self.dim)
+        return lambda v: block_jacobi(inv, v)
 
     # -- form-operator API (vals passed where the form takes A_cells) -----
     @property
@@ -283,7 +276,9 @@ class NodeBSR:
                wcycle=None):
         """Aggregation-MG hierarchy on the explicit SELFP graph
         (aggregates formed on the distance-1 node graph, see la/amg.py).
-        No p-level: the SELFP matrix is indefinite (see cfdtpu)."""
+        No p-level: the SELFP matrix is indefinite (see cfdtpu).
+        kcycle / cheby / wcycle: None leaves the cached hierarchy's
+        setting; a value sets it."""
         if self._sp_amg_h is None:
             from .amg import AMG
 
@@ -324,7 +319,9 @@ class NodeBSR:
                wcycle=None):
         """Block-aggregation-MG hierarchy on the velocity node graph,
         built once and cached; rebuilt only when `fine_smoother` (an
-        optional RASPrecond for the finest level) is another object."""
+        optional RASPrecond for the finest level) is another object.
+        kcycle / cheby / wcycle as in sp_amg (la/schur.py forces a linear
+        cycle inside the *_sup near-true S)."""
         if (self._uu_amg_h is None
                 or self._uu_amg_h.fine_smoother is not fine_smoother):
             from .amg import BlockAMG

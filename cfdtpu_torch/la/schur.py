@@ -1,13 +1,23 @@
 """Schur-complement fieldsplit preconditioner (SELFP-style).
 
-The counterpart of cfdtpu/la/schur.py on its AMG-family branches. Full
-(LDU) application for rhs (r_u, r_p):
+The counterpart of cfdtpu/la/schur.py. Full (LDU) application for rhs
+(r_u, r_p):
     z_u1 = Auu^-1 r_u
     r_s  = r_p - A_pu z_u1
-    z_p  = S^-1 r_s            gmres_fixed(S, M = SELFP-AMG V-cycle, m_p)
+    z_p  = S^-1 r_s
     z_u  = z_u1 - Auu^-1 (A_up z_p)
 
-inner_method picks the velocity stage Auu^-1 and the Schur operator S:
+inner_method picks the velocity stage Auu^-1, the Schur operator S and
+its solve:
+    gmres       gmres_fixed(Auu, M = node-block Jacobi, m_u);
+                gmres_fixed(S, M = v / d_p, m_p)
+    chebyshev_p gmres_fixed(Auu, M = node-block Jacobi, m_u);
+                chebyshev_fixed(S, m_p) on [0.06, 1] lambda_max(D_p^-1 S)
+    chebyshev   chebyshev_fixed(Auu, m_u) and chebyshev_fixed(S, m_p),
+                lambda_u and lambda_p power-iterated at build
+                (la/chebyshev.py)
+and the AMG family, whose S stage is gmres_fixed(S, M = SELFP-AMG cycle,
+m_p):
     amg_p       gmres_fixed(Auu, M = node-block Jacobi, m_u)
     amg_up      gmres_fixed(Auu, M = block-AMG V-cycle, m_u)
     ras_up      gmres_fixed(Auu, M = RAS, m_u)
@@ -20,19 +30,25 @@ inner_method picks the velocity stage Auu^-1 and the Schur operator S:
 With a block-AMG V-cycle available and m_u == 0, the velocity stage is
 preonly: one V-cycle, no Krylov wrap. Otherwise S is the SELFP action
 App - Apu diag(Auu)^-1 Aup, applied with the fused p-column pass
-(apply_p_coupled). The AMG hierarchy of the S sweeps always runs on the
-explicit SELFP matrix Sp (NodeBSR.sp_vals).
+(apply_p_coupled). The AMG hierarchy of the S sweeps runs on the
+explicit SELFP matrix Sp (NodeBSR.sp_vals), built for the AMG family
+only.
 
 build_schur_state computes the numeric state once (it can be carried
 across time steps, pc_lag_steps); make_schur_precond_from_state only
-builds closures. Every other inner_method raises NotImplementedError.
+builds closures, and make_schur_precond does both. Every other
+inner_method raises NotImplementedError.
 
 Each operator apply is one K1 launch: cfdtpu's masks and vector updates
 around it (la/schur.py:45-87, 287-300, 350-357) are K1's epilogue
 options (kernels/sup_spmv.py): the identity Dirichlet rows of Auu and
 the zero rows of Aup as its row mask, diag(Auu)^-1 (zero at Dirichlet
 rows) and the Dirichlet 0/1 mask of z as its input scale, and
-App v - Apu z and r_p - Apu z_u as its residual mode.
+App v - Apu z and r_p - Apu z_u as its residual mode. The vector work
+of the inner methods is a kernel too: the node-block Jacobi apply and
+the S stage's v / d_p are K10 (d = 2 and d = 1), a Chebyshev step on
+Auu is K1's cheby mode (with the Dirichlet rows as its identity rows),
+and on S, two launches, the elementwise cheby_update after them.
 
 On CUDA one application is one CUDA graph (CapturedPrecond), cfdtpu's
 jitted preconditioner: captured once per built state, at its first
@@ -44,11 +60,16 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.block_jacobi import block_jacobi
+from .chebyshev import chebyshev_fixed, cheby_scale, estimate_lambda_max
 from .gmres import gmres_fixed
 
 _UU_AMG_METHODS = ("amg_up", "amg_sup", "rasamg_up", "rasamg_sup")
-SUPPORTED_INNER = ("amg_p", "amg_up", "ras_up", "rasamg_up", "amg_sup",
-                   "rasamg_sup")
+_AMG_P_METHODS = ("amg_p", "amg_up", "ras_up", "rasamg_up", "amg_sup",
+                  "rasamg_sup")
+SUPPORTED_INNER = ("gmres", "chebyshev", "chebyshev_p", *_AMG_P_METHODS)
+# the inner methods' Chebyshev interval [CHEB_FRAC, 1] * lambda_max
+CHEB_FRAC = 0.06
 
 
 def _check_method(inner_method: str) -> None:
@@ -80,7 +101,10 @@ def _sub_ops(form, A, bc_mask_u, bc_mask_p, pin_pressure, inv_d_u):
     # inv_d_u * where(bc_mask_u, 0, w) as K1's input scale
     scale_u = torch.where(bc_mask_u, 0.0, inv_d_u)
 
-    def Auu(v):  # where(bc_mask_u, v, Auu v)
+    def Auu(v, **epi):  # where(bc_mask_u, v, Auu v)
+        if epi.get("mode") == "cheby":  # the mask: identity rows
+            return form.apply_sub_block(A, (), v, "uu", mask=bc_mask_u,
+                                        **epi)
         return form.apply_sub_block(A, (), v, "uu", mask=bc_mask_u,
                                     mask_value=v)
 
@@ -139,40 +163,48 @@ def _uu_amg(form, inner_method, ras_opts):
 
 def build_schur_state(form, A, bc_mask_u, pin_pressure: bool,
                       m_u: int = 8, m_p: int = 10, full: bool = True,
-                      bc_mask_p=None, *, inner_method: str,
+                      bc_mask_p=None, inner_method: str = "gmres",
                       ras_opts: tuple[int, int] = (16, 4)):
     """Numeric preconditioner state: the operator values, the velocity
-    diagonal, the velocity-block AMG / RAS values of the *_up / *_sup
-    methods and the SELFP-AMG level values.
-
-    inner_method is required: cfdtpu's default, "gmres", is not ported,
-    and no other default may stand in for it. It takes that default
-    (and make_schur_precond comes with it) once "gmres" is ported."""
+    and pressure diagonals, the velocity-block AMG / RAS values of the
+    *_up / *_sup methods, the SELFP-AMG level values of the AMG family,
+    and the Chebyshev bounds lambda_u (chebyshev) and lambda_p
+    (chebyshev, chebyshev_p), (1,) tensors on the operator's device."""
     _check_method(inner_method)
     n_u_flat = form.n_u_flat
     d_full = form.jacobian_diagonal(A, ())
     d_u = _safe(torch.where(bc_mask_u, 1.0, d_full[:n_u_flat]))
+    d_p = _safe(d_full[n_u_flat:])
     inv_d_u = 1.0 / d_u
-    state = {"A": A, "d_u": d_u}
+    state = {"A": A, "d_u": d_u, "d_p": d_p}
+    if inner_method == "chebyshev":
+        Auu = _sub_ops(form, A, bc_mask_u, bc_mask_p, pin_pressure,
+                       inv_d_u)[0]
+        state["lam_u"] = estimate_lambda_max(Auu, inv_d_u)
     if inner_method in _UU_AMG_METHODS:
         state["uu_built"] = _uu_amg(form, inner_method, ras_opts).build(
             form.uu_vals(A, bc_mask_u))
     if inner_method == "ras_up":
         state["ras_inv"] = form.uu_ras(*ras_opts).build(
             form.uu_vals(A, bc_mask_u))
-    # aggregation-MG V-cycle on the EXPLICIT SELFP matrix as the inner
-    # PC of the S sweeps (AMG on App alone fails: in stabilized P1-P1
-    # the pressure Laplacian lives in the product term). It keeps
-    # diag(Auu) under *_sup too.
-    amg = form.sp_amg()
-    sp = form.sp_vals(A, torch.where(bc_mask_u, 0.0, inv_d_u))
-    if bc_mask_p is not None:
-        # identity rows at pressure-Dirichlet dofs, matching the
-        # matrix-free S
-        sp = torch.where(bc_mask_p[form._sp_row], 0.0, sp)
-        diag = form._sp_diag_pos
-        sp[diag] = torch.where(bc_mask_p, 1.0, sp[diag])
-    state["sp_built"] = amg.build(sp)
+    if inner_method in _AMG_P_METHODS:
+        # aggregation-MG cycle on the EXPLICIT SELFP matrix as the inner
+        # PC of the S sweeps (AMG on App alone fails: in stabilized P1-P1
+        # the pressure Laplacian lives in the product term). It keeps
+        # diag(Auu) under *_sup too.
+        amg = form.sp_amg()
+        sp = form.sp_vals(A, torch.where(bc_mask_u, 0.0, inv_d_u))
+        if bc_mask_p is not None:
+            # identity rows at pressure-Dirichlet dofs, matching the
+            # matrix-free S
+            sp = torch.where(bc_mask_p[form._sp_row], 0.0, sp)
+            diag = form._sp_diag_pos
+            sp[diag] = torch.where(bc_mask_p, 1.0, sp[diag])
+        state["sp_built"] = amg.build(sp)
+    elif inner_method in ("chebyshev", "chebyshev_p"):
+        S = _sub_ops(form, A, bc_mask_u, bc_mask_p, pin_pressure,
+                     inv_d_u)[4]
+        state["lam_p"] = estimate_lambda_max(S, 1.0 / d_p)
     return state
 
 
@@ -222,12 +254,11 @@ class CapturedPrecond:
 def make_schur_precond_from_state(form, state, bc_mask_u,
                                   pin_pressure: bool, m_u: int = 8,
                                   m_p: int = 10, full: bool = True,
-                                  bc_mask_p=None, *,
-                                  inner_method: str,
+                                  bc_mask_p=None,
+                                  inner_method: str = "gmres",
                                   ras_opts: tuple[int, int] = (16, 4)):
     """v -> M v approximating J^-1 v from a prebuilt numeric state.
     Closure construction only: the state can be reused across steps.
-    inner_method is required, as in build_schur_state.
 
     On CUDA the application is a CapturedPrecond kept in the state (one
     per set of arguments), so a state carried across steps (pc_lag_steps)
@@ -246,9 +277,24 @@ def make_schur_precond_from_state(form, state, bc_mask_u,
     return graphs[key]
 
 
+def make_schur_precond(form, A, bc_mask_u, pin_pressure: bool,
+                       m_u: int = 8, m_p: int = 10, full: bool = True,
+                       bc_mask_p=None, inner_method: str = "gmres",
+                       ras_opts: tuple[int, int] = (16, 4)):
+    """v -> M v approximating J^-1 v: build_schur_state, then
+    make_schur_precond_from_state (cfdtpu/la/schur.py:362-395)."""
+    kw = dict(m_u=m_u, m_p=m_p, full=full, bc_mask_p=bc_mask_p,
+              inner_method=inner_method, ras_opts=ras_opts)
+    state = build_schur_state(form, A, bc_mask_u, pin_pressure, **kw)
+    return make_schur_precond_from_state(form, state, bc_mask_u,
+                                         pin_pressure, **kw)
+
+
 def _precond_closure(form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
                      bc_mask_p, inner_method, ras_opts):
-    """The eager application of make_schur_precond_from_state."""
+    """The eager application of make_schur_precond_from_state. Its
+    vectors (1 / d, the Chebyshev scales, the block Jacobi inverses) are
+    made here, once, before any capture."""
     n_u_flat = form.n_u_flat
     A = state["A"]
     inv_d_u = 1.0 / state["d_u"]
@@ -271,7 +317,7 @@ def _precond_closure(form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
             return ras.apply(ras_inv, r)
     elif uu_vcycle is not None:
         Mu = uu_vcycle
-    else:
+    elif inner_method != "chebyshev":
         # exact (dim x dim) node-block Jacobi: stronger than the scalar
         # diagonal once convection couples the velocity components
         Mu = form.uu_block_jacobi(A, bc_mask_u)
@@ -280,6 +326,15 @@ def _precond_closure(form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
         # preonly u-stage (PETSc's fieldsplit_u preonly): one V-cycle,
         # no Krylov wrap; the outer FGMRES corrects the error
         solve_Auu = uu_vcycle
+    elif inner_method == "chebyshev":
+        w_u = cheby_scale(inv_d_u, state["lam_u"], CHEB_FRAC)
+
+        def step_u(x, b, scale, dprev, a, c, d_out):
+            return Auu(x, mode="cheby", b=b, scale=scale,
+                       cheb=(w_u, dprev, a, c), d_out=d_out)
+
+        def solve_Auu(r):
+            return chebyshev_fixed(Auu, r, w_u, m_u, CHEB_FRAC, step=step_u)
     else:
         def solve_Auu(r):
             # single-orthogonalisation sweeps: the PC only needs an
@@ -290,19 +345,32 @@ def _precond_closure(form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
         S = _near_true_schur(uu_amg, uu_built, Aup, Apu, App,  # noqa: F811
                              bc_mask_u, bc_mask_p, pin_pressure)
 
-    amg = form.sp_amg()
-    level_vals = state["sp_built"]
+    if "sp_built" in state:
+        amg = form.sp_amg()
+        level_vals = state["sp_built"]
 
-    def Mp_vcycle(v):
-        return amg.v_cycle(level_vals, v)
+        def Mp(v):
+            return amg.v_cycle(level_vals, v)
+    elif inner_method == "gmres":
+        d_p = state["d_p"].reshape(-1, 1, 1)
+
+        def Mp(v):  # v / d_p: K10 at d = 1, dividing
+            return block_jacobi(d_p, v, True)
+
+    if inner_method in ("chebyshev", "chebyshev_p"):
+        w_p = cheby_scale(1.0 / state["d_p"], state["lam_p"], CHEB_FRAC)
+
+        def S_solve(r):
+            return chebyshev_fixed(S, r, w_p, m_p, CHEB_FRAC)
+    else:
+        def S_solve(r):
+            # m_p == 0 is preonly: one application of Mp
+            return gmres_fixed(S, r, precond=Mp, m=m_p, reorth=False)
 
     def solve_S(r):
         if pin_pressure:
             r = r - torch.mean(r)
-        if m_p == 0:  # preonly S-stage: one SELFP-AMG V-cycle
-            z = Mp_vcycle(r)
-        else:
-            z = gmres_fixed(S, r, precond=Mp_vcycle, m=m_p, reorth=False)
+        z = S_solve(r)
         if pin_pressure:
             z = z - torch.mean(z)
         return z

@@ -2,9 +2,11 @@
 
 The counterpart of cfdtpu/solvers/stabilized_schur.py for the
 configuration this port covers: the assembled node-BSR operator
-(supernode layout), the Schur fieldsplit preconditioner with the
-AMG-family inner methods of la/schur.py (amg_p, amg_up, ras_up,
-rasamg_up, amg_sup, rasamg_sup), flexible GMRES inside Newton with line search, and the
+(supernode layout), the Schur fieldsplit preconditioner with every
+inner method of la/schur.py (gmres, chebyshev, chebyshev_p and the AMG
+family amg_p, amg_up, ras_up, rasamg_up, amg_sup, rasamg_sup; the AMG
+cycle options pc_amg_kcycle, pc_amg_wcycle and pc_amg_cheby on both
+hierarchies), flexible GMRES inside Newton with line search, and the
 pc_lag_steps build/reuse split that carries the operator and
 preconditioner state across time steps. Unsupported option values raise
 NotImplementedError rather than being replaced silently.
@@ -29,7 +31,7 @@ import torch
 from ..forms import StabilizedNSForm
 from ..la import NewtonParams, newton_solve
 from ..la.nodebsr import NodeBSR
-from ..la.schur import (_check_method, build_schur_state,
+from ..la.schur import (_AMG_P_METHODS, _check_method, build_schur_state,
                         make_schur_precond_from_state)
 from ..mesh import Mesh
 from ..spaces.dirichlet import combine_bcs, gather_values
@@ -95,15 +97,8 @@ class Solver(SolverBase):
         if operator_format != "node_bsr":
             _unsupported("operator_format", operator_format)
         _check_method(pc_inner_method)
-        if ksp_ortho_chunk:
-            _unsupported("ksp_ortho_chunk", ksp_ortho_chunk)
         if pc_dtype != "same":
             _unsupported("pc_dtype", pc_dtype)
-        for name, val in (("pc_amg_kcycle", pc_amg_kcycle),
-                          ("pc_amg_wcycle", pc_amg_wcycle),
-                          ("pc_amg_cheby", pc_amg_cheby)):
-            if val:
-                _unsupported(name, val)
         if predictor not in ("previous", "extrapolate"):
             raise ValueError(f"unknown predictor {predictor!r}")
         if pc_schur_fact not in ("full", "lower"):
@@ -120,6 +115,12 @@ class Solver(SolverBase):
         self.supernode_g = int(supernode_g)
         self.pc_amg_pairwise = bool(pc_amg_pairwise)
         self.pc_amg_smooth = int(pc_amg_smooth)
+        self.pc_amg_kcycle = bool(pc_amg_kcycle)
+        self.pc_amg_wcycle = bool(pc_amg_wcycle)
+        self.pc_amg_cheby = int(pc_amg_cheby)
+        # ksp_ortho_chunk is accepted and has nothing to set: cfdtpu's
+        # chunked CGS2 reads only the active basis rows, and K9 always
+        # does (la/gmres.py), so every chunk size is that sweep
         self.pc_ras_size = int(pc_ras_size)
         self.pc_ras_overlap = int(pc_ras_overlap)
         self.predictor = predictor
@@ -253,24 +254,31 @@ class Solver(SolverBase):
         bc_mask_u = bc_mask[: n_u * dim]
         bc_mask_p = bc_mask[n_u * dim:] if has_bc_p else None
 
-        # assembled node-BSR operator, static SELFP sparsity and the AMG
-        # hierarchies (and the RAS window maps): numpy, built once
+        # assembled node-BSR operator and, for the AMG family, the static
+        # SELFP sparsity and the AMG hierarchies with their cycle options
+        # (and the RAS window maps): numpy, built once
         nodebsr = NodeBSR(form, supernode_g=self.supernode_g)
-        nodebsr.sp_structure()
-        nodebsr.sp_amg(pairwise=self.pc_amg_pairwise,
-                       n_smooth=self.pc_amg_smooth)
         ras_opts = (self.pc_ras_size, self.pc_ras_overlap)
         method = self.pc_inner_method
+        amg_active = method in _AMG_P_METHODS
+        cycle = dict(kcycle=self.pc_amg_kcycle, cheby=self.pc_amg_cheby,
+                     wcycle=self.pc_amg_wcycle)
+        if amg_active:
+            nodebsr.sp_structure()
+            nodebsr.sp_amg(pairwise=self.pc_amg_pairwise,
+                           n_smooth=self.pc_amg_smooth, **cycle)
         if method in ("amg_up", "amg_sup"):
-            nodebsr.uu_amg()
+            nodebsr.uu_amg(**cycle)
         elif method == "ras_up":
             nodebsr.uu_ras(*ras_opts)
         elif method in ("rasamg_up", "rasamg_sup"):
-            nodebsr.uu_amg(fine_smoother=nodebsr.uu_ras(*ras_opts))
+            nodebsr.uu_amg(fine_smoother=nodebsr.uu_ras(*ras_opts),
+                           **cycle)
         self._nodebsr = nodebsr
-        pc_inner_p = 10 if self.pc_inner_p is None else self.pc_inner_p
+        pc_inner_p = (self.pc_inner_p if self.pc_inner_p is not None
+                      else 10 if amg_active else 30)
         pc_pin = pin_pressure and not has_bc_p
-        pc_kw = dict(
+        pc_kw = self._pc_kw = dict(
             m_u=self.pc_inner_u, m_p=pc_inner_p,
             full=self.pc_schur_fact == "full", bc_mask_p=bc_mask_p,
             inner_method=method, ras_opts=ras_opts,

@@ -13,8 +13,15 @@ Run from the root of a checkout. Phases, each raising on failure:
    every kernel (K1 sup_spmv, K2 ell_sum, K3 ns_cell_residual_p1 and
    ns_cell_jacobian_p1, K4 selfp_triple, K5 patch_spmv, K6 ras_apply,
    K7 ns_facet_natural_p1 and ns_facet_natural_jac_p1, K8 amg_prolong,
-   K9 krylov_cgs and krylov_lsq) is held against its plain PyTorch
-   version at each of its call sites on the two paths below — including
+   K9 krylov_cgs and krylov_lsq, K10 block_jacobi and block_jacobi_inv,
+   K11 amg_gcr2) is held against its plain PyTorch version at each of
+   its call sites on the paths below — including K1's cheby mode at the
+   SELFP AMG's L0 and BlockAMG's L1 (the first step from w b through
+   K1's input scale, a step with d stored, the first post-smoothing step
+   reading x + P xc, a last step with the W-cycle's add) and cheby_update
+   at the S stage, K9's scaled normalisation at the power iteration
+   (SELFP L0, the u-block), K10 on the u-block (inverses, apply) and at
+   the S stage (v / d_p), K11's two launches at SELFP L1 and BlockAMG L1,
    the rasamg_sup block-AMG levels (K1 at width 16), K1's epilogue
    options at their solver sites (row mask, input scale, residual from
    any vector), block transfers and facet-residual scatter (K2), the RAS
@@ -51,7 +58,12 @@ Run from the root of a checkout. Phases, each raising on failure:
    torch.addmv), then the norm and the scaled store (not the Givens
    tail), torch.linalg.solve_ex of the normal equations, and
    torch.linalg.solve_triangular with torch.addmv for the triangular
-   mode; K3, K3+K7, K4 and K7: none); and the kernel's and the yardstick's
+   mode; K1's cheby mode: K1's product plus the update in torch ops; K9's
+   scaled normalisation: torch.linalg.vector_norm and a divide; K10:
+   torch.linalg.inv of the masked blocks, torch.bmm of the inverses with
+   v, torch.div; K11: the same step from torch.dot and torch.add calls;
+   K3, K3+K7, K4, K7 and cheby_update: none); and the kernel's and the
+   yardstick's
    device time alone
    (utils/cudatime.device_ms: torch.profiler's trace of 20 warm calls,
    without the launch that the event-timed times carry; a trace that
@@ -65,17 +77,21 @@ Run from the root of a checkout. Phases, each raising on failure:
    res_scale 1.0 with 1e-12, untimed.
    Then, under torch.profiler, each operator apply the solver calls
    (NodeBSR.apply_element_matrices, apply_sub_block, apply_p_coupled,
-   AMG._matvec, BlockAMG._matvec_block, and with their epilogues the
+   AMG._matvec (both hierarchies), and with their epilogues the
    outer matvec, Auu, Aup, Apu and App of la/schur.py) must issue one
    device kernel, K1; the SELFP Schur action two (no mean removal: DFG
    pins no pressure); the near-true one three beside its V-cycle's; one
-   replayed preconditioner application (rasamg_sup and amg_p) one
-   cudaGraphLaunch and no kernel launch, as many device kernels as the
-   eager application, no K8 among them, and 177 (rasamg_sup) and 169
-   (amg_p), the counts before K8 was folded into K1, less the fused K1
-   launches (one for each K8 launch folded); each K9 step at the FGMRES
+   replayed preconditioner application of rasamg_sup (here) and of amg_p
+   (after its slice) one cudaGraphLaunch and no kernel launch, bitwise
+   equal to the eager application (phase_graph), its closure launching
+   131 and 134 port kernels, K1 with the correction in its gather among
+   them and no K8, and a trace of it at most 146 and 149 device kernels
+   (PR 7's 177 and 169 less the K8 launches folded into K1; K10 one
+   kernel where the einsum was one); each K9 step at the FGMRES
    site (with its Givens tail) and at the S stage one device kernel, and
-   each triangular solve one;
+   each triangular solve one; K1 in its cheby mode, each K11 launch,
+   each K10 apply, cheby_update and K9's scaled normalisation one device
+   kernel each;
    one form.residual call must issue 5 device kernels, K3 with the
    facet block in its launch, K2 three times and the add, and one
    form.element_jacobians call exactly one, K3's Jacobian with the facet
@@ -108,24 +124,45 @@ Run from the root of a checkout. Phases, each raising on failure:
    capture), K8 and K7 no time there nor in the window (folded), and the
    window may take at most 30 host launches (kernel and graph) per KSP
    iteration.
-6. the amg_p slice (the solver's default inner method): 8 float32 steps
-   from rest, steps 5-8 measured, the same checks for K1-K4 and K9.
-7. parity: float64 at res_scale 1.0, 2 steps through the kernels on the
+6. path C: rasamg_sup with bench.py's settings and the whole AMG cycle
+   family (pc_amg_wcycle, pc_amg_kcycle, pc_amg_cheby=2): 8 float32
+   steps from rest, then 4 under torch.profiler, path A's checks, K1's
+   cheby mode, K9's scaled normalisation and K11 launched; then one
+   preconditioner application of its settings (phase_graph): one
+   cudaGraphLaunch and no kernel launch, bitwise equal to the eager
+   application; its port kernels (the wrappers' launches in one eager
+   call) and a replay's traced device kernels printed by kernel (a
+   trace may drop records, never add one), and no device kernel
+   outside the port's but of the kinds path A's graph holds (the
+   coarsest GEMVs, the Schur combination's copy and add).
+7. the amg_p slice (the solver's default inner method): 8 float32 steps
+   from rest, steps 5-8 measured, the same checks for K1-K4, K9 and K10.
+8. path D: the inner methods gmres (pc_inner_u 6, pc_inner_p at its
+   default of 30) at 38,607 DOF, chebyshev_p at 4,461 and chebyshev at
+   1,626 DOF (sizes where each converges within ksp_max_it, on the card
+   and in cfdtpu; PATH_D), PATH_D_STEPS float32 steps each from rest
+   with the amg_p slice's chord Newton, then PATH_D_PROFILE under
+   torch.profiler, the same checks (K10, and
+   cheby_update, K1's cheby mode and K9's scaled normalisation where the
+   method runs them), and phase_graph against amg_p's graph.
+9. parity: float64 at res_scale 1.0, 2 steps through the kernels on the
    card and 2 steps through the plain versions (which the wrappers take
-   only for CPU tensors, so that run is on the host), for rasamg_sup and
-   for amg_p: equal Newton and KSP counts per step, and equal to the
-   counts every earlier tree gave (PARITY_COUNTS), u, p, c_D, c_L and
-   dp within 1e-9 relative.
-8. path B: `python -m cfdtpu_torch.scripts.gather_micro --device cuda`
+   only for CPU tensors, so that run is on the host), for rasamg_sup,
+   amg_p, path C's configuration and gmres: equal Newton and KSP counts
+   per step, and equal to PARITY_COUNTS (the counts every earlier tree
+   gave; path C's and gmres's from cfdtpu on the CPU), u, p, c_D, c_L
+   and dp within 1e-9 relative (gmres's c_L within 5e-9 of itself:
+   LIFT_LIMIT).
+10. path B: `python -m cfdtpu_torch.scripts.gather_micro --device cuda`
    exits 0 with every K5 result within 1e-5 relative of its plain
    version; it launches K5.
-9. CLI: `python -m cfdtpu_torch simulate ... --device cuda` exits 0 and
+11. CLI: `python -m cfdtpu_torch simulate ... --device cuda` exits 0 and
    writes simulation_params.txt, norms.txt and v.pvd, with the default
    inner method and with the rasamg_sup flags; and the rasamg_sup run
    once more without --device, which must take the card.
 
 The second-to-last line is {"kernels": [...]} (per kernel at its
-headline site: launches on path A or B, max_abs_err, the cold ms,
+headline site: launches on its path (A, B, C or D), max_abs_err, the cold ms,
 plain_ms and library_ms, bound_ms and bound_by, the warm ms, the
 device time alone, and its calls and device ms in the profiled window),
 the last {"ok": true, "device": {...}}.
@@ -163,21 +200,71 @@ PC_KERNELS = ("sup_spmv_prolong", "krylov_cgs", "krylov_lsq")
 PATH_A_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
                   *ELEMENT_KERNELS, *PC_KERNELS)
 AMG_P_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", *ELEMENT_KERNELS,
-                 *PC_KERNELS)
+                 *PC_KERNELS, "block_jacobi", "block_jacobi_inv")
+# path C: bench.py's configuration with the AMG cycle family on both
+# hierarchies: the K-cycle where the cycle may be nonlinear (the preonly
+# u stage, the SELFP AMG under the S sweeps), the W-cycle (inside the
+# near-true S, where the K-cycle is forced off, and beside it), and
+# Chebyshev smoothing of degree 2 on every level but the RAS one
+PATH_C_KW = dict(RASAMG_KW, pc_amg_wcycle=True, pc_amg_kcycle=True,
+                 pc_amg_cheby=2)
+PATH_C_KERNELS = (*PATH_A_KERNELS, "sup_spmv_cheby", "krylov_cgs_scaled",
+                  "amg_gcr2")
+# path D: the non-AMG inner methods, with the amg_p slice's chord Newton
+# (pc_inner_p at its default: 30 without AMG), each at a size where its
+# PATH_D_STEPS + PATH_D_PROFILE steps converge with no solve at
+# ksp_max_it on the card in float32 and in float64 and where cfdtpu
+# converges on the CPU (PERF.md, PR 9): at 106,275 DOF gmres's first
+# solve stagnates at ksp_max_it in cfdtpu as on the card (logged by
+# tests/test_torch_gmres_parity.py); chebyshev_p reaches the limit from
+# 9,861 DOF up, chebyshev from 2,520 DOF up (at step 5, after the first
+# rebuild), as cfdtpu does; name: (res_scale, solver options, required
+# kernels)
+_LAG = dict(snes_lag_jacobian=True, pc_lag_steps=4, ksp_restart=20)
+PATH_D = {
+    "gmres": (0.5, dict(pc_inner_method="gmres", pc_inner_u=6, **_LAG),
+              ("sup_spmv", "krylov_cgs", "krylov_lsq", "block_jacobi",
+               "block_jacobi_inv", "ell_sum", *ELEMENT_KERNELS)),
+    "chebyshev_p": (1.5, dict(pc_inner_method="chebyshev_p", pc_inner_u=6,
+                              **_LAG),
+                    ("sup_spmv", "krylov_cgs", "krylov_lsq", "block_jacobi",
+                     "block_jacobi_inv", "cheby_update",
+                     "krylov_cgs_scaled")),
+    "chebyshev": (2.5, dict(pc_inner_method="chebyshev", pc_inner_u=6,
+                            **_LAG),
+                  ("sup_spmv", "sup_spmv_cheby", "block_jacobi",
+                   "cheby_update", "krylov_cgs_scaled")),
+}
 # folded into another kernel's launch on the slices: held at their
-# kernel-phase sites, launched no time on paths A and amg_p
+# kernel-phase sites, launched no time on paths A, C, D and amg_p
 FOLDED = {"amg_prolong": "sup_spmv_prolong",
           "ns_facet_natural_p1": "ns_cell_residual_p1_facet",
           "ns_facet_natural_jac_p1": "ns_cell_jacobian_p1_facet"}
-# device kernels of one replayed preconditioner application before K8
-# was folded into K1: the graph now holds that less the fused K1 launches
-# (one per K8 launch it replaces)
-UNFOLDED_GRAPH_KERNELS = {"rasamg_sup": 177, "amg_p": 169}
-# float64 res 1.0, 2 steps: (Newton, KSP) per step, the same in every
-# tree since the float64 slices were first run
+# one preconditioner application on paths A and amg_p: the port's kernel
+# launches (the wrappers' counts) and the device kernels in all (PR 7's
+# 177 and 169 less the 31 and 20 K8 launches folded into K1 in PR 8;
+# amg_p's node-block Jacobi one kernel, K10, where it was one einsum
+# kernel), which a trace of the graph shows at most
+GRAPH_KERNELS = {"rasamg_sup": (131, 146), "amg_p": (134, 149)}
 PARITY_COUNTS = {"rasamg_sup": [(11, 52), (36, 161)],
-                 "amg_p": [(11, 44), (36, 145)]}
+                 "amg_p": [(11, 44), (36, 145)],
+                 # cfdtpu on the CPU, float64, res 1.0, 2 steps
+                 "path_c": [(11, 53), (36, 151)],
+                 "gmres": [(11, 180), (36, 575)]}
+# parity runs whose c_L is held against itself at another limit than
+# 1e-9: gmres's c_L at step 2 (5.1e-5 against c_D 2.3e-2, the flow still
+# near symmetric) is a near cancellation that cfdtpu itself reproduces
+# only to ~1.5e-9 of its value when nothing but the sum order of its
+# outer Gram-Schmidt changes (tests/test_torch_gmres_parity.py, which
+# holds the port's plain versions against cfdtpu to the same limit)
+LIFT_LIMIT = {"gmres": 5e-9}
 MAX_HOST_LAUNCHES_PER_KSP = 30
+# counters that are subsets of another's (a fused variant or an option)
+SUBSET_COUNTERS = ("sup_spmv_prolong", "sup_spmv_cheby", "krylov_cgs_scaled",
+                   "ns_cell_residual_p1_facet", "ns_cell_jacobian_p1_facet")
+# path D: steps per method from rest, then steps under torch.profiler
+PATH_D_STEPS = 4
+PATH_D_PROFILE = 1
 # name: (source, replaced TPU/XLA op, headline site, path that launches it)
 SOURCES = {
     "sup_spmv": ("cfdtpu_torch/csrc/sup_spmv.cu",
@@ -218,9 +305,29 @@ SOURCES = {
                    "K9 cgs2+givens fgmres j=19", "A"),
     "krylov_lsq": ("cfdtpu_torch/csrc/krylov.cu", "cfdtpu/la/gmres.py:78",
                    "K9 lsq m=5", "A"),
+    "sup_spmv_cheby": ("cfdtpu_torch/csrc/sup_spmv.cu",
+                       "cfdtpu/la/chebyshev.py:76",
+                       "K1 cheby amg L0 step + d stored", "C"),
+    "cheby_update": ("cfdtpu_torch/csrc/sup_spmv.cu",
+                     "cfdtpu/la/chebyshev.py:76", "cheby_update S stage",
+                     "D"),
+    "krylov_cgs_scaled": ("cfdtpu_torch/csrc/krylov.cu",
+                          "cfdtpu/la/chebyshev.py:45",
+                          "K9 scaled norm power step SELFP L0", "C"),
+    "block_jacobi": ("cfdtpu_torch/csrc/block_jacobi.cu",
+                     "cfdtpu/la/nodebsr.py:187", "K10 u-block apply", "D"),
+    "block_jacobi_inv": ("cfdtpu_torch/csrc/block_jacobi.cu",
+                         "cfdtpu/la/nodebsr.py:183", "K10 u-block inverses",
+                         "D"),
+    "amg_gcr2": ("cfdtpu_torch/csrc/amg_gcr2.cu", "cfdtpu/la/amg.py:27",
+                 "K11 second BlockAMG L1", "C"),
 }
 PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
-         "B": "python -m cfdtpu_torch.scripts.gather_micro"}
+         "B": "python -m cfdtpu_torch.scripts.gather_micro",
+         "C": "rasamg_sup with W + K + Chebyshev (Scenario.solve, 106,275 "
+              "DOF)",
+         "D": "gmres at 38,607 DOF, chebyshev_p at 4,461 and chebyshev at "
+              "1,626 (Scenario.solve)"}
 
 
 def log(*a):
@@ -367,7 +474,7 @@ def kernel_sites(torch, np, sc, seed=0):
     require(n_bad == 0, f"{n_bad} RAS window inverses are not finite")
     log(f"[kernels] BlockAMG levels (nodes): "
         f"{[m.n for m, _ in bamg.sup]}; layouts (ns, Kg, g*d, g*d): "
-        f"{[tuple(ev.shape) for ev, _, _ in blevels]}")
+        f"{[tuple(lv[0].shape) for lv in blevels]}")
     rand = (lambda *shape: s.tensor(rng.standard_normal(shape)))
 
     sites = []
@@ -454,7 +561,7 @@ def kernel_sites(torch, np, sc, seed=0):
        mask_value=vp)
 
     def k1_levels(tag, lvls, sup, omega):
-        for k, (ev, d, sc) in enumerate(lvls):
+        for k, (ev, d, sc, _) in enumerate(lvls):
             m = d.shape[0]
             x, b = rand(m), rand(m)
             for mode in ("y", "residual", "jacobi"):
@@ -495,7 +602,7 @@ def kernel_sites(torch, np, sc, seed=0):
         then K1 on K8's output); yardstick K1's library call and
         torch.index_select of xc (the gather of K8's)."""
         for k, lvl in enumerate(h.levels):
-            ev, d, sc = lvls[k]
+            ev, d, sc, _ = lvls[k]
             cols_k = h.sup[k][0].sup_cols
             m = d.shape[0]
             xc, x, b = rand(lvl.n_coarse * w), rand(m), rand(m)
@@ -543,6 +650,9 @@ def kernel_sites(torch, np, sc, seed=0):
 
     k1_prolong_levels("amg", amg, levels, 1)
     k1_prolong_levels("block-amg", bamg, blevels, bamg.d)
+
+    new_sites(torch, np, s, add, k1_library, rand, amg, levels, bamg,
+              blevels, vals)
 
     def k9_cgs(tag, n, rows, j, reorth, tail):
         """krylov_cgs at step j of a basis of `rows` rows of length n (an
@@ -782,6 +892,191 @@ def kernel_sites(torch, np, sc, seed=0):
             lambda b=base: ras_apply_plain(*rargs, base=b),
             k6_bytes(ras_inv, rx, base), 2 * ras_inv.numel(), lib)
     return sites
+
+
+def new_sites(torch, np, s, add, k1_library, rand, amg, levels, bamg,
+              blevels, vals):
+    """The sites of the AMG cycle family and the non-AMG inner methods:
+    K1's cheby mode at the SELFP AMG's L0 and BlockAMG's L1 (the first
+    step from x0 = w b, read through K1's input scale; a later step with
+    d stored; the first post-smoothing step reading x + P xc in its
+    gather; a last step with the W-cycle's add), cheby_update at the S
+    stage, K9's scaled normalisation at the power iteration (the SELFP
+    AMG's L0 and the u-block), K10 on the u-block (its inverses and its
+    apply) and at the S stage (v / d_p), and K11's two launches at the
+    coarse levels the K-cycle runs on (SELFP L1, BlockAMG L1), where the
+    hierarchy has them. Yardsticks: K1's library product plus the update
+    in torch ops; torch.linalg.vector_norm and a divide (K9);
+    torch.linalg.inv and torch.bmm (K10's inverses and apply), torch.div
+    (v / d_p); the same GCR(2) step from torch.dot and torch.add calls
+    (K11; its coefficients read once beforehand, outside the timing)."""
+    from cfdtpu_torch.kernels.amg_gcr2 import (gcr2_first, gcr2_first_plain,
+                                               gcr2_second,
+                                               gcr2_second_plain)
+    from cfdtpu_torch.kernels.block_jacobi import (block_jacobi,
+                                                   block_jacobi_inv,
+                                                   block_jacobi_inv_plain,
+                                                   block_jacobi_plain)
+    from cfdtpu_torch.kernels.krylov import (krylov_cgs, krylov_cgs_plain,
+                                             tiny)
+    from cfdtpu_torch.kernels.sup_spmv import (cheby_update,
+                                               cheby_update_plain, sup_spmv,
+                                               sup_spmv_plain)
+    from cfdtpu_torch.la.chebyshev import (cheby_coeffs, cheby_scale,
+                                           estimate_lambda_max)
+
+    nb = s._nodebsr
+    sz = vals["sup"].element_size()
+    (a1, c1), (a2, c2) = cheby_coeffs(3, 0.25)
+    for tag, h, lvls, k in (("amg", amg, levels, 0),
+                            ("block-amg", bamg, blevels, 1)):
+        if k >= len(h.levels):
+            continue
+        ev, d, _, _ = lvls[k]
+        n = d.shape[0]
+        cols = h.sup[k][0].sup_cols
+        inv = 1.0 / d
+        lam = estimate_lambda_max(lambda v, k=k, ev=ev, h=h:
+                                  h._matvec(k, ev, v), inv)
+        w = cheby_scale(inv, lam, 0.25)
+        x, b, dp, ad = rand(n), rand(n), rand(n), rand(n)
+        pro = (rand(h.levels[k].n_coarse * h.width), h.levels[k].agg,
+               h.width)
+        cases = [
+            ("from w*b", dict(x=b, scale=w, cheb=(w, None, a1, c1))),
+            ("step + d stored", dict(x=x, cheb=(w, dp, a2, c2),
+                                     d_out=True)),
+            ("post reads x + P xc", dict(x=x, cheb=(w, None, 0.0, 1.0),
+                                         prolong=pro, d_out=True)),
+            ("last step + W add", dict(x=x, cheb=(w, dp, a2, c2), add=ad)),
+        ]
+        for label, c in cases:
+            c = dict(c)
+            x0 = c.pop("x")
+            store = c.pop("d_out", False)
+            dk, dpl = (torch.empty_like(b) if store else None
+                       for _ in range(2))
+            kw = dict(mode="cheby", b=b, **c)
+
+            def kern(a=(ev, cols, x0, n, kw, dk)):
+                y = sup_spmv(*a[:4], d_out=a[5], **a[4])
+                return y if a[5] is None else (y, a[5])
+
+            def plain(a=(ev, cols, x0, n, kw, dpl)):
+                y = sup_spmv_plain(*a[:4], d_out=a[5], **a[4])
+                return y if a[5] is None else (y, a[5])
+
+            def lib(a=(ev, cols, x0, b, w, dp, c["cheb"])):
+                mat = k1_library(a[0], a[1])()
+                _, _, x_, b_, w_, dp_, (_, _, ca, cc) = a
+                n_ = x_.shape[0]
+                return lambda: torch.add(x_, torch.add(
+                    torch.mul(dp_, ca), torch.mul(w_, b_ - mat()[:n_]),
+                    alpha=cc))
+
+            ns_, Kg_, R_, C_ = ev.shape
+            extra = nbytes(b, w, c["cheb"][1], c.get("add"), dk)
+            if "prolong" in c:
+                extra += nbytes(pro[0], pro[1])
+            add("sup_spmv_cheby", f"K1 cheby {tag} L{k} {label}", kern,
+                plain, k1_bytes(ev, x0, n, dict(scale=c.get("scale")))
+                + extra, 2 * ns_ * Kg_ * R_ * C_ + 7 * n, lib)
+
+    # cheby_update at the S stage (the SELFP S is two K1 launches)
+    n_p, n_u = nb.n_nodes, nb.n_u_flat
+    ua = tuple(rand(n_p) for _ in range(5))
+    du, dpu = (torch.empty_like(ua[0]) for _ in range(2))
+    add("cheby_update", "cheby_update S stage",
+        lambda: (cheby_update(*ua, a2, c2, du), du),
+        lambda: (cheby_update_plain(*ua, a2, c2, dpu), dpu),
+        nbytes(*ua) + 2 * n_p * sz, 6 * n_p)
+
+    # K9's scaled normalisation: one power-iteration step
+    for tag, n in (("SELFP L0", levels[0][1].shape[0]), ("u-block", n_u)):
+        wv, sv = rand(n), rand(n).abs()
+        Vk, Vp = (torch.empty((1, n), dtype=s.dtype, device=s.device)
+                  for _ in range(2))
+        hk, hp = (torch.empty(1, dtype=s.dtype, device=s.device)
+                  for _ in range(2))
+
+        def lib(wv=wv, sv=sv):
+            dst, t = torch.empty_like(wv), tiny(wv.dtype)
+
+            def step():
+                u = sv * wv
+                torch.div(u, torch.linalg.vector_norm(u).clamp(min=t),
+                          out=dst)
+            return step
+
+        add("krylov_cgs_scaled", f"K9 scaled norm power step {tag}",
+            lambda a=(Vk, wv, hk, sv): (krylov_cgs(a[0], a[1], -1, a[2],
+                                                   False, scale=a[3]),
+                                        a[0], a[2])[1:],
+            lambda a=(Vp, wv, hp, sv): (krylov_cgs_plain(
+                a[0], a[1], -1, a[2], False, scale=a[3]), a[0], a[2])[1:],
+            nbytes(wv, sv, Vk, hk), 3 * n, lib)
+
+    # K10: the u-block's inverses and apply, the S stage's v / d_p
+    mask_u = bc_mask_u(torch, np, s)
+    coo = vals["coo"]
+    iargs = (coo, nb._diag_pos, mask_u, nb.dim)
+    db = coo[nb._diag_pos][:, :nb.dim, :nb.dim].contiguous()
+    add("block_jacobi_inv", "K10 u-block inverses",
+        lambda: block_jacobi_inv(*iargs),
+        lambda: block_jacobi_inv_plain(*iargs),
+        nbytes(db, nb._diag_pos, mask_u) + nbytes(db), 14 * nb.n_nodes,
+        lambda: lambda: torch.linalg.inv(db))
+    binv = block_jacobi_inv(*iargs)
+    vu = rand(n_u)
+    add("block_jacobi", "K10 u-block apply",
+        lambda: block_jacobi(binv, vu), lambda: block_jacobi_plain(binv, vu),
+        nbytes(binv, vu) + nbytes(vu), 2 * nb.dim * n_u,
+        lambda: lambda: torch.bmm(binv, vu.reshape(-1, nb.dim, 1)))
+    dpv, vp = (1.0 + rand(n_p).abs()).reshape(-1, 1, 1), rand(n_p)
+    add("block_jacobi", "K10 S stage v / d_p",
+        lambda: block_jacobi(dpv, vp, True),
+        lambda: block_jacobi_plain(dpv, vp, True),
+        nbytes(dpv, vp) + nbytes(vp), n_p,
+        lambda: lambda: torch.div(vp, dpv.reshape(-1)))
+
+    # K11 where the K-cycle runs: coarse levels k = 1 < the coarsest
+    for tag, h in (("SELFP", amg), ("BlockAMG", bamg)):
+        if len(h.levels) < 2:
+            continue
+        n = h.coo[1][2] * h.width
+        q1, b, q2, z1, z2 = (rand(n) for _ in range(5))
+        r, coef = gcr2_first(q1, b)
+        rp, cp = gcr2_first_plain(q1, b)
+        a1f, q1q1 = float(coef[1]), float(coef[0])
+        bf = float(torch.dot(q1, q2)) / q1q1
+        qq = q2 - bf * q1
+        a2f = float(torch.dot(qq, r)) / max(float(torch.dot(qq, qq)),
+                                            tiny(s.dtype))
+
+        def lib1(q1=q1, b=b, a1f=a1f):
+            return lambda: (torch.dot(q1, q1), torch.dot(q1, b),
+                            torch.add(b, q1, alpha=-a1f))
+
+        def lib2(a=(q1, q2, z1, z2, r, bf, a1f, a2f)):
+            q1_, q2_, z1_, z2_, r_, bf_, a1_, a2_ = a
+
+            def step():
+                torch.dot(q1_, q2_)
+                q = torch.add(q2_, q1_, alpha=-bf_)
+                torch.dot(q, q)
+                torch.dot(q, r_)
+                zz = torch.add(z2_, z1_, alpha=-bf_)
+                return torch.add(torch.mul(z1_, a1_), zz, alpha=a2_)
+            return step
+
+        add("amg_gcr2", f"K11 first {tag} L1",
+            lambda a=(q1, b): gcr2_first(*a),
+            lambda a=(q1, b): gcr2_first_plain(*a),
+            nbytes(q1, b, r, coef), 6 * n, lib1)
+        add("amg_gcr2", f"K11 second {tag} L1",
+            lambda a=(q1, q2, z1, z2, r, coef): gcr2_second(*a),
+            lambda a=(q1, q2, z1, z2, rp, cp): gcr2_second_plain(*a),
+            nbytes(q1, q2, z1, z2, r, coef) + nbytes(z1), 13 * n, lib2)
 
 
 HBM_TBPS = 3.35  # an H100 SXM's device memory, TB/s (data sheet)
@@ -1042,16 +1337,54 @@ def phase_one_launch(torch, np, sc):
         "AMG._matvec L0 jacobi":
             lambda: amg._matvec(0, lv[0][0], vm, mode="jacobi", b=vm,
                                 d=lv[0][1]),
-        "BlockAMG._matvec_block L0 residual":
-            lambda: bamg._matvec_block(0, blv[0][0], vb, mode="residual",
-                                       b=vb),
+        "BlockAMG._matvec L0 residual":
+            lambda: bamg._matvec(0, blv[0][0], vb, mode="residual", b=vb),
     }
+    # K1's cheby mode on a level, as the Chebyshev smoothers call it
+    wv = 1.0 / lv[0][1]
+    calls["AMG._matvec L0 cheby (d stored)"] = (
+        lambda: amg._matvec(0, lv[0][0], vm, mode="cheby", b=vm,
+                            cheb=(wv, None, 0.5, 1.5),
+                            d_out=torch.empty_like(vm)))
     out = {}
     for label, fn in calls.items():
         names = traced_kernels(fn)
         log(f"[one launch] {label}: device activities {names}")
         require(len(names) == 1 and "sup_spmv" in names[0],
                 f"{label} issued {names}, not one K1 kernel")
+        out[label] = names
+
+    # the other kernels of the cycle family and the inner methods
+    from cfdtpu_torch.kernels.amg_gcr2 import gcr2_first, gcr2_second
+    from cfdtpu_torch.kernels.block_jacobi import block_jacobi
+    from cfdtpu_torch.kernels.sup_spmv import cheby_update
+
+    q = [rand(vm.shape[0]) for _ in range(5)]
+    r1, coef = gcr2_first(q[0], q[1])
+    binv = nb.uu_block_jacobi(vals, bc_mask_u(torch, np, s))
+    V1 = torch.empty((1, n_p), dtype=s.dtype, device=s.device)
+    h1 = torch.empty(1, dtype=s.dtype, device=s.device)
+    vp = v[n_u:].contiguous()
+    dpv = vp.abs().reshape(-1, 1, 1) + 1.0
+    others = {
+        "amg_gcr2 first": (lambda: gcr2_first(q[0], q[1]),
+                            "amg_gcr2_first"),
+        "amg_gcr2 second": (lambda: gcr2_second(q[0], q[2], q[3], q[4], r1,
+                                                coef), "gcr2_second"),
+        "block_jacobi u-block": (lambda: binv(vb), "block_jacobi"),
+        "block_jacobi v / d_p": (lambda: block_jacobi(dpv, vp, True),
+                                 "block_jacobi"),
+        "cheby_update": (lambda: cheby_update(vp, vp, vp, vp, None, 0.5,
+                                              1.5), "cheby_update"),
+        "krylov_cgs scaled normalisation": (
+            lambda: krylov_cgs(V1, vp, -1, h1, False, scale=vp),
+            "krylov_cgs"),
+    }
+    for label, (fn, key) in others.items():
+        names = traced_kernels(fn)
+        log(f"[one launch] {label}: device activities {names}")
+        require(len(names) == 1 and key in names[0],
+                f"{label} issued {names}, not one {key} kernel")
         out[label] = names
 
     # K9 at its sites: FGMRES (restart 20, j = 19, the Givens tail; the
@@ -1121,10 +1454,10 @@ def phase_one_launch(torch, np, sc):
     return out
 
 
-def pc_states(torch, np, sc, seed):
-    """The solver's Schur preconditioner, built (build_schur_state) at a
-    developed state for rasamg_sup (the solver's own settings) and for
-    amg_p (its default sweeps), on the card: {method: (state, kw)}."""
+def pc_state(torch, np, sc, seed):
+    """The solver's rasamg_sup Schur preconditioner, built
+    (build_schur_state) at a developed state with the solver's own
+    settings, on the card."""
     from cfdtpu_torch.la.schur import build_schur_state
 
     s = sc.solver
@@ -1135,14 +1468,11 @@ def pc_states(torch, np, sc, seed):
     mask_p = torch.zeros(nb.n_nodes, dtype=torch.bool, device=s.device)
     mask_p[torch.as_tensor(s.bc_dofs_p.astype(np.int64),
                            device=s.device)] = True
-    out = {}
-    for method, (m_u, m_p) in (("rasamg_sup", (s.pc_inner_u, 5)),
-                               ("amg_p", (6, 10))):
-        kw = dict(m_u=m_u, m_p=m_p, full=True, bc_mask_p=mask_p,
-                  inner_method=method,
-                  ras_opts=(s.pc_ras_size, s.pc_ras_overlap))
-        out[method] = (build_schur_state(nb, vals, mask_u, False, **kw), kw)
-    return out, vals, mask_u, mask_p
+    kw = dict(m_u=s.pc_inner_u, m_p=5, full=True, bc_mask_p=mask_p,
+              inner_method="rasamg_sup",
+              ras_opts=(s.pc_ras_size, s.pc_ras_overlap))
+    return build_schur_state(nb, vals, mask_u, False, **kw), kw, vals, \
+        mask_u, mask_p
 
 
 def replay_vs_eager(torch, np, s, pc, seed):
@@ -1160,21 +1490,16 @@ def phase_pc_launches(torch, np, sc):
     """The preconditioner application's launches (torch.profiler): the
     sub-block actions of la/schur.py with their epilogues and the outer
     matvec one K1 kernel each, the SELFP Schur action two, the near-true
-    one three beside its V-cycle's; one replayed application one
-    cudaGraphLaunch and no kernel launch (rasamg_sup, amg_p), its device
-    kernels beside the eager application's; and the replay bitwise
-    equal to the eager application at the first build."""
-    from cfdtpu_torch.la.schur import (_near_true_schur, _sub_ops,
-                                       _uu_amg, make_schur_precond_from_state)
+    one three beside its V-cycle's (the whole application: phase_graph)."""
+    from cfdtpu_torch.la.schur import _near_true_schur, _sub_ops, _uu_amg
 
     s = sc.solver
     nb = s._nodebsr
-    states, vals, mask_u, mask_p = pc_states(torch, np, sc, 11)
+    st, kw, vals, mask_u, mask_p = pc_state(torch, np, sc, 11)
     rng = np.random.default_rng(12)
     n_u, n_p = nb.n_u_flat, nb.n_nodes
     v = s.tensor(rng.standard_normal(n_u + n_p))
     vu, vp = v[:n_u].contiguous(), v[n_u:].contiguous()
-    st, kw = states["rasamg_sup"]
     Auu, Aup, Apu, App, S = _sub_ops(nb, st["A"], mask_u, mask_p, False,
                                      1.0 / st["d_u"])
     mask = torch.cat([mask_u, mask_p])
@@ -1211,44 +1536,121 @@ def phase_pc_launches(torch, np, sc):
             f"the near-true S issued {len(names)} device kernels, not 3 K1 "
             f"beside its V-cycle's {len(vc)}")
     out["near-true S"] = {"kernels": len(names), "v_cycle": len(vc)}
-
-    def kernels_of(names):
-        return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
-
-    for method, (state, kw) in states.items():
-        pc = make_schur_precond_from_state(nb, state, mask_u, False, **kw)
-        same, finite = replay_vs_eager(torch, np, s, pc, 13)
-        calls, names = traced_launches(lambda: pc(v))
-        e_calls, e_names = traced_launches(lambda: pc.eager(v))
-        dk, ek = kernels_of(names), kernels_of(e_names)
-        fused = sum("sup_spmv_prolong" in n for n in ek)
-        k8 = sum("amg_prolong" in n for n in dk + ek)
-        want = UNFOLDED_GRAPH_KERNELS[method] - fused
-        log(f"[pc launches] {method}: one replayed application: host "
-            f"{calls} (cudaGraphLaunch {calls['graph']}, kernel launches "
-            f"{calls['kernel']}), {len(dk)} device kernels in the graph; "
-            f"the eager application: host {e_calls}, {len(ek)} device "
-            f"kernels, {fused} of them K1 with the correction in its "
-            f"gather, {k8} K8; unfolded {UNFOLDED_GRAPH_KERNELS[method]} "
-            f"less {fused} = {want}; replay bitwise equal to eager: {same}")
-        require(k8 == 0 and fused > 0,
-                f"{method}: {k8} K8 launches and {fused} fused K1 launches "
-                "in one application")
-        require(len(dk) == len(ek) == want,
-                f"{method}: {len(dk)} device kernels in the graph, "
-                f"{len(ek)} eager, not the unfolded "
-                f"{UNFOLDED_GRAPH_KERNELS[method]} less the {fused} K8 "
-                "launches folded into K1")
-        require(calls["graph"] == 1 and calls["kernel"] == 0,
-                f"{method}: a replayed application made {calls}, not one "
-                "cudaGraphLaunch and no kernel launch")
-        require(same and finite,
-                f"{method}: replay and eager application differ "
-                f"(finite {finite})")
-        out[method] = {"host": calls, "graph_device_kernels": len(dk),
-                       "eager_host": e_calls, "eager_device_kernels": len(ek),
-                       "fused_k1": fused, "replay_equals_eager": same}
     return out
+
+
+def port_kernel(name):
+    """True for a device kernel of the port (its name holds a counter's)."""
+    from cfdtpu_torch.kernels import COUNTERS
+
+    return any(k in name for k in COUNTERS)
+
+
+def phase_graph(torch, np, sc, tag, baseline=None, want=None):
+    """One preconditioner application of the scenario's own settings
+    (Solver._pc_kw), built at a developed state: a CapturedPrecond whose
+    replay is one cudaGraphLaunch and no kernel launch, bitwise equal to
+    the eager application. Its port kernels are the wrappers' launches
+    in one eager call (what a capture records); a trace of a replay may
+    show fewer (torch.profiler drops records), never more. The traced
+    device kernels are counted by kernel; those that are not the port's
+    (the coarsest solves' GEMV, the Schur combination's copy and add,
+    gmres_fixed's buffer fills) must be of the kinds the `baseline`
+    graph (path A or amg_p) holds already. With `want` (paths A and
+    amg_p: GRAPH_KERNELS), the closure launches exactly want[0] port
+    kernels, K1 with the correction in its gather among them and no K8,
+    and neither trace holds more than want[1] device kernels."""
+    from cfdtpu_torch.la.schur import (CapturedPrecond, build_schur_state,
+                                       make_schur_precond_from_state)
+
+    s = sc.solver
+    f, nb = s.form, s._nodebsr
+    u, up, p = developed_state(torch, np, s, 21)
+    vals = nb.assemble(*f.element_jacobians(u, p, (up,), s.params()))
+    kw = dict(s._pc_kw)
+    mask_u = bc_mask_u(torch, np, s)
+    state = build_schur_state(nb, vals, mask_u, False, **kw)
+    pc = make_schur_precond_from_state(nb, state, mask_u, False, **kw)
+    require(isinstance(pc, CapturedPrecond), f"{tag}: no captured graph")
+    same, finite = replay_vs_eager(torch, np, s, pc, 22)
+    v = s.tensor(np.random.default_rng(23).standard_normal(
+        nb.n_u_flat + nb.n_nodes))
+
+    # copies and fills are not kernels here; a graph turns a small copy
+    # (gmres_fixed's Z[j] = z, a few thousand values) into a memcpy
+    # kernel node that the eager trace shows as a Memcpy activity
+    def kernel(n):
+        return not n.startswith(("Memcpy", "Memset")) and "memcpy" not in n
+
+    # the port's kernels of one eager application, exactly: the wrappers'
+    # launches (each one device kernel; the fused variants' and options'
+    # counters are subsets of their kernel's)
+    from cfdtpu_torch import kernels as kmod
+
+    before = kmod.counts()
+    pc.eager(v)
+    delta = {k: n - before[k] for k, n in kmod.counts().items()}
+    exact = sum(n for k, n in delta.items() if k not in SUBSET_COUNTERS)
+    # the traces' counts, for the record: torch.profiler drops device
+    # records of a trace of 100-400 kernels, of a replay's and of the
+    # eager application's alike (up to 5 and 19 of them, PR 9's runs),
+    # and never adds one
+    calls, names = traced_launches(lambda: pc(v))
+    dk = [n for n in names if kernel(n)]
+    ek = [n for n in traced_launches(lambda: pc.eager(v))[1] if kernel(n)]
+    pk = [n for n in dk if port_kernel(n)]
+    pe = [n for n in ek if port_kernel(n)]
+
+    def by_name(names):
+        out = {}
+        for n in names:
+            key = (n.replace("void ", "").replace("(anonymous namespace)::",
+                                                  "")
+                   .split("<")[0].split("(")[0][:48])
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    by_kernel, by_kernel_eager = by_name(dk), by_name(ek)
+    differs = {k: by_kernel_eager.get(k, 0)
+               for k in set(by_kernel) | set(by_kernel_eager)
+               if by_kernel_eager.get(k, 0) != by_kernel.get(k, 0)}
+    other = sorted({n[:60] for n in dk if not port_kernel(n)})
+    log(f"[graph {tag}] one replayed application: host {calls}; the port's "
+        f"device kernels {exact} (the closure's launches); a trace of the "
+        f"replay {len(dk)} device kernels, {len(pk)} the port's, of the "
+        f"eager application {len(ek)} and {len(pe)}; replay bitwise equal "
+        f"to eager: {same}; traced by kernel {by_kernel}; where the eager "
+        f"trace differs: {differs}")
+    require(calls["graph"] == 1 and calls["kernel"] == 0,
+            f"{tag}: a replayed application made {calls}, not one "
+            "cudaGraphLaunch and no kernel launch")
+    require(len(pk) <= exact,
+            f"{tag}: {len(pk)} of the port's device kernels in a trace of "
+            f"the graph, more than the {exact} its closure launches")
+    require(same and finite, f"{tag}: replay and eager application differ "
+                             f"(finite {finite})")
+    if want is not None:
+        fused, k8 = delta["sup_spmv_prolong"], delta["amg_prolong"]
+        require(k8 == 0 and fused > 0,
+                f"{tag}: {k8} K8 launches and {fused} fused K1 launches in "
+                "one application")
+        require(exact == want[0], f"{tag}: {exact} port kernel launches in "
+                                  f"one application, not {want[0]}")
+        require(max(len(dk), len(ek)) <= want[1],
+                f"{tag}: {len(dk)} device kernels in a trace of the graph, "
+                f"{len(ek)} of the eager application, more than {want[1]}")
+    if baseline is not None:
+        extra = sorted(set(other) - set(baseline))
+        require(not extra, f"{tag}: device kernels outside the port's "
+                           f"that the baseline graph has not: {extra}")
+    return {"host": calls, "graph_device_kernels": len(dk),
+            "eager_device_kernels": len(ek), "graph_port_kernels": len(pk),
+            "eager_port_kernels": len(pe), "eager_port_launches": exact,
+            "eager_launches_by_counter": {k: n for k, n in delta.items()
+                                          if n},
+            "by_kernel": by_kernel,
+            "eager_differs": differs,
+            "other_kernels": other, "replay_equals_eager": same}
 
 
 def phase_determinism(torch, np, sc, trials=5):
@@ -1580,7 +1982,10 @@ def phase_parity(torch, np, tmp, kw, tag):
     require(a["counts"] == PARITY_COUNTS[tag],
             f"{tag}: counts {a['counts']}, every earlier tree gave "
             f"{PARITY_COUNTS[tag]}")
-    out = {"counts": a["counts"]}
+    log(f"[parity {tag}] c_D, c_L, dp on the card {a['f'].tolist()!r}, on "
+        f"the host {b['f'].tolist()!r}")
+    out = {"counts": a["counts"], "f_cuda": a["f"].tolist(),
+           "f_cpu": b["f"].tolist()}
     for key in ("u", "p"):
         rel = np.linalg.norm(a[key] - b[key]) / np.linalg.norm(b[key])
         log(f"[parity {tag}] {key} relative difference {rel:.3e}")
@@ -1588,7 +1993,9 @@ def phase_parity(torch, np, tmp, kw, tag):
         out[key] = rel
     relf = np.abs(a["f"] - b["f"]) / np.abs(b["f"])
     log(f"[parity {tag}] c_D, c_L, dp relative differences {relf}")
-    require((relf <= 1e-9).all(), f"{tag}: functionals differ: {relf}")
+    lim = np.array([1e-9, LIFT_LIMIT.get(tag, 1e-9), 1e-9])
+    require((relf <= lim).all(), f"{tag}: functionals differ: {relf}, "
+                                 f"limits {lim}")
     out["c_D_c_L_dp"] = relf.tolist()
     return out
 
@@ -1665,8 +2072,18 @@ def main(argv=None):
     from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
 
     t_start = time.perf_counter()
+    phase_s = {}
+    t_lap = [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        phase_s[label] = now - t_lap[0]
+        log(f"[time] {label}: {phase_s[label]:.1f} s")
+        t_lap[0] = now
+
     smi = phase_card(torch)
     phase_build()
+    lap("build")
 
     def scenario(res_scale, dtype, stats_every, kw):
         t0 = time.perf_counter()
@@ -1686,14 +2103,21 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sc = scenario(0.3, "float32", 4, RASAMG_KW)
         rows, plains = phase_kernels(torch, np, sc, 1e-5, timed=True)
+        lap("kernels float32")
         one_launch = phase_one_launch(torch, np, sc)
         one_launch["preconditioner"] = phase_pc_launches(torch, np, sc)
+        graphs = {"rasamg_sup": phase_graph(
+            torch, np, sc, "rasamg_sup", want=GRAPH_KERNELS["rasamg_sup"])}
+        lap("one launch")
         phase_plain_times(rows, plains)
         del plains  # their inputs, before the slices' peak memory
+        lap("plain times")
         sc64 = scenario(1.0, "float64", 1, RASAMG_KW)
         phase_kernels(torch, np, sc64, 1e-12, timed=False)
         del sc64
+        lap("kernels float64")
         determinism = phase_determinism(torch, np, sc)
+        lap("determinism")
 
         launches_a, slice_a = phase_slice(
             torch, np, sc, os.path.join(tmp, "slice_a"), "rasamg_sup", 10,
@@ -1702,27 +2126,69 @@ def main(argv=None):
             "rasamg_sup": phase_replay_after_rebuild(torch, np, sc,
                                                      "rasamg_sup")}
         del sc
+        lap("path A")
+        base_a = graphs["rasamg_sup"]["other_kernels"]
+        sc_c = scenario(0.3, "float32", 4, PATH_C_KW)
+        launches_c, slice_c = phase_slice(
+            torch, np, sc_c, os.path.join(tmp, "slice_c"), "path C", 8,
+            PATH_C_KERNELS, profile_steps=4)
+        graphs["path C"] = phase_graph(torch, np, sc_c, "path C", base_a)
+        del sc_c
+        lap("path C")
         sc_p = scenario(0.3, "float32", 4, SLICE_KW)
         launches_p, slice_p = phase_slice(
             torch, np, sc_p, os.path.join(tmp, "slice_amg_p"), "amg_p", 8,
             AMG_P_KERNELS)
         determinism["replay_after_rebuild"]["amg_p"] = (
             phase_replay_after_rebuild(torch, np, sc_p, "amg_p"))
+        graphs["amg_p"] = phase_graph(torch, np, sc_p, "amg_p",
+                                      want=GRAPH_KERNELS["amg_p"])
+        base_p = graphs["amg_p"]["other_kernels"]
         del sc_p
-        parity = {tag: phase_parity(torch, np, tmp, kw, tag)
-                  for tag, kw in (("rasamg_sup", RASAMG_KW),
-                                  ("amg_p", SLICE_KW))}
+        lap("amg_p")
+        launches_d, slices_d = {}, {}
+        for method, (res, kw, required) in PATH_D.items():
+            sc_d = scenario(res, "float32", 4, kw)
+            got, slices_d[method] = phase_slice(
+                torch, np, sc_d, os.path.join(tmp, f"slice_{method}"),
+                f"path D {method}", PATH_D_STEPS, required,
+                profile_steps=PATH_D_PROFILE)
+            for name, n in got.items():
+                launches_d[name] = launches_d.get(name, 0) + n
+            graphs[f"path D {method}"] = phase_graph(
+                torch, np, sc_d, f"path D {method}", base_p)
+            del sc_d
+            lap(f"path D {method}")
+        parity = {}
+        for tag, kw in (("rasamg_sup", RASAMG_KW), ("amg_p", SLICE_KW),
+                        ("path_c", PATH_C_KW), ("gmres", PATH_D["gmres"][1])):
+            parity[tag] = phase_parity(torch, np, tmp, kw, tag)
+            lap(f"parity {tag}")
         gm = phase_gather_micro()
+        lap("path B")
         phase_cli(tmp, "amg_p")
         phase_cli(tmp, "rasamg_sup", RASAMG_FLAGS)
         phase_cli(tmp, "rasamg_sup_default_device", RASAMG_FLAGS,
                   device=None)
+        lap("CLI")
 
-    launches = {"A": launches_a, "B": gm["launches"]}
-    window = slice_a["profile"]["kernels"]
+    launches = {"A": launches_a, "B": gm["launches"], "C": launches_c,
+                "D": launches_d}
+    # each kernel's calls in the profiled window of its path (path D:
+    # the three methods' windows)
+    windows = {"A": slice_a["profile"]["kernels"],
+               "B": slice_a["profile"]["kernels"],
+               "C": slice_c["profile"]["kernels"], "D": {}}
+    for res in slices_d.values():
+        for name, kv in (res["profile"] or {"kernels": {}})["kernels"].items():
+            acc = windows["D"].setdefault(name, {"calls": 0,
+                                                 "device_ms": 0.0})
+            acc["calls"] += kv["calls"]
+            acc["device_ms"] += kv["device_ms"]
     entries = []
     for name, (src, replaces, site, path) in SOURCES.items():
         r = rows[site]
+        window = windows[path]
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "site": site, "path": PATHS[path],
@@ -1731,8 +2197,8 @@ def main(argv=None):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "warm_ms": r["warm_ms"], "device_ms": r["device_ms"],
-            "window_calls": window[name]["calls"],
-            "window_device_ms": window[name]["device_ms"],
+            "window_calls": window.get(name, {}).get("calls", 0),
+            "window_device_ms": window.get(name, {}).get("device_ms", 0.0),
         })
         if "equals_pair" in r:
             entries[-1].update(equals_pair=r["equals_pair"],
@@ -1749,10 +2215,13 @@ def main(argv=None):
             json.dump({"card": smi, "empty_kernel_ms": floor_ms,
                        "sites": rows, "slice_rasamg_sup": slice_a,
                        "slice_amg_p": slice_p, "launches_amg_p": launches_p,
+                       "slice_path_c": slice_c, "slices_path_d": slices_d,
+                       "graphs": graphs,
                        "launches": launches, "parity": parity,
                        "determinism": determinism, "gather_micro": gm,
                        "one_launch": one_launch,
                        "profiler_retries": PROFILER_RETRIES,
+                       "phase_s": phase_s,
                        "kernels": entries}, fh, indent=1, default=str)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ kernels are CUDA C++ with no interpret mode). On a machine with a card:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 
-Inputs are the DFG 2D-1 maps at res_scale 2.5 in float64 and a random
-state made with numpy. Tolerance 1e-12 relative: float64 on both sides,
-only the order of the sums differs.
+Inputs are the DFG 2D-1 maps at res_scale 2.5 in float64 (the cycle
+tests: 1.0, where both hierarchies have levels) and a random state made
+with numpy. Tolerance 1e-12 relative: float64 on both sides, only the
+order of the sums differs.
 """
 
 import numpy as np
@@ -980,3 +981,341 @@ def test_graph_replay_matches_eager(sc, method):
         got = pc(v).clone()
         assert torch.equal(got, pc.eager(v))
         assert torch.isfinite(got).all()
+
+
+# -- the AMG cycle family and the non-AMG inner methods --------------------
+def _cycle_hierarchies(dtype):
+    """The SELFP AMG and the BlockAMG (with the RAS fine smoother) of a
+    small DFG mesh at coarse size 40 (three levels), with their input
+    values in `dtype`, on the card."""
+    from cfdtpu_torch.la.amg import AMG, BlockAMG
+    from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+
+    s = DFG1Benchmark("stabilized_schur", dt=0.05, T=1.0, res_scale=1.0,
+                      dtype="float64", device="cuda").solver
+    nb = s._nodebsr
+    u, up, p = _state(s, seed=9)
+    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
+    mask = torch.zeros(nb.n_u_flat, dtype=torch.bool, device="cuda")
+    for d0 in range(2):
+        mask[torch.as_tensor(s.bc_dofs_u.astype(np.int64) * 2 + d0)] = True
+    sp_row, sp_col, _ = nb.sp_structure()
+    amg = AMG(sp_row, sp_col, nb.n_nodes, coarse_size=40,
+              agg_row=nb.block_row_np, agg_col=nb.block_col_np,
+              device="cuda")
+    bamg = BlockAMG(nb.block_row_np, nb.block_col_np, nb.n_nodes, d=2,
+                    coarse_size=40, fine_smoother=nb.uu_ras(32, 4),
+                    device="cuda")
+    return [(amg, nb.sp_vals(vals).to(dtype)),
+            (bamg, nb.uu_vals(vals, mask).to(dtype))]
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_k1_cheby_matches_plain_and_repeats(dt):
+    """K1's cheby mode at every Chebyshev level of both hierarchies: from
+    s * b (the first step), with dprev and d stored, with the correction
+    in its gather (the first post-smoothing step) and with the W-cycle's
+    add; within the tolerance of the plain version, two calls bitwise
+    equal, one launch counted under sup_spmv_cheby."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(31)
+    for h, vals in _cycle_hierarchies(dtype):
+        h.set_cycle(cheby=2)
+        built = h.build(vals)
+        for k, (ev, d, s, cheb) in enumerate(built[0]):
+            if cheb is None:
+                continue
+            n, w = d.shape[0], cheb[1]
+            cols = h.sup[k][0].sup_cols
+
+            def dev(a):
+                return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+            x, b = dev(rng.standard_normal(n)), dev(rng.standard_normal(n))
+            dp, add = dev(rng.standard_normal(n)), dev(rng.standard_normal(n))
+            xc = dev(rng.standard_normal(h.levels[k].n_coarse * h.width))
+            cases = [dict(x=b, scale=w, dprev=None),
+                     dict(x=x, scale=None, dprev=dp, d_out=True),
+                     dict(x=x, scale=None, dprev=None, add=add,
+                          prolong=(xc, h.levels[k].agg, h.width))]
+            for c in cases:
+                kw = dict(mode="cheby", b=b, scale=c["scale"],
+                          cheb=(w, c["dprev"], 0.7, 1.3),
+                          add=c.get("add"), prolong=c.get("prolong"))
+                dk = torch.empty_like(b) if c.get("d_out") else None
+                dp_ = torch.empty_like(b) if c.get("d_out") else None
+                kernels.reset_counts()
+                got = sup_spmv(ev, cols, c["x"], n, d_out=dk, **kw)
+                again = sup_spmv(ev, cols, c["x"], n, **kw)
+                assert kernels.counts()["sup_spmv_cheby"] == 2
+                ref = sup_spmv_plain(ev, cols, c["x"], n, d_out=dp_, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again)
+                _close_tol(got, ref, tol)
+                if dk is not None:
+                    _close_tol(dk, dp_, tol)
+        h.set_cycle(cheby=0)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_k1_cheby_auu_mask_and_cheby_update(sc, dt):
+    """The chebyshev inner method's Auu step (K1's cheby mode with the
+    Dirichlet rows as identity rows) and cheby_update after another
+    operator, against their plain versions; two calls bitwise equal."""
+    from cfdtpu_torch.kernels.sup_spmv import (cheby_update,
+                                               cheby_update_plain, sup_spmv,
+                                               sup_spmv_plain)
+
+    dtype, tol = _dev_tol(dt)
+    s = sc.solver
+    nb = s._nodebsr
+    u, up, p = _state(s, seed=10)
+    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
+    A = vals["sup"].to(dtype)
+    gd, n = nb.g * nb.dim, nb.n_u_flat
+    rng = np.random.default_rng(11)
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+
+    mask = torch.as_tensor(rng.random(n) < 0.1, device="cuda")
+    x, b, w, dp = (dev(rng.standard_normal(n)) for _ in range(4))
+    kw = dict(mode="cheby", b=b, mask=mask, cheb=(w, dp, 0.4, 1.7))
+    Auu = A[:, :, :gd, :gd]
+    got = sup_spmv(Auu, nb._sup.sup_cols, x, n, **kw)
+    again = sup_spmv(Auu, nb._sup.sup_cols, x, n, **kw)
+    ref = sup_spmv_plain(Auu, nb._sup.sup_cols, x, n, **kw)
+    y = dev(rng.standard_normal(n))
+    d_k, d_p = torch.empty_like(x), torch.empty_like(x)
+    got_u = cheby_update(x, y, b, w, dp, 0.4, 1.7, d_k)
+    ref_u = cheby_update_plain(x, y, b, w, dp, 0.4, 1.7, d_p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close_tol(got, ref, tol)
+    _close_tol(got_u, ref_u, tol)
+    _close_tol(d_k, d_p, tol)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_k9_scaled_normalisation_and_lambda(dt):
+    """K9's normalisation with an elementwise scale against its plain
+    version, and estimate_lambda_max on the card against the CPU."""
+    from cfdtpu_torch.kernels.krylov import krylov_cgs, krylov_cgs_plain
+    from cfdtpu_torch.la.chebyshev import estimate_lambda_max
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(12)
+    for n in (35425, 106275):
+        w, sc_ = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                                  device="cuda") for _ in range(2))
+        Vk, Vp = (torch.empty((1, n), dtype=dtype, device="cuda")
+                  for _ in range(2))
+        hk, hp = (torch.empty(1, dtype=dtype, device="cuda")
+                  for _ in range(2))
+        krylov_cgs(Vk, w, -1, hk, False, scale=sc_)
+        got = (Vk.clone(), hk.clone())
+        krylov_cgs(Vk, w, -1, hk, False, scale=sc_)
+        krylov_cgs_plain(Vp, w, -1, hp, False, scale=sc_)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], Vk) and torch.equal(got[1], hk)
+        _close_tol(Vk, Vp, tol)
+        _close_tol(hk, hp, tol)
+    Ad = rng.standard_normal((200, 200))
+    Ad = Ad @ Ad.T + 200 * np.eye(200)
+    inv = 1.0 / np.diag(Ad)
+    lam = {}
+    for dev in ("cuda", "cpu"):
+        A = torch.as_tensor(Ad, dtype=dtype, device=dev)
+        lam[dev] = estimate_lambda_max(lambda v: A @ v, torch.as_tensor(
+            inv, dtype=dtype, device=dev)).cpu()
+    _close_tol(lam["cuda"], lam["cpu"], 10 * tol)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_k10_matches_plain_and_repeats(sc, dt):
+    """K10's inverses (the masked diagonal velocity blocks) and applies
+    at d = 2, 1 and 1 with divide against their plain versions."""
+    from cfdtpu_torch.kernels.block_jacobi import (block_jacobi,
+                                                   block_jacobi_inv,
+                                                   block_jacobi_inv_plain,
+                                                   block_jacobi_plain)
+
+    dtype, tol = _dev_tol(dt)
+    s = sc.solver
+    nb = s._nodebsr
+    u, up, p = _state(s, seed=13)
+    coo = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))[
+        "coo"].to(dtype)
+    rng = np.random.default_rng(14)
+    mask = torch.as_tensor(rng.random(nb.n_u_flat) < 0.1, device="cuda")
+    inv = block_jacobi_inv(coo, nb._diag_pos, mask, 2)
+    _close_tol(inv, block_jacobi_inv_plain(coo, nb._diag_pos, mask, 2), tol)
+    v = torch.as_tensor(rng.standard_normal(nb.n_u_flat), dtype=dtype,
+                        device="cuda")
+    dg = torch.as_tensor(0.5 + rng.random((nb.n_nodes, 1, 1)), dtype=dtype,
+                         device="cuda")
+    vp = v[:nb.n_nodes].contiguous()
+    for args in ((inv, v), (dg, vp), (dg, vp, True)):
+        got = block_jacobi(*args)
+        again = block_jacobi(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _close_tol(got, block_jacobi_plain(*args), tol)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("n", [37, 5000, 15476])
+def test_k11_matches_plain_and_repeats(n, dt):
+    """K11's two launches against their plain versions; bitwise
+    repeatable; the coefficients stay on the card."""
+    from cfdtpu_torch.kernels.amg_gcr2 import (gcr2_first, gcr2_first_plain,
+                                               gcr2_second,
+                                               gcr2_second_plain)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(n)
+    q1, b, q2, z1, z2 = (torch.as_tensor(rng.standard_normal(n),
+                                         dtype=dtype, device="cuda")
+                         for _ in range(5))
+    r, coef = gcr2_first(q1, b)
+    r2, coef2 = gcr2_first(q1, b)
+    rp, cp = gcr2_first_plain(q1, b)
+    x = gcr2_second(q1, q2, z1, z2, r, coef)
+    x2 = gcr2_second(q1, q2, z1, z2, r, coef)
+    xp = gcr2_second_plain(q1, q2, z1, z2, rp, cp)
+    torch.cuda.synchronize()
+    assert torch.equal(r, r2) and torch.equal(coef, coef2)
+    assert torch.equal(x, x2)
+    _close_tol(r, rp, tol)
+    _close_tol(coef, cp, tol)
+    _close_tol(x, xp, 10 * tol)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_cycles_on_card(dt):
+    """W + K + Chebyshev cycles of both hierarchies on the card against
+    the CPU plain versions, two calls bitwise equal, and the W-cycle's
+    sum in K1's epilogue bitwise equal to K1 then a separate add."""
+    from cfdtpu_torch.la import amg as amg_module
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(15)
+    for h, vals in _cycle_hierarchies(dtype):
+        n = h.coo[0][2] * h.width
+        r = torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                            device="cuda")
+        h.set_cycle(kcycle=True, wcycle=True, cheby=2)
+        built = h.build(vals)
+        got = h.v_cycle(built, r)
+        assert torch.equal(got, h.v_cycle(built, r))
+        h.set_cycle(kcycle=False)
+        wsum = h.v_cycle(built, r)
+        spmv = amg_module.sup_spmv
+
+        def apart(*a, add=None, **kw):
+            y = spmv(*a, **kw)
+            return y if add is None else add + y
+
+        amg_module.sup_spmv = apart
+        try:
+            assert torch.equal(h.v_cycle(built, r), wsum)
+        finally:
+            amg_module.sup_spmv = spmv
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        h.set_cycle(kcycle=False, wcycle=False, cheby=0)
+    # the CPU side: the same hierarchies on the host's plain versions
+    # are tests/test_torch_cycles.py's; here, one f64 comparison
+    if dt == "f64":
+        h, vals = _cycle_hierarchies(dtype)[1]
+        h.set_cycle(kcycle=True, wcycle=True, cheby=2)
+        r = torch.as_tensor(rng.standard_normal(h.coo[0][2] * 2),
+                            dtype=dtype, device="cuda")
+        got = h.v_cycle(h.build(vals), r).cpu()
+        from cfdtpu_torch.la.amg import BlockAMG
+        from cfdtpu_torch.la.ras import RASPrecond
+
+        ras = h.fine_smoother
+        hc = BlockAMG(h.coo[0][0], h.coo[0][1], h.coo[0][2], d=2,
+                      coarse_size=40, cheby_degree=2, kcycle=True,
+                      wcycle=True, device="cpu",
+                      fine_smoother=RASPrecond(h.coo[0][0], h.coo[0][1],
+                                               h.coo[0][2], d=2, s=ras.s,
+                                               overlap=ras.o, device="cpu"))
+        ref = hc.v_cycle(hc.build(vals.cpu()), r.cpu())
+        _close_tol(got, ref, 1e-11)
+
+
+@pytest.fixture(scope="module")
+def sc_cpu():
+    """The sc fixture's scenario on the host (plain versions)."""
+    from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+
+    return DFG1Benchmark("stabilized_schur", dt=0.05, T=1.0,
+                         res_scale=2.5, dtype="float64", device="cpu",
+                         pc_lag_steps=4, snes_lag_jacobian=True)
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("gmres", dict(m_u=6, m_p=30)), ("chebyshev_p", dict(m_u=6, m_p=30)),
+    ("chebyshev", dict(m_u=6, m_p=30)),
+    ("rasamg_sup", dict(m_u=0, m_p=5, cycle=True))])
+def test_new_methods_graph_replay(sc, sc_cpu, method, kw):
+    """The new inner methods and rasamg_sup with W + K + Chebyshev: one
+    application is one CUDA graph, its replay bitwise equal to the eager
+    application, and within 1e-11 of the same application on the host
+    (gmres: 1e-9; its 30 GMRES steps on S, one Gram-Schmidt pass each,
+    grow the card's other sum order in K9 to 1.5e-10 on an H100)."""
+    from cfdtpu_torch.la.schur import (CapturedPrecond, build_schur_state,
+                                       make_schur_precond_from_state)
+
+    kw = dict(kw)
+    flags = dict(kcycle=True, wcycle=True, cheby=2) if kw.pop(
+        "cycle", False) else None
+    out = {}
+    for scn in (sc, sc_cpu):
+        s = scn.solver
+        nb = s._nodebsr
+        u, up, p = _state(s, seed=16)
+        vals = nb.assemble(*s.form.element_jacobians(u, p, (up,),
+                                                     s.params()))
+        n_uf = nb.n_u_flat
+        mask = np.zeros(n_uf + nb.n_nodes, dtype=bool)
+        for d0 in range(2):
+            mask[s.bc_dofs_u.astype(np.int64) * 2 + d0] = True
+        mask[n_uf + s.bc_dofs_p.astype(np.int64)] = True
+        mask = torch.as_tensor(mask, device=s.device)
+        pkw = dict(kw, bc_mask_p=mask[n_uf:], inner_method=method,
+                   ras_opts=(32, 4))
+        if flags:
+            nb.sp_amg(**flags)
+            nb.uu_amg(fine_smoother=nb.uu_ras(32, 4), **flags)
+        v = s.tensor(np.random.default_rng(17).standard_normal(
+            n_uf + nb.n_nodes))
+        state = build_schur_state(nb, vals, mask[:n_uf], False, **pkw)
+        pc = make_schur_precond_from_state(nb, state, mask[:n_uf], False,
+                                           **pkw)
+        if s.device.type == "cuda":
+            assert isinstance(pc, CapturedPrecond)
+            got = pc(v).clone()
+            assert torch.equal(got, pc.eager(v))
+        else:
+            got = pc(v)
+        assert torch.isfinite(got).all()
+        out[s.device.type] = got.cpu()
+        if flags:
+            off = dict(kcycle=False, wcycle=False, cheby=0)
+            nb.sp_amg(**off)
+            nb.uu_amg(fine_smoother=nb.uu_ras(32, 4), **off)
+    _close_tol(out["cuda"], out["cpu"], 1e-9 if method == "gmres" else 1e-11)

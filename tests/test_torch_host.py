@@ -164,11 +164,11 @@ def test_auto_dtype_by_device():
 
 
 @pytest.mark.parametrize("kw", [
-    {"pc_inner_method": "chebyshev_p"},
+    {"pc_type": "pcd"},
     {"pc_type": "lsc"},
     {"operator_format": "element"},
     {"supernode_g": 1},
-    {"pc_amg_kcycle": True},
+    {"pc_dtype": "auto"},
     {"pc_dtype": "bf16"},
     {"n_shards": 2},
 ])

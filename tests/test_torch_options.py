@@ -2,8 +2,8 @@
 the CLI defaults (operator and PC rebuilt per Newton iteration under
 snes_lag_preconditioner: the non-reuse `step` path), Eisenstat-Walker
 forcing, the extrapolating predictor with the lower-triangular Schur
-factorisation, and a stats_every window. DFG 2D-1 at res_scale 2.5
-(1,626 DOF), float64, 2 steps each.
+factorisation, a stats_every window, and ksp_ortho_chunk. DFG 2D-1 at
+res_scale 2.5 (1,626 DOF), float64, 2 steps each.
 
 Tolerance: both sides are float64 running the same algorithm; only the
 order of floating-point sums differs. Iteration counts must be equal and
@@ -30,6 +30,9 @@ OPTIONS = {
                              "res_scale": 1.5},
     "stats_window": {"stats_every": 2, "pc_lag_steps": 2,
                      "snes_lag_jacobian": True},
+    # cfdtpu's chunked Gram-Schmidt sweeps (tests/test_gmres_ortho_chunk.py)
+    # against the port's, which always sweep the active rows
+    "ksp_ortho_chunk": {"ksp_ortho_chunk": 8},
 }
 
 

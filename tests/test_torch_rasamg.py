@@ -191,7 +191,7 @@ def block_amgs(case):
 def test_block_amg_build(block_amgs, smoother):
     _, (jlv, jci, jras), _, (tlv, tci, tras) = block_amgs[smoother]
     assert len(jlv) == len(tlv)
-    for (jev, jd, _), (tev, td, _) in zip(jlv, tlv):
+    for (jev, jd, _), (tev, td, *_) in zip(jlv, tlv):
         assert_close(tev, jev, 1e-11)
         assert_close(td, jd, 1e-11)
     assert_close(tci, jci, 1e-11)
@@ -230,14 +230,25 @@ def test_block_transfers(case, block_amgs, level):
         jnp.asarray(v)), 1e-12)
 
 
-def test_unported_cycles_raise(block_amgs):
-    _, _, th, tbuilt = block_amgs["ras"]
-    with pytest.raises(NotImplementedError):
-        th.v_cycle(tbuilt, torch.zeros(2 * th.coo[0][2],
-                                       dtype=torch.float64), kcycle=True)
-    for kw in ({"kcycle": True}, {"cheby": 2}, {"wcycle": True}):
-        with pytest.raises(NotImplementedError):
-            th.set_cycle(**kw)
+def test_unported_cycles_raise(case, block_amgs):
+    """set_cycle takes each cycle option (None leaves a setting as it
+    is); the weighted p-multigrid level (linear_parents) still raises."""
+    _, _, th, _ = block_amgs["ras"]
+    for kw, attr, val in (({"kcycle": True}, "kcycle", True),
+                          ({"cheby": 2}, "cheby_degree", 2),
+                          ({"wcycle": True}, "wcycle", True)):
+        th.set_cycle(**kw)
+        assert getattr(th, attr) == val
+        th.set_cycle()
+        assert getattr(th, attr) == val
+    th.set_cycle(kcycle=False, cheby=0, wcycle=False)
+    assert (th.kcycle, th.cheby_degree, th.wcycle) == (False, 0, False)
+    tb = case["ts"]._nodebsr
+    with pytest.raises(NotImplementedError, match="PLevel"):
+        BlockAMG(tb.block_row_np, tb.block_col_np, tb.n_nodes, d=2,
+                 linear_parents=(np.zeros((tb.n_nodes, 1), np.int64),
+                                 np.ones((tb.n_nodes, 1)), tb.n_nodes),
+                 device="cpu")
 
 
 # -- the Schur preconditioner -------------------------------------------------
@@ -261,7 +272,7 @@ def test_schur_precond_apply(case, method, m_u):
     tpc = make_schur_precond_from_state(ts._nodebsr, tstate, T(mask[:nuf]),
                                         False, bc_mask_p=T(mask[nuf:]),
                                         **pc_kw)
-    assert set(tstate) == set(jstate) - {"Ab", "d_p"}
+    assert set(tstate) == set(jstate) - {"Ab"}
     b = case["st"]["b"]
     ref = jax.jit(jpc)(jnp.asarray(b))
     assert_close(tpc(T(b)), ref, 1e-10)

@@ -119,7 +119,7 @@ def test_selfp_amg_values(case):
     js_lv, jc = case["jstate"]["sp_built"]
     ts_lv, tc = case["tstate"]["sp_built"]
     assert len(js_lv) == len(ts_lv)
-    for (jev, jd, _), (tev, td, _) in zip(js_lv, ts_lv):
+    for (jev, jd, _), (tev, td, *_) in zip(js_lv, ts_lv):
         assert_close(tev, jev, 1e-11)
         assert_close(td, jd, 1e-11)
     assert_close(tc, jc, 1e-10)
@@ -193,10 +193,33 @@ def test_pressure_nullspace_test_agrees(case):
             == case["js"]._test_pressure_nullspace())
 
 
-@pytest.mark.parametrize("fn", [build_schur_state,
-                                make_schur_precond_from_state])
-def test_inner_method_is_required(fn):
-    """No default inner method: cfdtpu's ("gmres") is not ported, and
-    the port's functions may not default to another one."""
-    with pytest.raises(TypeError, match="inner_method"):
-        fn(None, None, None, False, m_u=6, m_p=10)
+@pytest.mark.parametrize("default", ["build_schur_state",
+                                     "make_schur_precond_from_state"])
+def test_inner_method_defaults_to_gmres(case, default):
+    """Without inner_method each function takes cfdtpu's default,
+    "gmres": the application equals cfdtpu's default one (1e-10) and,
+    bit for bit, the port's with inner_method="gmres" given."""
+    js, ts, mask = case["js"], case["ts"], case["mask"]
+    nuf = ts.form.n_u_flat
+    jmu, jmp = jnp.asarray(mask[:nuf]), jnp.asarray(mask[nuf:])
+    tmu, tmp = T(mask[:nuf]), T(mask[nuf:])
+    kw = dict(m_u=6, m_p=10, full=True)
+    jstate = jax_build_state(js._nodebsr, case["jvals"], (), jmu, False,
+                             bc_mask_p=jmp, **kw)
+    jpc = jax_make_pc(js._nodebsr, jstate, jmu, False, bc_mask_p=jmp, **kw)
+    given = dict(kw, inner_method="gmres")
+    st_kw = kw if default == "build_schur_state" else given
+    pc_kw = kw if default == "make_schur_precond_from_state" else given
+    tstate = build_schur_state(ts._nodebsr, case["tvals"], tmu, False,
+                               bc_mask_p=tmp, **st_kw)
+    assert set(tstate) == set(jstate) - {"Ab"} == {"A", "d_u", "d_p"}
+    tpc = make_schur_precond_from_state(ts._nodebsr, tstate, tmu, False,
+                                        bc_mask_p=tmp, **pc_kw)
+    ref_pc = make_schur_precond_from_state(
+        ts._nodebsr, build_schur_state(ts._nodebsr, case["tvals"], tmu,
+                                       False, bc_mask_p=tmp, **given),
+        tmu, False, bc_mask_p=tmp, **given)
+    b = case["st"]["b"]
+    got = tpc(T(b))
+    assert_close(got, jax.jit(jpc)(jnp.asarray(b)), 1e-10)
+    assert torch.equal(got, ref_pc(T(b)))

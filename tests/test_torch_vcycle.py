@@ -151,7 +151,7 @@ def test_selfp_amg_vcycle_matches_cfdtpu(case, n_smooth):
     jh, th = _amg_pair(case, n_smooth)
     jbuilt = jh.build(jnp.asarray(case["sp"]))
     tbuilt = th.build(T(case["sp"]))
-    for (_, jd, _), (_, td, ts) in zip(jbuilt[0], tbuilt[0]):
+    for (_, jd, _), (_, td, ts, _) in zip(jbuilt[0], tbuilt[0]):
         assert_close(td, jd, 1e-12)
         assert_close(ts, th.omega / np.asarray(jd), 1e-12)
     r = np.random.default_rng(41 + n_smooth).standard_normal(
@@ -168,7 +168,7 @@ def _unfused_v_cycle(h, built, b, block):
     level_vals, coarse_inv = built[0], built[1]
     ras_inv = built[2] if block else None
     w = h.d if block else 1
-    mv = h._matvec_block if block else h._matvec
+    mv = h._matvec
 
     def jacobi(k, vals, dg, x, b, **kw):
         return mv(k, vals, x, "jacobi", b, dg, **kw)
@@ -185,7 +185,7 @@ def _unfused_v_cycle(h, built, b, block):
     def descend(k, b):
         if k == len(h.levels):
             return coarse_inv @ b
-        vals, dg, s = level_vals[k]
+        vals, dg, s = level_vals[k][:3]
         lvl = h.levels[k]
         if k == 0 and ras_inv is not None:
             x = h.fine_smoother.apply(ras_inv, b)
