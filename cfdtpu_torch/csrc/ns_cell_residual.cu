@@ -57,16 +57,25 @@
 // body three times a cell, value and three tangents) takes about as
 // long as its bytes.
 //
-// The facet block rides in the same launch. The form's natural-correction
-// term (K7, ns_facet_natural.cuh) alone was a launch of its own, 2.6-2.9
-// us of device time for 0.07-0.14 us of bytes (H100 80GB HBM3, 700 W),
-// once a residual and once a Jacobian build. The _facet kernels below
-// run the cell blocks as above and, after them, blocks of K7's lanes at
-// the cells' block size: one lane a facet (residual) or a (facet,
-// column) (Jacobian), which read nothing the cell blocks stage and write
-// their own output (ru_f, A_f). One launch then covers a form's
-// residual and one its Jacobian build; the facet blocks' few lanes run
-// beside the cells' single wave.
+// The facet blocks ride in the same launch. The form's natural-correction
+// term (K7, ns_facet.cuh) alone was a launch of its own, 2.6-2.9 us of
+// device time for 0.07-0.14 us of bytes (H100 80GB HBM3, 700 W), once a
+// residual and once a Jacobian build. The _facet kernels below run the
+// cell blocks as above and, after them, each facet block of the form
+// (up to MAXF: K7, K12 or K13, ns_facet.cuh) as a range of blocks at the
+// cells' block size: one lane a facet (residual) or a (facet, column)
+// (Jacobian), which read nothing the cell blocks stage and write the
+// block's own output (ru_f, A_f). One launch then covers a form's
+// residual and one its Jacobian build, whatever its facet blocks; their
+// few lanes run beside the cells' single wave.
+//
+// K14, the BDF2 cell body (cfdtpu's StabilizedNSFormBDF2), is the same
+// body instantiated with BDF2 = true: the time term (a0 u + a1 u_prev +
+// a2 u_prev2) / dt, convection, stress and continuity at u itself
+// instead of the midpoint, tau still from |u_prev|; each lane reads the
+// second previous velocity too (the _bdf2 kernels). Its operation
+// count is K3's within a few: the midpoint's averages go, the time
+// term's two products come.
 //
 // Operations, counted from this file with each add, multiply, min, max,
 // reciprocal and reciprocal square root as one (chip_smoke.py holds the
@@ -87,25 +96,28 @@
 #include <cstdint>
 
 #include "element.cuh"
-#include "ns_facet_natural.cuh"
+#include "ns_facet.cuh"
 
 namespace {
 
 constexpr int MAXQ = 16;        // quadrature points held in shared memory
 constexpr int RES_CELLS = 128;  // residual: cells (lanes) a block
 constexpr int JAC_CELLS = 32;   // Jacobian: cells a block, 3 lanes each
+constexpr int MAXF = 4;         // facet blocks a launch carries
 
 template <typename T>
 struct CellParams {
   T rho, irho, mu, idt, f0, f1, eps;
-  T a2sq;    // (2 / dt)^2 = t2^-2
-  T nu4;     // 4 nu: t3^-1 = 4 nu / h^2
-  T inv6nu;  // Re_h / 3 = |u| h / (6 nu)
+  T a2sq;        // (2 / dt)^2 = t2^-2
+  T nu4;         // 4 nu: t3^-1 = 4 nu / h^2
+  T inv6nu;      // Re_h / 3 = |u| h / (6 nu)
+  T a0, a1, a2;  // BDF2: the time term's coefficients
 };
 
 template <typename T>
 CellParams<T> make_params(double rho, double mu, double dt, double f0,
-                          double f1, double eps) {
+                          double f1, double eps, double a0, double a1,
+                          double a2) {
   CellParams<T> q;
   q.rho = (T)rho;
   q.irho = (T)(1.0 / rho);
@@ -117,6 +129,9 @@ CellParams<T> make_params(double rho, double mu, double dt, double f0,
   q.a2sq = (T)(4.0 / (dt * dt));
   q.nu4 = (T)(4.0 * mu / rho);
   q.inv6nu = (T)(rho / (6.0 * mu));
+  q.a0 = (T)a0;
+  q.a1 = (T)a1;
+  q.a2 = (T)a2;
   return q;
 }
 
@@ -148,19 +163,39 @@ __device__ __forceinline__ void load_tabs(Tabs<T>& tb, const T* phi,
   }
 }
 
-// one vertex of one cell as a lane loads it: u, u_prev, p, X
-constexpr int VERT = 7;
-
+// the cells' arguments, as the C entry points pass them
 template <typename T>
-__device__ __forceinline__ void load_vertex(
-    int64_t lane, const T* u, const T* uprev, const T* p, const int* dofmap,
-    const T* coords, T* sv) {
+struct CellIn {
+  const T* __restrict__ u;
+  const T* __restrict__ uprev;
+  const T* __restrict__ uprev2;  // BDF2 only
+  const T* __restrict__ p;
+  const int* __restrict__ dofmap;
+  const T* __restrict__ coords;
+  const T* __restrict__ hcell;
+  const T* __restrict__ phi;
+  const T* __restrict__ dphi;
+  const T* __restrict__ qw;
+  int64_t nc;
+  int nq;
+};
+
+// one vertex of one cell as a lane loads it: u, u_prev, p, X and, for
+// BDF2, u_prev2
+template <bool BDF2>
+struct Vert {
+  static constexpr int value = BDF2 ? 9 : 7;
+};
+
+template <typename T, bool BDF2>
+__device__ __forceinline__ void load_vertex(int64_t lane, const CellIn<T>& ci,
+                                            T* sv) {
   using V2 = typename Vec2<T>::type;
-  const int64_t n = __ldg(dofmap + lane);
-  const V2 x = __ldg(reinterpret_cast<const V2*>(coords) + lane);
-  const V2 a = __ldg(reinterpret_cast<const V2*>(u) + n);
-  const V2 b = __ldg(reinterpret_cast<const V2*>(uprev) + n);
-  const T c = __ldg(p + n);
+  const int64_t n = __ldg(ci.dofmap + lane);
+  const V2 x = __ldg(reinterpret_cast<const V2*>(ci.coords) + lane);
+  const V2 a = __ldg(reinterpret_cast<const V2*>(ci.u) + n);
+  const V2 b = __ldg(reinterpret_cast<const V2*>(ci.uprev) + n);
+  const T c = __ldg(ci.p + n);
   sv[0] = a.x;
   sv[1] = a.y;
   sv[2] = b.x;
@@ -168,6 +203,11 @@ __device__ __forceinline__ void load_vertex(
   sv[4] = c;
   sv[5] = x.x;
   sv[6] = x.y;
+  if constexpr (BDF2) {
+    const V2 e = __ldg(reinterpret_cast<const V2*>(ci.uprev2) + n);
+    sv[7] = e.x;
+    sv[8] = e.y;
+  }
 }
 
 template <typename T, typename N>
@@ -175,13 +215,14 @@ struct CellState {
   N ue[3][2];
   N pe[3];
   T upe[3][2];
+  T up2e[3][2];  // BDF2 only
   T X[3][2];
   T h;
 };
 
-template <typename T, typename N>
-__device__ __forceinline__ void read_state(const T (*sv)[VERT], T h,
-                                           CellState<T, N>& s) {
+template <typename T, typename N, bool BDF2>
+__device__ __forceinline__ void read_state(
+    const T (*sv)[Vert<BDF2>::value], T h, CellState<T, N>& s) {
 #pragma unroll
   for (int v = 0; v < 3; ++v) {
     s.ue[v][0] = Lift<N>::of(sv[v][0]);
@@ -191,6 +232,10 @@ __device__ __forceinline__ void read_state(const T (*sv)[VERT], T h,
     s.pe[v] = Lift<N>::of(sv[v][4]);
     s.X[v][0] = sv[v][5];
     s.X[v][1] = sv[v][6];
+    if constexpr (BDF2) {
+      s.up2e[v][0] = sv[v][7];
+      s.up2e[v][1] = sv[v][8];
+    }
   }
   s.h = h;
 }
@@ -198,13 +243,14 @@ __device__ __forceinline__ void read_state(const T (*sv)[VERT], T h,
 // what depends on the physical gradients and the cell's dofs alone
 template <typename N>
 struct Grads {
-  N gum[2][2];  // grad of the midpoint velocity, [i][g] = d u_i / d x_g
+  N gum[2][2];  // grad of the scheme's velocity, [i][g] = d u_i / d x_g
   N c[2];       // grad p - rho f
   N div;
   N sv[2][2];  // viscous stress mu (grad u + grad u^T)
 };
 
-template <typename T, typename N>
+// the scheme's velocity: the midpoint (u + u_prev) / 2, or (BDF2) u
+template <typename T, typename N, bool BDF2>
 __device__ __forceinline__ void gradients(const Geom<T>& g,
                                           const CellState<T, N>& s,
                                           const CellParams<T>& prm,
@@ -216,9 +262,13 @@ __device__ __forceinline__ void gradients(const Geom<T>& g,
     for (int a = 0; a < 2; ++a) {
       const N gu = s.ue[0][i] * g.gu[0][a] + s.ue[1][i] * g.gu[1][a] +
                    s.ue[2][i] * g.gu[2][a];
-      const T gup = s.upe[0][i] * g.gu[0][a] + s.upe[1][i] * g.gu[1][a] +
-                    s.upe[2][i] * g.gu[2][a];
-      G.gum[i][a] = T(0.5) * (gu + gup);
+      if constexpr (BDF2) {
+        G.gum[i][a] = gu;
+      } else {
+        const T gup = s.upe[0][i] * g.gu[0][a] + s.upe[1][i] * g.gu[1][a] +
+                      s.upe[2][i] * g.gu[2][a];
+        G.gum[i][a] = T(0.5) * (gu + gup);
+      }
     }
     G.c[i] = (s.pe[0] * g.gu[0][i] + s.pe[1] * g.gu[1][i] +
               s.pe[2] * g.gu[2][i]) -
@@ -251,8 +301,9 @@ __device__ __forceinline__ void contract(const Geom<T>& g,
   }
 }
 
-// The cell residual ru[b][i], rp[b] as _make_cell_kernel computes it.
-template <typename T, typename N>
+// The cell residual ru[b][i], rp[b] as _make_cell_kernel computes it
+// (BDF2: as StabilizedNSFormBDF2's does).
+template <typename T, typename N, bool BDF2>
 __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
                                           const Tabs<T>& tb,
                                           const CellParams<T>& prm, int nq,
@@ -278,19 +329,28 @@ __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
   Geom<T> g;
   Grads<N> G;
   p1_geometry(s.X, tb.dphi, tb.dphi, g);
-  gradients(g, s, prm, G);
+  gradients<T, N, BDF2>(g, s, prm, G);
   for (int q = 0; q < nq; ++q) {
     const T* ph = tb.phi + q * 3;
     const T w = tb.qw[q] * g.adet;
 
-    N uq[2], umq[2];
+    N uq[2], umq[2], dudt[2];
     T upq[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       uq[i] = s.ue[0][i] * ph[0] + s.ue[1][i] * ph[1] + s.ue[2][i] * ph[2];
       upq[i] =
           s.upe[0][i] * ph[0] + s.upe[1][i] * ph[1] + s.upe[2][i] * ph[2];
-      umq[i] = T(0.5) * (uq[i] + upq[i]);
+      if constexpr (BDF2) {
+        const T up2q = s.up2e[0][i] * ph[0] + s.up2e[1][i] * ph[1] +
+                       s.up2e[2][i] * ph[2];
+        umq[i] = uq[i];
+        dudt[i] = (prm.a0 * uq[i] + (prm.a1 * upq[i] + prm.a2 * up2q)) *
+                  prm.idt;
+      } else {
+        umq[i] = T(0.5) * (uq[i] + upq[i]);
+        dudt[i] = (uq[i] - upq[i]) * prm.idt;
+      }
     }
     const N pq = s.pe[0] * ph[0] + s.pe[1] * ph[1] + s.pe[2] * ph[2];
 
@@ -305,8 +365,7 @@ __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
     N tR[2], wm[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const N acc = (uq[i] - upq[i]) * prm.idt +
-                    (G.gum[i][0] * umq[0] + G.gum[i][1] * umq[1]);
+      const N acc = dudt[i] + (G.gum[i][0] * umq[0] + G.gum[i][1] * umq[1]);
       tR[i] = tau * (prm.rho * acc + G.c[i]);
       wm[i] = w * (prm.rho * (acc - f[i]));
     }
@@ -332,47 +391,44 @@ __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
   contract(g, S, P, ru, rp);
 }
 
-// the cells' arguments, as the C entry points pass them
+// a form's facet blocks that ride in the element kernel's launch:
+// range k takes blocks first[k] .. first[k + 1] - 1 after the cells'
 template <typename T>
-struct CellIn {
-  const T* __restrict__ u;
-  const T* __restrict__ uprev;
-  const T* __restrict__ p;
-  const int* __restrict__ dofmap;
-  const T* __restrict__ coords;
-  const T* __restrict__ hcell;
-  const T* __restrict__ phi;
-  const T* __restrict__ dphi;
-  const T* __restrict__ qw;
-  int64_t nc;
-  int nq;
+struct FacetRanges {
+  FacetRange<T> r[MAXF];
+  int64_t first[MAXF + 1];
+  int n;
 };
 
-// the facet block that rides in K3's launch: K7's arguments, its lanes
-// in the blocks after the cells' (kernel K7, ns_facet_natural.cuh)
+// the lanes of facet block `b` (counted after the cells' blocks); the
+// range is picked by constant indices, so the ranges stay in the
+// parameter space
 template <typename T>
-struct FacetRange {
-  FacetIn<T> in;
-  FacetTabs<T> tb;
-  int64_t nf;
-  int nq;
-  T mu;
-  T* out;  // ru_f (nf, 3, 2) or A_f (nf, 9, 9)
-};
+__device__ __forceinline__ void facet_block(const FacetRanges<T>& fr,
+                                            int64_t b, bool jacobian) {
+  int k = 0;
+#pragma unroll
+  for (int i = 1; i < MAXF; ++i)
+    if (i < fr.n && b >= fr.first[i]) k = i;
+  const int64_t lane = (b - fr.first[k]) * blockDim.x + threadIdx.x;
+  if (k == 0)
+    facet_lane(fr.r[0], lane, jacobian);
+  else if (k == 1)
+    facet_lane(fr.r[1], lane, jacobian);
+  else if (k == 2)
+    facet_lane(fr.r[2], lane, jacobian);
+  else
+    facet_lane(fr.r[3], lane, jacobian);
+}
 
 // Residual: one lane a cell, RES_CELLS cells a block; block blk of the
 // cell range
-template <typename T>
+template <typename T, bool BDF2>
 __device__ __forceinline__ void cell_residual_block(
     int64_t blk, const CellIn<T>& ci, const CellParams<T>& prm,
     T* __restrict__ ru_e, T* __restrict__ rp_e) {
   using V2 = typename Vec2<T>::type;
-  const T* u = ci.u;
-  const T* uprev = ci.uprev;
-  const T* p = ci.p;
-  const int* dofmap = ci.dofmap;
-  const T* coords = ci.coords;
-  const T* hcell = ci.hcell;
+  constexpr int VERT = Vert<BDF2>::value;
   const int64_t nc = ci.nc;
   const int nq = ci.nq;
   __shared__ Tabs<T> tb;
@@ -383,16 +439,15 @@ __device__ __forceinline__ void cell_residual_block(
   T h = T(1);
   if (active) {
 #pragma unroll
-    for (int v = 0; v < 3; ++v)
-      load_vertex(c * 3 + v, u, uprev, p, dofmap, coords, sv[v]);
-    h = __ldg(hcell + c);
+    for (int v = 0; v < 3; ++v) load_vertex<T, BDF2>(c * 3 + v, ci, sv[v]);
+    h = __ldg(ci.hcell + c);
   }
   __syncthreads();
   if (!active) return;
   CellState<T, T> s;
-  read_state<T, T>(sv, h, s);
+  read_state<T, T, BDF2>(sv, h, s);
   T ru[3][2], rp[3];
-  cell_body<T, T>(s, tb, prm, nq, ru, rp);
+  cell_body<T, T, BDF2>(s, tb, prm, nq, ru, rp);
 #pragma unroll
   for (int v = 0; v < 3; ++v) {
     V2 o;
@@ -403,50 +458,24 @@ __device__ __forceinline__ void cell_residual_block(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(RES_CELLS)
-    ns_cell_residual_p1_kernel(const CellIn<T> ci, const CellParams<T> prm,
-                               T* __restrict__ ru_e, T* __restrict__ rp_e) {
-  cell_residual_block(blockIdx.x, ci, prm, ru_e, rp_e);
-}
-
-// K3 and K7 in one launch: the cell blocks, then the facet blocks (one
-// lane a facet, the cells' block size; no shared memory beyond the
-// cells' static tables)
-template <typename T>
-__global__ void __launch_bounds__(RES_CELLS) ns_cell_residual_p1_facet_kernel(
-    const CellIn<T> ci, const CellParams<T> prm, T* __restrict__ ru_e,
-    T* __restrict__ rp_e, const FacetRange<T> fr, int64_t cell_blocks) {
-  if (blockIdx.x >= cell_blocks) {
-    const int64_t f = (blockIdx.x - cell_blocks) * RES_CELLS + threadIdx.x;
-    if (f < fr.nf) facet_residual_lane(fr.in, fr.tb, f, fr.nq, fr.mu, fr.out);
-    return;
-  }
-  cell_residual_block(blockIdx.x, ci, prm, ru_e, rp_e);
-}
-
 // Jacobian: three lanes a cell, lane j differentiating along the three
 // dofs of trial vertex j: columns u(j, 0), u(j, 1) and p(j)
 constexpr int JAC_ND = 3;               // tangent directions a lane
 constexpr int JAC_LPC = NLOC / JAC_ND;  // lanes a cell
+constexpr int JAC_THREADS = JAC_CELLS * JAC_LPC;
 
 __device__ __forceinline__ int jac_column(int j, int k) {
   return k < 2 ? 2 * j + k : 6 + j;
 }
 
-template <typename T>
+template <typename T, bool BDF2>
 __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
                                                     const CellIn<T>& ci,
                                                     const CellParams<T>& prm,
                                                     T* __restrict__ A) {
   using N = Dual<T, JAC_ND>;
   using V16 = typename Vec16<T>::type;
-  const T* u = ci.u;
-  const T* uprev = ci.uprev;
-  const T* p = ci.p;
-  const int* dofmap = ci.dofmap;
-  const T* coords = ci.coords;
-  const T* hcell = ci.hcell;
+  constexpr int VERT = Vert<BDF2>::value;
   const int64_t nc = ci.nc;
   const int nq = ci.nq;
   __shared__ Tabs<T> tb;
@@ -456,16 +485,16 @@ __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
   const int64_t c0 = blk * (int64_t)JAC_CELLS;
   load_tabs(tb, ci.phi, ci.dphi, ci.qw, nq);
   if (c0 * 3 + t < 3 * nc)  // one (cell, vertex) slot a lane
-    load_vertex(c0 * 3 + t, u, uprev, p, dofmap, coords, s_vert[t]);
+    load_vertex<T, BDF2>(c0 * 3 + t, ci, s_vert[t]);
   const int cl = t / JAC_LPC;
   const int j = t - cl * JAC_LPC;
   const bool active = c0 + cl < nc;
   T h = T(1);
-  if (active) h = __ldg(hcell + c0 + cl);
+  if (active) h = __ldg(ci.hcell + c0 + cl);
   __syncthreads();
   if (active) {
     CellState<T, N> s;
-    read_state<T, N>(s_vert + cl * 3, h, s);
+    read_state<T, N, BDF2>(s_vert + cl * 3, h, s);
 #pragma unroll
     for (int k = 0; k < JAC_ND; ++k) {
       const int c = jac_column(j, k);
@@ -477,7 +506,7 @@ __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
       }
     }
     N ru[3][2], rp[3];
-    cell_body<T, N>(s, tb, prm, nq, ru, rp);
+    cell_body<T, N, BDF2>(s, tb, prm, nq, ru, rp);
 #pragma unroll
     for (int k = 0; k < JAC_ND; ++k) {
       T* col = tile + cl * (NLOC * NLOC) + jac_column(j, k);
@@ -502,172 +531,152 @@ __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
   for (int i = nvec * PER + t; i < count; i += blockDim.x) dst[i] = tile[i];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(JAC_CELLS * JAC_LPC)
-    ns_cell_jacobian_p1_kernel(const CellIn<T> ci, const CellParams<T> prm,
-                               T* __restrict__ A) {
-  cell_jacobian_block(blockIdx.x, ci, prm, A);
-}
-
-// the Jacobians of K3 and K7 in one launch: the cell blocks, then the
-// facet blocks (one lane a (facet, column), the cells' block size; the
-// tile and vertex arrays are the cells' static shared memory, which the
-// facet blocks leave unused)
-template <typename T>
-__global__ void __launch_bounds__(JAC_CELLS * JAC_LPC)
-    ns_cell_jacobian_p1_facet_kernel(const CellIn<T> ci,
-                                     const CellParams<T> prm,
-                                     T* __restrict__ A,
-                                     const FacetRange<T> fr,
-                                     int64_t cell_blocks) {
-  if (blockIdx.x >= cell_blocks) {
-    const int64_t lane =
-        (blockIdx.x - cell_blocks) * (JAC_CELLS * JAC_LPC) + threadIdx.x;
-    if (lane < fr.nf * NLOC)
-      facet_jacobian_lane(fr.in, fr.tb, lane, fr.nq, fr.mu, fr.out);
-    return;
+// The kernels: the residual and the Jacobian, Crank-Nicolson (K3) and
+// BDF2 (K14), without facet blocks and with them (after the cell
+// blocks). Each has a name of its own, so that a trace tells them apart.
+#define CELL_KERNELS(NAME, BDF2)                                             \
+  template <typename T>                                                      \
+  __global__ void __launch_bounds__(RES_CELLS)                               \
+      ns_cell_residual_##NAME##_kernel(const CellIn<T> ci,                   \
+                                       const CellParams<T> prm,              \
+                                       T* __restrict__ ru_e,                 \
+                                       T* __restrict__ rp_e) {               \
+    cell_residual_block<T, BDF2>(blockIdx.x, ci, prm, ru_e, rp_e);           \
+  }                                                                          \
+  template <typename T>                                                      \
+  __global__ void __launch_bounds__(RES_CELLS)                               \
+      ns_cell_residual_##NAME##_facet_kernel(                                \
+          const CellIn<T> ci, const CellParams<T> prm, T* __restrict__ ru_e, \
+          T* __restrict__ rp_e, const FacetRanges<T> fr,                     \
+          int64_t cell_blocks) {                                             \
+    if (blockIdx.x >= cell_blocks) {                                         \
+      facet_block(fr, blockIdx.x - cell_blocks, false);                      \
+      return;                                                                \
+    }                                                                        \
+    cell_residual_block<T, BDF2>(blockIdx.x, ci, prm, ru_e, rp_e);           \
+  }                                                                          \
+  template <typename T>                                                      \
+  __global__ void __launch_bounds__(JAC_THREADS)                             \
+      ns_cell_jacobian_##NAME##_kernel(const CellIn<T> ci,                   \
+                                       const CellParams<T> prm,              \
+                                       T* __restrict__ A) {                  \
+    cell_jacobian_block<T, BDF2>(blockIdx.x, ci, prm, A);                    \
+  }                                                                          \
+  template <typename T>                                                      \
+  __global__ void __launch_bounds__(JAC_THREADS)                             \
+      ns_cell_jacobian_##NAME##_facet_kernel(                                \
+          const CellIn<T> ci, const CellParams<T> prm, T* __restrict__ A,    \
+          const FacetRanges<T> fr, int64_t cell_blocks) {                    \
+    if (blockIdx.x >= cell_blocks) {                                         \
+      facet_block(fr, blockIdx.x - cell_blocks, true);                       \
+      return;                                                                \
+    }                                                                        \
+    cell_jacobian_block<T, BDF2>(blockIdx.x, ci, prm, A);                    \
   }
-  cell_jacobian_block(blockIdx.x, ci, prm, A);
+
+CELL_KERNELS(p1, false)
+CELL_KERNELS(bdf2_p1, true)
+
+// the facet ranges' block offsets at `threads` lanes a block
+template <typename T>
+int64_t place_ranges(FacetRanges<T>& fr, bool jacobian, int threads) {
+  int64_t b = 0;
+  for (int k = 0; k < fr.n; ++k) {
+    fr.first[k] = b;
+    const int64_t lanes = jacobian ? fr.r[k].nf * NLOC : fr.r[k].nf;
+    b += (lanes + threads - 1) / threads;
+  }
+  fr.first[fr.n] = b;
+  return b;
 }
 
 template <typename T>
-CellIn<T> cell_in(const void* u, const void* uprev, const void* p,
-                  const void* dofmap, const void* coords, const void* h,
-                  const void* phi, const void* dphi, const void* qw,
-                  int64_t nc, int nq) {
-  return CellIn<T>{static_cast<const T*>(u), static_cast<const T*>(uprev),
-                   static_cast<const T*>(p), static_cast<const int*>(dofmap),
-                   static_cast<const T*>(coords), static_cast<const T*>(h),
-                   static_cast<const T*>(phi), static_cast<const T*>(dphi),
-                   static_cast<const T*>(qw), nc, nq};
-}
-
-// the facet range's blocks: `lanes` lanes at the cells' block size
-inline unsigned facet_blocks(int64_t lanes, int threads) {
-  return (unsigned)((lanes + threads - 1) / threads);
-}
-
-template <typename T>
-int launch_residual(const CellIn<T>& ci, const CellParams<T>& prm,
-                    void* ru_e, void* rp_e, const FacetRange<T>* fr,
-                    cudaStream_t st) {
-  const int64_t blocks = (ci.nc + RES_CELLS - 1) / RES_CELLS;
-  if (fr == nullptr) {
-    ns_cell_residual_p1_kernel<T><<<(unsigned)blocks, RES_CELLS, 0, st>>>(
-        ci, prm, static_cast<T*>(ru_e), static_cast<T*>(rp_e));
+int launch(const CellIn<T>& ci, const CellParams<T>& prm, bool bdf2,
+           void* out0, void* out1, FacetRanges<T>& fr, bool jacobian,
+           cudaStream_t st) {
+  T* o0 = static_cast<T*>(out0);
+  T* o1 = static_cast<T*>(out1);
+  const int threads = jacobian ? JAC_THREADS : RES_CELLS;
+  const int per = jacobian ? JAC_CELLS : RES_CELLS;
+  const int64_t blocks = (ci.nc + per - 1) / per;
+  const unsigned total =
+      (unsigned)(blocks + (fr.n > 0 ? place_ranges(fr, jacobian, threads)
+                                    : 0));
+#define CELL_LAUNCH(NAME)                                                  \
+  if (fr.n == 0 && jacobian)                                               \
+    ns_cell_jacobian_##NAME##_kernel<T><<<total, threads, 0, st>>>(ci, prm, \
+                                                                   o0);    \
+  else if (fr.n == 0)                                                      \
+    ns_cell_residual_##NAME##_kernel<T><<<total, threads, 0, st>>>(        \
+        ci, prm, o0, o1);                                                  \
+  else if (jacobian)                                                       \
+    ns_cell_jacobian_##NAME##_facet_kernel<T><<<total, threads, 0, st>>>(  \
+        ci, prm, o0, fr, blocks);                                          \
+  else                                                                     \
+    ns_cell_residual_##NAME##_facet_kernel<T><<<total, threads, 0, st>>>(  \
+        ci, prm, o0, o1, fr, blocks);
+  if (bdf2) {
+    CELL_LAUNCH(bdf2_p1)
   } else {
-    const unsigned total = (unsigned)blocks + facet_blocks(fr->nf, RES_CELLS);
-    ns_cell_residual_p1_facet_kernel<T><<<total, RES_CELLS, 0, st>>>(
-        ci, prm, static_cast<T*>(ru_e), static_cast<T*>(rp_e), *fr, blocks);
+    CELL_LAUNCH(p1)
   }
+#undef CELL_LAUNCH
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_jacobian(const CellIn<T>& ci, const CellParams<T>& prm, void* A,
-                    const FacetRange<T>* fr, cudaStream_t st) {
-  constexpr int threads = JAC_CELLS * JAC_LPC;
-  const int64_t blocks = (ci.nc + JAC_CELLS - 1) / JAC_CELLS;
-  if (fr == nullptr) {
-    ns_cell_jacobian_p1_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
-        ci, prm, static_cast<T*>(A));
-  } else {
-    const unsigned total =
-        (unsigned)blocks + facet_blocks(fr->nf * NLOC, threads);
-    ns_cell_jacobian_p1_facet_kernel<T><<<total, threads, 0, st>>>(
-        ci, prm, static_cast<T*>(A), *fr, blocks);
-  }
-  return (int)cudaGetLastError();
-}
-
-// one entry point of four: the residual or the Jacobian, with the facet
-// block (nf > 0) or without
-template <typename T>
-int run(const void* u, const void* uprev, const void* p, const void* dofmap,
-        const void* coords, const void* h, const void* phi, const void* dphi,
-        const void* qw, int64_t nc, int64_t nq, double rho, double mu,
-        double dt, double f0, double f1, double eps, void* out0, void* out1,
-        const void* const* fp, int64_t nf, int64_t nqf, double mu_f,
-        void* out_f, int jacobian, cudaStream_t st) {
-  const CellIn<T> ci = cell_in<T>(u, uprev, p, dofmap, coords, h, phi, dphi,
-                                  qw, nc, (int)nq);
-  const CellParams<T> prm = make_params<T>(rho, mu, dt, f0, f1, eps);
-  FacetRange<T> fr;
-  if (nf > 0) {
-    fr.in = facet_in<T>(u, uprev, p, fp[0], fp[1], fp[2]);
-    fr.tb = facet_tabs<T>(fp[3], fp[4], fp[5], fp[6], fp[7], fp[8]);
-    fr.nf = nf;
-    fr.nq = (int)nqf;
-    fr.mu = (T)mu_f;
-    fr.out = static_cast<T*>(out_f);
-  }
-  const FacetRange<T>* frp = nf > 0 ? &fr : nullptr;
-  return jacobian ? launch_jacobian<T>(ci, prm, out0, frp, st)
-                  : launch_residual<T>(ci, prm, out0, out1, frp, st);
-}
-
-int dispatch(const void* u, const void* uprev, const void* p,
-             const void* dofmap, const void* coords, const void* h,
-             const void* phi, const void* dphi, const void* qw, int64_t nc,
-             int64_t nq, double rho, double mu, double dt, double f0,
-             double f1, double eps, void* out0, void* out1,
-             const void* const* fp, int64_t nf, int64_t nqf, double mu_f,
-             void* out_f, int jacobian, int is_f64, void* stream) {
-  if (nq < 1 || nq > MAXQ) return (int)cudaErrorInvalidValue;
-  if (nf > 0 && nqf < 1) return (int)cudaErrorInvalidValue;
-  if (nc <= 0 && nf <= 0) return (int)cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_f64)
-    return run<double>(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
-                       rho, mu, dt, f0, f1, eps, out0, out1, fp, nf, nqf,
-                       mu_f, out_f, jacobian, st);
-  return run<float>(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
-                    rho, mu, dt, f0, f1, eps, out0, out1, fp, nf, nqf, mu_f,
-                    out_f, jacobian, st);
+int run(const void* const* cp, int64_t nc, int nq, const double* sc,
+        int bdf2, void* out0, void* out1, int nfb, const void* const* fptr,
+        const int64_t* fsize, const int* fopt, const double* fc,
+        void* const* fout, int jacobian, cudaStream_t st) {
+  const CellIn<T> ci{
+      static_cast<const T*>(cp[0]), static_cast<const T*>(cp[1]),
+      static_cast<const T*>(cp[2]), static_cast<const T*>(cp[3]),
+      static_cast<const int*>(cp[4]), static_cast<const T*>(cp[5]),
+      static_cast<const T*>(cp[6]), static_cast<const T*>(cp[7]),
+      static_cast<const T*>(cp[8]), static_cast<const T*>(cp[9]), nc, nq};
+  const CellParams<T> prm =
+      make_params<T>(sc[0], sc[1], sc[2], sc[3], sc[4], sc[5], sc[6], sc[7],
+                     sc[8]);
+  FacetRanges<T> fr;
+  fr.n = nfb;
+  for (int k = 0; k < nfb; ++k)
+    fr.r[k] = facet_range<T>(cp[0], cp[1], cp[3], fptr + 9 * k,
+                             fsize[2 * k], (int)fsize[2 * k + 1],
+                             fopt[2 * k], fopt[2 * k + 1], fc[k], fout[k]);
+  return launch<T>(ci, prm, bdf2 != 0, out0, out1, fr, jacobian != 0, st);
 }
 
 }  // namespace
 
-extern "C" int cfd_ns_cell_residual_p1(
-    const void* u, const void* uprev, const void* p, const void* dofmap,
-    const void* coords, const void* h, const void* phi, const void* dphi,
-    const void* qw, int64_t nc, int64_t nq, double rho, double mu,
-    double dt, double f0, double f1, double eps, void* ru_e, void* rp_e,
-    int is_f64, void* stream) {
-  return dispatch(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq, rho,
-                  mu, dt, f0, f1, eps, ru_e, rp_e, nullptr, 0, 0, 0.0,
-                  nullptr, 0, is_f64, stream);
-}
-
-extern "C" int cfd_ns_cell_jacobian_p1(
-    const void* u, const void* uprev, const void* p, const void* dofmap,
-    const void* coords, const void* h, const void* phi, const void* dphi,
-    const void* qw, int64_t nc, int64_t nq, double rho, double mu,
-    double dt, double f0, double f1, double eps, void* A, int is_f64,
-    void* stream) {
-  return dispatch(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq, rho,
-                  mu, dt, f0, f1, eps, A, nullptr, nullptr, 0, 0, 0.0,
-                  nullptr, 1, is_f64, stream);
-}
-
-// K3 with a facet block in the same launch (K7's bodies): after the
-// cells' arguments, the block's dofmap_u, dofmap_p, coords and its six
-// tables (phi_u, dphi_u, phi_p, gdphi, normal, dS), nf, nq, mu and the
-// facet output (ru_f (nf, 3, 2), or A_f (nf, 9, 9) with jacobian = 1)
-extern "C" int cfd_ns_cell_facet_p1(
-    const void* u, const void* uprev, const void* p, const void* dofmap,
-    const void* coords, const void* h, const void* phi, const void* dphi,
-    const void* qw, int64_t nc, int64_t nq, double rho, double mu,
-    double dt, double f0, double f1, double eps, void* out0, void* out1,
-    const void* f_dofmap_u, const void* f_dofmap_p, const void* f_coords,
-    const void* f_phi_u, const void* f_dphi_u, const void* f_phi_p,
-    const void* f_gdphi, const void* f_normal, const void* f_dS, int64_t nf,
-    int64_t nqf, double mu_f, void* out_f, int jacobian, int is_f64,
-    void* stream) {
-  if (nf <= 0) return (int)cudaErrorInvalidValue;
-  const void* fp[9] = {f_dofmap_u, f_dofmap_p, f_coords, f_phi_u, f_dphi_u,
-                       f_phi_p,   f_gdphi,   f_normal, f_dS};
-  return dispatch(u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq, rho,
-                  mu, dt, f0, f1, eps, out0, out1, fp, nf, nqf, mu_f, out_f,
-                  jacobian, is_f64, stream);
+// The element kernels' one entry point.
+//   cp: the cells' pointers u, u_prev, u_prev2 (BDF2; else unused), p,
+//       dofmap, coords, h, phi, dphi, qw
+//   sc: rho, mu, dt, f0, f1, eps, a0, a1, a2 (BDF2's coefficients)
+//   bdf2: 0 the Crank-Nicolson body (K3), 1 the BDF2 body (K14)
+//   out0, out1: ru_e, rp_e (residual) or A_cells, null (jacobian = 1)
+//   nfb facet blocks (at most MAXF), each: fptr[9 k ..] its dofmap_u,
+//       dofmap_p, coords, phi_u, dphi_u, phi_p, gdphi, normal, dS;
+//       fsize[2 k ..] nf, nq; fopt[2 k ..] term, implicit; fc[k] its
+//       scalar (ns_facet.cuh); fout[k] its ru_f or A_f
+extern "C" int cfd_ns_element_p1(const void* const* cp, int64_t nc,
+                                 int64_t nq, const double* sc, int bdf2,
+                                 void* out0, void* out1, int nfb,
+                                 const void* const* fptr,
+                                 const int64_t* fsize, const int* fopt,
+                                 const double* fc, void* const* fout,
+                                 int jacobian, int is_f64, void* stream) {
+  if (nq < 1 || nq > MAXQ || nfb < 0 || nfb > MAXF)
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < nfb; ++k)
+    if (fsize[2 * k] < 1 || fsize[2 * k + 1] < 1 || fopt[2 * k] < 0 ||
+        fopt[2 * k] >= NTERMS)
+      return (int)cudaErrorInvalidValue;
+  if (nc <= 0 && nfb == 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f64)
+    return run<double>(cp, nc, (int)nq, sc, bdf2, out0, out1, nfb, fptr,
+                       fsize, fopt, fc, fout, jacobian, st);
+  return run<float>(cp, nc, (int)nq, sc, bdf2, out0, out1, nfb, fptr, fsize,
+                    fopt, fc, fout, jacobian, st);
 }

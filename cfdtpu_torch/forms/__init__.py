@@ -1,4 +1,4 @@
-from .navier_stokes import StabilizedNSForm
+from .navier_stokes import StabilizedNSForm, StabilizedNSFormBDF2
 from . import facet_terms
 
-__all__ = ["StabilizedNSForm", "facet_terms"]
+__all__ = ["StabilizedNSForm", "StabilizedNSFormBDF2", "facet_terms"]

@@ -1,21 +1,26 @@
 """SUPG/PSPG/LSIC-stabilized incompressible Navier-Stokes residual.
 
 The counterpart of cfdtpu/forms/navier_stokes.py StabilizedNSForm
-(Crank-Nicolson midpoint, equal-order Pk-Pk). The cell residual and the
-exact element Jacobians are the two entry points of kernel K3
-(kernels/ns_cell_residual.py: P1 triangles on CUDA, elsewhere the plain
-vmapped cell kernel and vmap(jacfwd(.)) of it, the analogue of
-jax.vmap(jax.jacfwd(.))). The natural-correction facet term is kernel
-K7's body (kernels/ns_facet_natural.py), residual and Jacobian alike,
-run inside K3's launch: one launch a residual, one a Jacobian build. It
-is the one facet term that is ported: add_facet_term refuses any other,
-and residual and element_jacobians refuse a second facet block. Cell
-and facet contributions are reduced to the nodes by K2, the facets over
-one sorted scatter per facet block, so the residual is the same on
-every run (an index_add on CUDA sums with atomics in no fixed order).
+(Crank-Nicolson midpoint, equal-order Pk-Pk) and StabilizedNSFormBDF2.
+The cell residual and the exact element Jacobians are the entry points
+of kernel K3 (kernels/ns_cell_residual.py: P1 triangles on CUDA,
+elsewhere the plain vmapped cell kernel and vmap(jacfwd(.)) of it, the
+analogue of jax.vmap(jax.jacfwd(.))), under BDF2 those of K14. A form
+carries any number of facet blocks (up to the launch's
+MAX_FACET_BLOCKS), several on the same facets if need be: the natural
+correction (K7), the viscous traction (K12) and the backflow
+stabilisation (K13), each at the midpoint or at u (forms/
+facet_terms.py). Their bodies run inside the element kernel's launch,
+residual and Jacobian alike: one launch a residual, one a Jacobian
+build. Cell and facet contributions are reduced to the nodes by K2,
+the cells first, then each facet block over its own sorted scatter in
+the order the blocks were added (cfdtpu's .at[dm_u].add order), so the
+residual is the same on every run (an index_add on CUDA sums with
+atomics in no fixed order).
 
 Parameters `prm` are a dict of Python floats: dt, rho, mu, and the body
-force f as a tuple. Velocity u is (n_u, d); p is (n_p,).
+force f as a tuple, plus what the facet terms read (beta_backflow) and,
+under BDF2, bdf_a0..bdf_a2. Velocity u is (n_u, d); p is (n_p,).
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ import torch
 
 from ..assembly import FacetQuadrature
 from ..elements import LagrangeElement, quadrature
-from ..kernels.ns_cell_residual import (CellTabs, ns_cell_jacobian_p1,
+from ..kernels.ns_cell_residual import (CellTabs, ns_cell_jacobian_bdf2_p1,
+                                        ns_cell_jacobian_p1,
+                                        ns_cell_residual_bdf2_p1,
                                         ns_cell_residual_p1)
-from ..kernels.ns_facet_natural import ns_facet_natural_p1
+from ..kernels.ns_facet import FacetBlock, FacetTerm, facet_call
 from ..spaces import FunctionSpace
 from ..utils import SortedScatter, det_and_inv, torch_dtype
 from .facet_terms import natural_correction
@@ -145,14 +152,19 @@ class StabilizedNSForm:
 
         kernel(u_e, p_e, aux_e, coords_e, tabs, prm) -> r_u (nbu, dim);
         tabs = dict(phi_u (nq, nbu), dphi_u (nq, nbu, d), phi_p (nq, nbp),
-        gdphi (nq, nvg, d), normal (nq, d), dS (nq,), h scalar).
-        Only the natural correction (facet_terms.natural_correction,
-        kernel K7) is ported; any other kernel raises.
+        gdphi (nq, nvg, d), normal (nq, d), dS (nq,), h scalar). The
+        kernel must be one of forms/facet_terms.py's, whose `fused`
+        names its CUDA kernel; any other raises.
         """
-        if getattr(kernel, "fused", None) != "natural_correction":
+        term = getattr(kernel, "fused", None)
+        if not isinstance(term, FacetTerm):
             raise NotImplementedError(
-                f"facet term {name!r}: only the natural correction has a "
-                "kernel (K7, kernels/ns_facet_natural.py)")
+                f"facet term {name!r} has no CUDA kernel: the ported facet "
+                "terms are natural_correction (K7), viscous_traction (K12) "
+                "and backflow (K13); weak_pressure, nitsche_tangential, "
+                "nitsche_tangential_curl, cbc, directional_do_nothing and "
+                "natural_correction_full_stress come with ROADMAP queue "
+                "B5f")
         mesh = self.mesh
         facet_indices = np.asarray(facet_indices, dtype=np.int32)
         if facet_indices.size == 0:
@@ -175,8 +187,9 @@ class StabilizedNSForm:
         dm_p = np.asarray(self.Q.dofmap)[cells].astype(np.int64)
         block = {
             "name": name,
+            "term": term,
             "dofmap_u": torch.as_tensor(dm_u, device=dev),
-            # int32 copies for the fused kernel's gathers (K7)
+            # int32 copies for the facet kernels' gathers
             "dofmap_u32": torch.as_tensor(dm_u.astype(np.int32), device=dev),
             "dofmap_p32": torch.as_tensor(dm_p.astype(np.int32), device=dev),
             # deterministic facet -> node reduction (K2), cf. _scatter_u
@@ -204,60 +217,71 @@ class StabilizedNSForm:
 
     @staticmethod
     def _fused_args(block, u, p, aux, prm):
-        """The arguments of K7 for a facet block."""
+        """The arguments of K7's entry points for a natural-correction
+        block at the midpoint."""
         return (u, aux[0], p, block["dofmap_u32"], block["dofmap_p32"],
                 block["coords"], block["tabs"], prm["mu"])
 
+    @staticmethod
+    def _kernel_block(block, prm) -> FacetBlock:
+        """A facet block as the element kernels take it."""
+        term = block["term"]
+        return FacetBlock(term, block["dofmap_u32"], block["dofmap_p32"],
+                          block["coords"], block["tabs"], term.scalars(prm))
+
     def _block_residual(self, block, u, p, aux, prm):
-        """One facet block's residual alone (K7's own launch): the
-        reaction force takes it out of the assembled residual."""
-        return block["dofmap_u"], ns_facet_natural_p1(
-            *self._fused_args(block, u, p, aux, prm))
+        """One facet block's residual alone (its term's own launch): the
+        reaction force takes the natural correction out of the assembled
+        residual."""
+        kb = self._kernel_block(block, prm)
+        return block["dofmap_u"], facet_call(kb.term, kb.scalars, False, u,
+                                             aux[0], p, *kb.args())
 
-    def _facet_block(self, u, p, aux, prm):
-        """(block, K3's facet argument) of the form's one facet block, or
-        (None, None) without one. A second block raises: K3's launch
-        carries one, and no ported scenario has more."""
-        if not self._facet_blocks:
-            return None, None
-        if len(self._facet_blocks) > 1:
-            raise NotImplementedError(
-                f"{len(self._facet_blocks)} facet blocks: the element "
-                "kernel's launch carries one natural-correction block")
-        block = self._facet_blocks[0]
-        return block, self._fused_args(block, u, p, aux, prm)[3:]
-
-    def _cell_args(self, u, p, aux, prm):
-        return (u, aux[0], p, self.dofmap_u, self.dofmap_p,
-                self.cell_coords, self.cell_h, self.tabs, prm["rho"],
-                prm["mu"], prm["dt"], prm["f"], self.eps)
+    def _element_call(self, jacobian: bool, u, p, aux, prm):
+        """One element-kernel launch: the cells and every facet block
+        (K3; K14 in the BDF2 form)."""
+        fn = ns_cell_jacobian_p1 if jacobian else ns_cell_residual_p1
+        out = fn(u, aux[0], p, self.dofmap_u, self.dofmap_p,
+                 self.cell_coords, self.cell_h, self.tabs, prm["rho"],
+                 prm["mu"], prm["dt"], prm["f"], self.eps,
+                 facets=[self._kernel_block(b, prm)
+                         for b in self._facet_blocks])
+        return out
 
     # ------------------------------------------------------------------
     def residual(self, u, p, aux, prm):
-        """Assembled residual (r_u (n_u, d), r_p (n_p,)): one K3 launch
-        with the facet block in it, then the K2 sums."""
-        block, facet = self._facet_block(u, p, aux, prm)
-        out = ns_cell_residual_p1(*self._cell_args(u, p, aux, prm),
-                                  facet=facet)
+        """Assembled residual (r_u (n_u, d), r_p (n_p,)): one element
+        kernel launch with every facet block in it, then the K2 sums."""
+        out = self._element_call(False, u, p, aux, prm)
         ru = self._scatter_u(out[0].reshape(-1, self.dim))
         rp = self._scatter_p(out[1].reshape(-1))
-        # cells first, then the facet block: a fixed order of sums
-        # (cfdtpu adds with .at[dm_u].add)
-        if block is not None:
+        # cells first, then each facet block in the order it was added: a
+        # fixed order of sums (cfdtpu adds with .at[dm_u].add)
+        for block, ru_f in zip(self._facet_blocks, out[2:]):
             ru = ru + block["scatter_u"](
-                out[2].reshape(-1, self.dim).contiguous())
+                ru_f.reshape(-1, self.dim).contiguous())
         return ru, rp
 
     # ------------------------------------------------------------------
     def element_jacobians(self, u, p, aux, prm):
         """Exact element Jacobian blocks: (A_cells (nc, nloc, nloc),
-        [(dofmap_flat, A_block) per facet term]), from one K3 launch."""
-        block, facet = self._facet_block(u, p, aux, prm)
-        out = ns_cell_jacobian_p1(*self._cell_args(u, p, aux, prm),
-                                  facet=facet)
-        if block is None:
+        [(dofmap_flat, A_block) per facet block]), from one launch."""
+        out = self._element_call(True, u, p, aux, prm)
+        if not self._facet_blocks:
             return out, []
-        return out[0], [(block["dofmap_flat"], out[1])]
+        return out[0], [(block["dofmap_flat"], A_f) for block, A_f
+                        in zip(self._facet_blocks, out[1:])]
+
+    def facet_flux(self, u, name: str):
+        """Q = int u·n dS over the named facet block (torch ops)."""
+        for block in self._facet_blocks:
+            if block["name"] == name:
+                tabs = block["tabs"]
+                u_q = torch.einsum("fqb,fbi->fqi", tabs["phi_u"],
+                                   u[block["dofmap_u"]])
+                un = torch.einsum("fqi,fqi->fq", u_q, tabs["normal"])
+                return torch.sum(un * tabs["dS"])
+        raise KeyError(f"no facet block named {name!r}")
 
     # ------------------------------------------------------------------
     # element-block operator (used by the pressure-nullspace test; the
@@ -347,3 +371,26 @@ class StabilizedNSForm:
         J = torch.einsum("cvg,qvd->cqgd", self.cell_coords, t.gdphi)
         detJ, _ = det_and_inv(J)
         return torch.sum(vals * detJ.abs() * t.qw[None, :])
+
+
+class StabilizedNSFormBDF2(StabilizedNSForm):
+    """BDF2 variant (cfdtpu's StabilizedNSFormBDF2): time term
+    rho (a0 u + a1 u_prev + a2 u_prev2) / dt with the coefficients in
+    prm (bdf_a0, bdf_a1, bdf_a2: BDF1 on a first step), convection,
+    stress and continuity at u; tau still from u_prev. The cell body is
+    kernel K14.
+
+    aux = (u_prev, u_prev2).
+    """
+
+    N_AUX = 2
+
+    def _element_call(self, jacobian: bool, u, p, aux, prm):
+        fn = (ns_cell_jacobian_bdf2_p1 if jacobian
+              else ns_cell_residual_bdf2_p1)
+        return fn(u, aux[0], aux[1], p, self.dofmap_u, self.dofmap_p,
+                  self.cell_coords, self.cell_h, self.tabs, prm["rho"],
+                  prm["mu"], prm["dt"], prm["f"], self.eps,
+                  (prm["bdf_a0"], prm["bdf_a1"], prm["bdf_a2"]),
+                  facets=[self._kernel_block(b, prm)
+                          for b in self._facet_blocks])

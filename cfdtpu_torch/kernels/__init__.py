@@ -9,14 +9,15 @@ K1 sup_spmv            supernode-ELL SpMV with fused epilogues; with its
 K2 ell_sum             deterministic sorted-segment gather-reduce (CSR scatter)
 K3 ns_cell_residual_p1 fused stabilized-NS cell residual, P1 triangles,
    ns_cell_jacobian_p1 and its exact element Jacobian (the same cell body
-                       on forward-mode dual numbers); each takes an
-                       optional facet block, whose K7 body then runs in
-                       the same launch
+                       on forward-mode dual numbers); each takes the
+                       form's facet blocks, whose K7, K12 or K13 bodies
+                       then run in the same launch
 K4 selfp_triple        SELFP triple products Apu diag(Auu)^-1 Aup
 K5 patch_spmv          in-patch scalar ELL SpMV (the gather microbenchmark)
 K6 ras_apply           restricted additive Schwarz window apply (owned rows)
 K7 ns_facet_natural_p1 natural-correction facet term, P1 triangles,
-   ns_facet_natural_jac_p1 and its element Jacobian
+   ns_facet_natural_jac_p1 and its element Jacobian, at the midpoint or
+                       (implicit, BDF2's) at u
 K8 amg_prolong         AMG coarse-grid correction base + xc[agg]
 K9 krylov_cgs          GMRES Gram-Schmidt step (CGS, CGS2), the active rows,
                        one launch; in FGMRES it ends in the Givens update;
@@ -29,6 +30,14 @@ K10 block_jacobi       node-block Jacobi z = blockdiag(inv) v (d = 1: a
     block_jacobi_inv   the (d x d) inverses of the diagonal velocity
                        blocks with the Dirichlet identity rows
 K11 amg_gcr2           the K-cycle's GCR(2) step, two launches
+K12 ns_facet_viscous_p1 the outlet viscous traction facet term, P1
+    ns_facet_viscous_jac_p1 triangles, and its element Jacobian
+K13 ns_facet_backflow_p1 the backflow stabilisation facet term, P1
+    ns_facet_backflow_jac_p1 triangles, and its element Jacobian
+K14 ns_cell_residual_bdf2_p1 K3's cell body under BDF2 (the time term
+    ns_cell_jacobian_bdf2_p1 over u, u_prev, u_prev2; the rest at u),
+                       residual and Jacobian, with the form's facet
+                       blocks in its launch as K3 takes them
 
 Every wrapper takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors (or raises); each call of a
@@ -37,9 +46,13 @@ fused variant or option also counts under its own name:
 `sup_spmv_prolong` (K1 with the coarse-grid correction), `sup_spmv_cheby`
 (K1's cheby mode), `krylov_cgs_scaled` (K9's scaled normalisation),
 `ns_cell_residual_p1_facet` and
-`ns_cell_jacobian_p1_facet` (K3 with a facet block), each a subset of
-its kernel's count; the fused variants' device kernels carry the same
-names (`sup_spmv_prolong_kernel`, ...), so a trace matches them as a
+`ns_cell_jacobian_p1_facet` (K3 with facet blocks; `..._bdf2_p1_facet`
+K14's), each a subset of its kernel's count; a facet term that runs in
+an element kernel's launch counts under its kernel's name with
+`_fused` (`ns_facet_viscous_p1_fused`: launches that carried a K12
+block);
+the fused variants' device kernels carry the same names
+(`sup_spmv_prolong_kernel`, ...), so a trace matches them as a
 name contains them (the two options run in their kernel's device
 kernel, and a trace counts them under it).
 Inside a CUDA graph
@@ -68,10 +81,14 @@ COUNTERS = {
                  "ns_cell_residual_p1", "ns_cell_residual_p1_facet",
                  "ns_cell_jacobian_p1", "ns_cell_jacobian_p1_facet",
                  "selfp_triple", "patch_spmv", "ras_apply",
-                 "ns_facet_natural_p1", "ns_facet_natural_jac_p1",
                  "amg_prolong", "krylov_cgs", "krylov_lsq",
                  "sup_spmv_cheby", "cheby_update", "krylov_cgs_scaled",
-                 "block_jacobi", "block_jacobi_inv", "amg_gcr2")
+                 "block_jacobi", "block_jacobi_inv", "amg_gcr2",
+                 "ns_cell_residual_bdf2_p1", "ns_cell_residual_bdf2_p1_facet",
+                 "ns_cell_jacobian_bdf2_p1", "ns_cell_jacobian_bdf2_p1_facet",
+                 *(f"ns_facet_{term}{jac}_p1{fused}"
+                   for term in ("natural", "viscous", "backflow")
+                   for jac in ("", "_jac") for fused in ("", "_fused")))
 }
 
 

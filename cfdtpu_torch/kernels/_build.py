@@ -48,23 +48,18 @@ SIGNATURES = {
     "cfd_cheby_update": [P, P, P, P, P, P, P, I64, F64, F64, I32, P],
     # src, row_ptr, pos, out, n_out, F, G, loads, is_f64, stream
     "cfd_ell_sum": [P, P, P, P, I64, I64, I32, I32, I32, P],
-    # u, uprev, p, dofmap, coords, h, phi, dphi, qw, nc, nq,
-    # rho, mu, dt, f0, f1, eps, ru_e, rp_e, is_f64, stream
-    "cfd_ns_cell_residual_p1": [P, P, P, P, P, P, P, P, P, I64, I64,
-                                F64, F64, F64, F64, F64, F64, P, P, I32, P],
-    # as above up to eps, then A_cells, is_f64, stream
-    "cfd_ns_cell_jacobian_p1": [P, P, P, P, P, P, P, P, P, I64, I64,
-                                F64, F64, F64, F64, F64, F64, P, I32, P],
-    # as above up to eps, then out0, out1 (ru_e, rp_e; or A_cells, null),
-    # the facet block's dofmap_u, dofmap_p, coords, phi_u, dphi_u, phi_p,
-    # gdphi, normal, dS, nf, nq, mu, its output, jacobian, is_f64, stream
-    "cfd_ns_cell_facet_p1": [P, P, P, P, P, P, P, P, P, I64, I64, F64, F64,
-                             F64, F64, F64, F64, P, P, P, P, P, P, P, P,
-                             P, P, P, I64, I64, F64, P, I32, I32, P],
-    # u, uprev, p, dofmap_u, dofmap_p, coords, phi_u, dphi_u, phi_p, gdphi,
-    # normal, dS, nf, nq, mu, jacobian, out, is_f64, stream
-    "cfd_ns_facet_natural_p1": [P, P, P, P, P, P, P, P, P, P, P, P, I64,
-                                I64, F64, I32, P, I32, P],
+    # cell pointers (10: u, u_prev, u_prev2, p, dofmap, coords, h, phi,
+    # dphi, qw), nc, nq, scalars (9: rho, mu, dt, f0, f1, eps, a0, a1,
+    # a2), bdf2, out0, out1, facet blocks nfb, their pointers (9 each),
+    # sizes (nf, nq each), options (term, implicit each), scalars, outputs,
+    # jacobian, is_f64, stream
+    "cfd_ns_element_p1": [P, I64, I64, P, I32, P, P, I32, P, P, P, P, P,
+                          I32, I32, P],
+    # term, implicit, u, uprev, p, dofmap_u, dofmap_p, coords, phi_u,
+    # dphi_u, phi_p, gdphi, normal, dS, nf, nq, c, jacobian, out, is_f64,
+    # stream
+    "cfd_ns_facet_p1": [I32, I32, P, P, P, P, P, P, P, P, P, P, P, P, I64,
+                        I64, F64, I32, P, I32, P],
     # vals, e1, e2, kcol, inv_duu, contrib, nt, d, is_f64, stream
     "cfd_selfp_triple": [P, P, P, P, P, P, I64, I64, I32, P],
     # x, vals, idx, y, P, L, K, is_f64, stream

@@ -1,27 +1,30 @@
-"""K3: the stabilized-NS cell kernel (csrc/ns_cell_residual.cu) with
-its two entry points, ns_cell_residual_p1 (element residuals) and
-ns_cell_jacobian_p1 (exact element Jacobians), and the plain cell
-kernel they replace.
+"""K3 and K14: the stabilized-NS cell kernels (csrc/ns_cell_residual.cu)
+with their entry points, ns_cell_residual_p1 and ns_cell_jacobian_p1
+(Crank-Nicolson midpoint, K3), ns_cell_residual_bdf2_p1 and
+ns_cell_jacobian_bdf2_p1 (BDF2, K14): element residuals and exact
+element Jacobians, and the plain cell kernels they replace.
 
 `ns_cell_kernel` is the per-cell Crank-Nicolson-midpoint residual of
 cfdtpu's StabilizedNSForm (forms/navier_stokes.py _make_cell_kernel),
+`ns_cell_kernel_bdf2` that of StabilizedNSFormBDF2 (time term (a0 u +
+a1 u_prev + a2 u_prev2) / dt, everything else at u, tau from |u_prev|),
 written for torch.func: no in-place ops and no host reads. Batched with
-vmap it is the plain version of the residual; vmap(jacfwd(.)) of its
-flat form is the plain version of the Jacobian, as cfdtpu's
-element_jacobians takes it. On the card one CUDA cell body serves both:
-on plain numbers for the residual, on forward-mode dual numbers for the
-Jacobian.
+vmap each is the plain version of its residual; vmap(jacfwd(.)) of its
+flat form is the plain version of its Jacobian, as cfdtpu's
+element_jacobians takes it. On the card one CUDA cell body serves all
+four: on plain numbers for the residuals, on forward-mode dual numbers
+for the Jacobians, instantiated for each scheme.
 
 The CUDA kernels cover P1 triangles only (dim 2, degree 1: velocity,
 pressure and geometry share one basis, and V and Q share the dofmap).
 For any other form a CUDA tensor raises; there is no fallback.
 
-Both entry points take an optional facet block, `facet` = (dofmap_u,
-dofmap_p, coords, tabs, mu): the arguments of K7 (kernels/
-ns_facet_natural.py) after u, u_prev and p. Its natural-correction term
-then comes from the same launch, K7's bodies in a second range of
-blocks, as one more output (ru_f (nf, 3, 2), or A_f (nf, 9, 9)); the
-plain versions run K3's and K7's plain versions in that order.
+Every entry point takes the form's facet blocks, `facets`, a sequence
+of kernels/ns_facet.FacetBlock (at most MAX_FACET_BLOCKS): K7's, K12's
+or K13's bodies then run in the same launch, each block a range of
+blocks after the cells', and each adds one output (ru_f (nf, 3, 2), or
+A_f (nf, 9, 9)) in its order. The plain versions run the cell
+kernel's and then each block's plain version, in that order.
 """
 
 from __future__ import annotations
@@ -34,17 +37,13 @@ import torch
 from . import COUNTERS
 from ._common import (check_float, check_index, check_same_device, is_f64,
                       on_cuda, require, stream_handle)
-from .ns_facet_natural import _TABS as FACET_TABS
-from .ns_facet_natural import _check_args as _check_facet_args
-from .ns_facet_natural import (ns_facet_natural_jac_plain,
-                               ns_facet_natural_plain)
+from .ns_facet import (TABS as FACET_TABS, TERM_CODE,
+                       check_args as check_facet_args, facet_jac_plain,
+                       facet_plain)
 from ..utils.geometry import det_and_inv
 
-_COUNT = COUNTERS["ns_cell_residual_p1"]
-_COUNT_JAC = COUNTERS["ns_cell_jacobian_p1"]
-_COUNT_FACET = COUNTERS["ns_cell_residual_p1_facet"]
-_COUNT_JAC_FACET = COUNTERS["ns_cell_jacobian_p1_facet"]
 MAX_POINTS = 16  # quadrature points the CUDA kernels hold (MAXQ)
+MAX_FACET_BLOCKS = 4  # facet blocks a launch carries (MAXF)
 
 
 @dataclass
@@ -152,45 +151,141 @@ def ns_cell_kernel(u_e, p_e, uprev_e, coords_e, h_e, tabs: CellTabs, rho,
     return ru, rp
 
 
+def ns_cell_kernel_bdf2(u_e, p_e, uprev_e, uprev2_e, coords_e, h_e,
+                        tabs: CellTabs, rho, mu, dt, f, eps: float, a):
+    """Residual of one cell under BDF2 (cfdtpu's StabilizedNSFormBDF2):
+    (ru (nbu, d), rp (nbp,)); a = (a0, a1, a2), Python floats."""
+    a0, a1, a2 = a
+    dim = coords_e.shape[-1]
+    nu = mu / rho
+    phi_u, dphi_u, d2phi_u = tabs.phi_u, tabs.dphi_u, tabs.d2phi_u
+    phi_p, dphi_p = tabs.phi_p, tabs.dphi_p
+    eye = torch.eye(dim, dtype=coords_e.dtype, device=coords_e.device)
+
+    J = torch.einsum("vg,qvd->qgd", coords_e, tabs.gdphi)
+    detJ, invJ = det_and_inv(J)
+    wdet = tabs.qw * detJ.abs()
+
+    gu = torch.einsum("qbd,qdg->qbg", dphi_u, invJ)
+    gp = torch.einsum("qbd,qdg->qbg", dphi_p, invJ)
+
+    u_q = phi_u @ u_e
+    up_q = phi_u @ uprev_e
+    up2_q = phi_u @ uprev2_e
+    dudt = (a0 * u_q + a1 * up_q + a2 * up2_q) / dt
+    grad_u = torch.einsum("bi,qbg->qig", u_e, gu)
+    p_q = phi_p @ p_e
+    grad_p = torch.einsum("b,qbg->qg", p_e, gp)
+
+    div_u = torch.diagonal(grad_u, dim1=1, dim2=2).sum(-1)
+    conv = torch.einsum("qig,qg->qi", grad_u, u_q)
+    sig = (mu * (grad_u + grad_u.transpose(1, 2))
+           - p_q[:, None, None] * eye)
+
+    R = rho * (dudt + conv) + grad_p - rho * f
+    if d2phi_u is not None:
+        Hb = torch.einsum("qbde,qdg,qeh->qbgh", d2phi_u, invJ, invJ)
+        hess = torch.einsum("bi,qbgh->qigh", u_e, Hb)
+        lap = torch.einsum("qigg->qi", hess)
+        graddiv = torch.einsum("qjij->qi", hess)
+        R = R - mu * (lap + graddiv)
+
+    vn = torch.sqrt(torch.sum(up_q * up_q, dim=-1))
+    t1 = h_e / torch.clamp(2.0 * vn, min=eps)
+    t2 = dt / 2.0
+    t3 = (h_e * h_e) / (4.0 * nu)
+    tau = (t1 ** -2.0 + t2 ** -2.0 + t3 ** -2.0) ** -0.5
+    Re_h = vn * h_e / (2.0 * nu)
+    z = torch.clamp(Re_h / 3.0, max=1.0)
+    tau_lsic = vn * h_e * z / 2.0
+
+    mass = rho * (dudt + conv - f)
+    ru = torch.einsum("q,qb,qi->bi", wdet, phi_u, mass)
+    ru = ru + torch.einsum("q,qij,qbj->bi", wdet, sig, gu)
+    adv_v = torch.einsum("qbg,qg->qb", gu, u_q)
+    ru = ru + torch.einsum("q,qi,qb->bi", wdet * tau, R, adv_v)
+    ru = ru + torch.einsum("q,qbi->bi", wdet * tau_lsic * rho * div_u, gu)
+
+    rp = torch.einsum("q,qb->b", wdet * div_u, phi_p)
+    rp = rp + torch.einsum("q,qi,qbi->b", wdet * tau / rho, R, gp)
+    return ru, rp
+
+
+def _plain_kernel(tabs, rho, mu, dt, f, eps, a, like):
+    """The plain cell kernel as fn(u_e, p_e, hist_e, coords_e, h_e),
+    hist_e = (u_prev_e,) or (u_prev_e, u_prev2_e) (a given: BDF2)."""
+    f_t = torch.as_tensor(f, dtype=like.dtype, device=like.device)
+    if a is None:
+        return lambda ue, pe, he, ce, hh: ns_cell_kernel(
+            ue, pe, he[0], ce, hh, tabs, rho, mu, dt, f_t, eps)
+    return lambda ue, pe, he, ce, hh: ns_cell_kernel_bdf2(
+        ue, pe, he[0], he[1], ce, hh, tabs, rho, mu, dt, f_t, eps, a)
+
+
+def _residual_plain(u, hist, p, dofmap_u, dofmap_p, coords, h, tabs, rho,
+                    mu, dt, f, eps, a=None):
+    dmu, dmp = dofmap_u.long(), dofmap_p.long()
+    kernel = _plain_kernel(tabs, rho, mu, dt, f, eps, a, u)
+    return torch.func.vmap(kernel)(u[dmu], p[dmp],
+                                   tuple(x[dmu] for x in hist), coords, h)
+
+
+def _jacobian_plain(u, hist, p, dofmap_u, dofmap_p, coords, h, tabs, rho,
+                    mu, dt, f, eps, a=None):
+    dmu, dmp = dofmap_u.long(), dofmap_p.long()
+    kernel = _plain_kernel(tabs, rho, mu, dt, f, eps, a, u)
+    nc, nbu = dmu.shape
+    nud = nbu * u.shape[1]
+
+    def fk(x, he, ce, hh):
+        ru, rp = kernel(x[:nud].reshape(nbu, -1), x[nud:], he, ce, hh)
+        return torch.cat([ru.reshape(-1), rp])
+
+    xe = torch.cat([u[dmu].reshape(nc, -1), p[dmp]], dim=1)
+    return torch.func.vmap(torch.func.jacfwd(fk))(
+        xe, tuple(x[dmu] for x in hist), coords, h)
+
+
 def ns_cell_residual_plain(u, uprev, p, dofmap_u, dofmap_p, coords, h,
                            tabs: CellTabs, rho, mu, dt, f, eps):
     """The plain version: dofmap gather + vmap of ns_cell_kernel."""
-    dmu, dmp = dofmap_u.long(), dofmap_p.long()
-    f_t = torch.as_tensor(f, dtype=u.dtype, device=u.device)
-
-    def one(ue, pe, upe, ce, he):
-        return ns_cell_kernel(ue, pe, upe, ce, he, tabs, rho, mu, dt, f_t,
-                              eps)
-
-    return torch.func.vmap(one)(u[dmu], p[dmp], uprev[dmu], coords, h)
+    return _residual_plain(u, (uprev,), p, dofmap_u, dofmap_p, coords, h,
+                           tabs, rho, mu, dt, f, eps)
 
 
 def ns_cell_jacobian_plain(u, uprev, p, dofmap_u, dofmap_p, coords, h,
                            tabs: CellTabs, rho, mu, dt, f, eps):
     """The plain version of the Jacobian: vmap(jacfwd(.)) of the cell
     kernel in the flat element layout [u(b, i) row-major, then p(b)]."""
-    dmu, dmp = dofmap_u.long(), dofmap_p.long()
-    f_t = torch.as_tensor(f, dtype=u.dtype, device=u.device)
-    nc, nbu = dmu.shape
-    nud = nbu * u.shape[1]
-
-    def fk(x, upe, ce, he):
-        ru, rp = ns_cell_kernel(x[:nud].reshape(nbu, -1), x[nud:], upe, ce,
-                                he, tabs, rho, mu, dt, f_t, eps)
-        return torch.cat([ru.reshape(-1), rp])
-
-    xe = torch.cat([u[dmu].reshape(nc, -1), p[dmp]], dim=1)
-    return torch.func.vmap(torch.func.jacfwd(fk))(xe, uprev[dmu], coords, h)
+    return _jacobian_plain(u, (uprev,), p, dofmap_u, dofmap_p, coords, h,
+                           tabs, rho, mu, dt, f, eps)
 
 
-def _check_args(name, u, uprev, p, dofmap_u, dofmap_p, coords, h, tabs):
+def ns_cell_residual_bdf2_plain(u, uprev, uprev2, p, dofmap_u, dofmap_p,
+                                coords, h, tabs: CellTabs, rho, mu, dt, f,
+                                eps, a):
+    """K14's plain residual: dofmap gather + vmap of ns_cell_kernel_bdf2."""
+    return _residual_plain(u, (uprev, uprev2), p, dofmap_u, dofmap_p,
+                           coords, h, tabs, rho, mu, dt, f, eps, a)
+
+
+def ns_cell_jacobian_bdf2_plain(u, uprev, uprev2, p, dofmap_u, dofmap_p,
+                                coords, h, tabs: CellTabs, rho, mu, dt, f,
+                                eps, a):
+    """K14's plain Jacobian: vmap(jacfwd(.)) of ns_cell_kernel_bdf2."""
+    return _jacobian_plain(u, (uprev, uprev2), p, dofmap_u, dofmap_p,
+                           coords, h, tabs, rho, mu, dt, f, eps, a)
+
+
+def _check_args(name, u, hist, p, dofmap_u, dofmap_p, coords, h, tabs):
     check_float("u", u)
-    for key, t in (("uprev", uprev), ("p", p), ("coords", coords),
-                   ("h", h)):
+    named_hist = [(f"u_prev{k + 1 if k else ''}", t)
+                  for k, t in enumerate(hist)]
+    for key, t in named_hist + [("p", p), ("coords", coords), ("h", h)]:
         check_float(key, t, u.dtype)
     check_index("dofmap_u", dofmap_u)
     check_index("dofmap_p", dofmap_p)
-    check_same_device(("u", u), ("uprev", uprev), ("p", p),
+    check_same_device(("u", u), *named_hist, ("p", p),
                       ("dofmap_u", dofmap_u), ("coords", coords), ("h", h),
                       ("tabs.qw", tabs.qw))
     if not on_cuda(u):
@@ -201,121 +296,147 @@ def _check_args(name, u, uprev, p, dofmap_u, dofmap_p, coords, h, tabs):
             "velocity/pressure basis and dofmap only"
         )
     nc = dofmap_u.shape[0]
-    require(tuple(u.shape[1:]) == (2,) and tuple(uprev.shape) == u.shape,
-            f"{name}: u, uprev must be (n, 2)")
+    require(tuple(u.shape[1:]) == (2,)
+            and all(tuple(t.shape) == u.shape for t in hist),
+            f"{name}: u and its history must be (n, 2)")
     require(tuple(dofmap_u.shape) == (nc, 3), "dofmap must be (nc, 3)")
     require(tuple(coords.shape) == (nc, 3, 2) and tuple(h.shape) == (nc,),
             f"{name}: coords (nc, 3, 2), h (nc,)")
     require(tabs.qw.shape[0] <= MAX_POINTS,
             f"{name}: at most {MAX_POINTS} quadrature points")
-    for key, t in (("u", u), ("uprev", uprev), ("p", p),
-                   ("coords", coords), ("h", h), ("phi", tabs.phi_u),
-                   ("dphi", tabs.dphi_u), ("qw", tabs.qw)):
+    for key, t in [("u", u)] + named_hist + [
+            ("p", p), ("coords", coords), ("h", h), ("phi", tabs.phi_u),
+            ("dphi", tabs.dphi_u), ("qw", tabs.qw)]:
         require(t.is_contiguous(), f"{name}: {key} must be contiguous")
         check_float(key, t, u.dtype)
-    for key, t in (("u", u), ("uprev", uprev), ("coords", coords)):
+    for key, t in [("u", u)] + named_hist + [("coords", coords)]:
         # read as 2-vectors (8 or 16 bytes)
         require(t.data_ptr() % (2 * t.element_size()) == 0,
                 f"{name}: {key} must be aligned to a pair of values")
     return True
 
 
-def _launch(fn_name, counters, outs, u, uprev, p, dofmap_u, coords, h,
-            tabs, rho, mu, dt, f, eps, facet=None, out_f=None):
-    """One launch: K3 alone, or with a facet block (its output out_f)."""
+def _blocks(facets):
+    """The facet blocks of a call, at most MAX_FACET_BLOCKS."""
+    blocks = list(facets or ())
+    if len(blocks) > MAX_FACET_BLOCKS:
+        raise NotImplementedError(
+            f"{len(blocks)} facet blocks: the element kernel's launch "
+            f"carries at most {MAX_FACET_BLOCKS}")
+    return blocks
+
+
+def _ptrs(ctype, values):
+    import ctypes
+
+    return (ctype * max(len(values), 1))(*values)
+
+
+def _element(name, jacobian, u, hist, p, dofmap_u, dofmap_p, coords, h,
+             tabs, rho, mu, dt, f, eps, a, blocks):
+    """One element-kernel call: the cells and every facet block, in one
+    launch on the card, as the plain versions in order on the CPU."""
+    args = (u, hist, p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt,
+            f, eps, a)
+    cuda = _check_args(name, *args[:8])
+    for b in blocks:
+        cuda = check_facet_args(name, u, hist[0], p, *b.args()) and cuda
+    if not cuda:
+        plain = _jacobian_plain if jacobian else _residual_plain
+        fplain = facet_jac_plain if jacobian else facet_plain
+        out = plain(*args)
+        out = (out,) if jacobian else tuple(out)
+        return out + tuple(fplain(b.term, b.scalars, u, hist[0], p,
+                                  *b.args()) for b in blocks)
+    import ctypes
+
     from ._build import check, library
 
+    nc = dofmap_u.shape[0]
+    dev, dt_ = u.device, u.dtype
+    if jacobian:
+        outs = (torch.empty((nc, 9, 9), dtype=dt_, device=dev),)
+    else:
+        outs = (torch.empty((nc, 3, 2), dtype=dt_, device=dev),
+                torch.empty((nc, 3), dtype=dt_, device=dev))
+    fouts = [torch.empty((b.dofmap_u.shape[0],)
+                         + ((9, 9) if jacobian else (3, 2)),
+                         dtype=dt_, device=dev) for b in blocks]
+    uprev2 = hist[1] if len(hist) > 1 else hist[0]
+    cp = _ptrs(ctypes.c_void_p, [
+        t.data_ptr() for t in (u, hist[0], uprev2, p, dofmap_u, coords, h,
+                               tabs.phi_u, tabs.dphi_u, tabs.qw)])
+    a0, a1, a2 = a if a is not None else (0.0, 0.0, 0.0)
     f0, f1 = (float(v) for v in f)
-    cell = (u.data_ptr(), uprev.data_ptr(), p.data_ptr(),
-            dofmap_u.data_ptr(), coords.data_ptr(), h.data_ptr(),
-            tabs.phi_u.data_ptr(), tabs.dphi_u.data_ptr(),
-            tabs.qw.data_ptr(), dofmap_u.shape[0], tabs.qw.shape[0],
-            float(rho), float(mu), float(dt), f0, f1, float(eps))
-    with torch.cuda.device(u.device):
-        if facet is None:
-            rc = getattr(library(), "cfd_" + fn_name)(
-                *cell, *(o.data_ptr() for o in outs), is_f64(u),
-                stream_handle(u))
-        else:
-            fdmu, fdmp, fcoords, ftabs, fmu = facet
-            nf, nqf = ftabs["dS"].shape
-            rc = library().cfd_ns_cell_facet_p1(
-                *cell, *(o.data_ptr() for o in outs),
-                *([None] * (2 - len(outs))), fdmu.data_ptr(),
-                fdmp.data_ptr(), fcoords.data_ptr(),
-                *(ftabs[k].data_ptr() for k in FACET_TABS), nf, nqf,
-                float(fmu), out_f.data_ptr(),
-                1 if fn_name == "ns_cell_jacobian_p1" else 0, is_f64(u),
-                stream_handle(u))
-    for c in counters:
-        c.n += 1
-    check(rc, fn_name)
-
-
-def _facet_on_cuda(name, u, uprev, p, facet):
-    """K7's argument checks for a facet block (raises on CUDA for a block
-    the kernel does not cover); True where it is on the card."""
-    if len(facet) != 5:
-        raise ValueError(f"{name}: facet is (dofmap_u, dofmap_p, coords, "
-                         "tabs, mu)")
-    return _check_facet_args(name, u, uprev, p, *facet[:4])
+    sc = _ptrs(ctypes.c_double, [float(rho), float(mu), float(dt), f0, f1,
+                                 float(eps), float(a0), float(a1),
+                                 float(a2)])
+    fptr = _ptrs(ctypes.c_void_p, [
+        t.data_ptr() for b in blocks
+        for t in (b.dofmap_u, b.dofmap_p, b.coords,
+                  *(b.tabs[k] for k in FACET_TABS))])
+    fsize = _ptrs(ctypes.c_int64, [n for b in blocks
+                                   for n in b.tabs["dS"].shape])
+    fopt = _ptrs(ctypes.c_int, [v for b in blocks
+                                for v in (TERM_CODE[b.term.term],
+                                          int(b.term.implicit))])
+    fc = _ptrs(ctypes.c_double, [float(b.term.coef(b.scalars))
+                                 for b in blocks])
+    fo = _ptrs(ctypes.c_void_p, [t.data_ptr() for t in fouts])
+    with torch.cuda.device(dev):
+        rc = library().cfd_ns_element_p1(
+            cp, nc, tabs.qw.shape[0], sc, int(a is not None),
+            outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
+            len(blocks), fptr, fsize, fopt, fc, fo, int(jacobian),
+            is_f64(u), stream_handle(u))
+    COUNTERS[name].n += 1
+    if blocks:
+        COUNTERS[name + "_facet"].n += 1
+    for b in blocks:
+        COUNTERS[b.term.counter(jacobian, fused=True)].n += 1
+    check(rc, name)
+    return outs + tuple(fouts)
 
 
 def ns_cell_residual_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
-                        tabs: CellTabs, rho, mu, dt, f, eps, facet=None):
-    """Element residuals (ru_e (nc, nbu, d), rp_e (nc, nbp)), and with a
-    facet block (module docstring) its ru_f (nf, 3, 2) too, from the
-    same launch."""
-    args = (u, uprev, p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt,
-            f, eps)
-    cuda = _check_args("ns_cell_residual_p1", *args[:8])
-    if facet is not None:
-        cuda = _facet_on_cuda("ns_cell_residual_p1", u, uprev, p,
-                              facet) and cuda
-    if not cuda:
-        out = ns_cell_residual_plain(*args)
-        if facet is None:
-            return out
-        return (*out, ns_facet_natural_plain(u, uprev, p, *facet))
-    nc = dofmap_u.shape[0]
-    ru_e = torch.empty((nc, 3, 2), dtype=u.dtype, device=u.device)
-    rp_e = torch.empty((nc, 3), dtype=u.dtype, device=u.device)
-    launch = (u, uprev, p, dofmap_u, coords, h, tabs, rho, mu, dt, f, eps)
-    if facet is None:
-        _launch("ns_cell_residual_p1", (_COUNT,), (ru_e, rp_e), *launch)
-        return ru_e, rp_e
-    ru_f = torch.empty((facet[0].shape[0], 3, 2), dtype=u.dtype,
-                       device=u.device)
-    _launch("ns_cell_residual_p1", (_COUNT, _COUNT_FACET), (ru_e, rp_e),
-            *launch, facet=facet, out_f=ru_f)
-    return ru_e, rp_e, ru_f
+                        tabs: CellTabs, rho, mu, dt, f, eps, facets=None):
+    """Element residuals (ru_e (nc, nbu, d), rp_e (nc, nbp)) and, for
+    each facet block (module docstring), its ru_f (nf, 3, 2), from one
+    launch."""
+    return _element("ns_cell_residual_p1", False, u, (uprev,), p, dofmap_u,
+                    dofmap_p, coords, h, tabs, rho, mu, dt, f, eps, None,
+                    _blocks(facets))
 
 
 def ns_cell_jacobian_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
-                        tabs: CellTabs, rho, mu, dt, f, eps, facet=None):
+                        tabs: CellTabs, rho, mu, dt, f, eps, facets=None):
     """Exact element Jacobians A_cells (nc, nloc, nloc) of the cell
     residual with respect to the cell's (u, p), in the flat element
-    layout [u(b, i) row-major, then p(b)]. With a facet block (module
-    docstring), (A_cells, A_f (nf, 9, 9)) from the same launch."""
-    args = (u, uprev, p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt,
-            f, eps)
-    cuda = _check_args("ns_cell_jacobian_p1", *args[:8])
-    if facet is not None:
-        cuda = _facet_on_cuda("ns_cell_jacobian_p1", u, uprev, p,
-                              facet) and cuda
-    if not cuda:
-        A = ns_cell_jacobian_plain(*args)
-        if facet is None:
-            return A
-        return A, ns_facet_natural_jac_plain(u, uprev, p, *facet)
-    A = torch.empty((dofmap_u.shape[0], 9, 9), dtype=u.dtype,
-                    device=u.device)
-    launch = (u, uprev, p, dofmap_u, coords, h, tabs, rho, mu, dt, f, eps)
-    if facet is None:
-        _launch("ns_cell_jacobian_p1", (_COUNT_JAC,), (A,), *launch)
-        return A
-    A_f = torch.empty((facet[0].shape[0], 9, 9), dtype=u.dtype,
-                      device=u.device)
-    _launch("ns_cell_jacobian_p1", (_COUNT_JAC, _COUNT_JAC_FACET), (A,),
-            *launch, facet=facet, out_f=A_f)
-    return A, A_f
+    layout [u(b, i) row-major, then p(b)]; with facet blocks (module
+    docstring), (A_cells, A_f (nf, 9, 9) per block) from the same
+    launch."""
+    out = _element("ns_cell_jacobian_p1", True, u, (uprev,), p, dofmap_u,
+                   dofmap_p, coords, h, tabs, rho, mu, dt, f, eps, None,
+                   _blocks(facets))
+    return out if len(out) > 1 else out[0]
+
+
+def ns_cell_residual_bdf2_p1(u, uprev, uprev2, p, dofmap_u, dofmap_p,
+                             coords, h, tabs: CellTabs, rho, mu, dt, f, eps,
+                             a, facets=None):
+    """K14: the BDF2 element residuals (ru_e, rp_e), a = (a0, a1, a2),
+    and each facet block's ru_f, from one launch."""
+    return _element("ns_cell_residual_bdf2_p1", False, u, (uprev, uprev2),
+                    p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt, f,
+                    eps, tuple(float(x) for x in a), _blocks(facets))
+
+
+def ns_cell_jacobian_bdf2_p1(u, uprev, uprev2, p, dofmap_u, dofmap_p,
+                             coords, h, tabs: CellTabs, rho, mu, dt, f, eps,
+                             a, facets=None):
+    """K14: the BDF2 element Jacobians A_cells (nc, 9, 9) and each facet
+    block's A_f, from one launch (A_cells alone without facet blocks)."""
+    out = _element("ns_cell_jacobian_bdf2_p1", True, u, (uprev, uprev2),
+                   p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt, f,
+                   eps, tuple(float(x) for x in a), _blocks(facets))
+    return out if len(out) > 1 else out[0]

@@ -1,0 +1,291 @@
+"""The facet-term kernels (csrc/ns_facet.cu), each with two entry
+points, the facet residuals and the facet Jacobians: K7 the natural
+correction (ns_facet_natural_p1, ns_facet_natural_jac_p1), K12 the
+outlet viscous traction (ns_facet_viscous_p1, ns_facet_viscous_jac_p1)
+and K13 the backflow stabilisation (ns_facet_backflow_p1,
+ns_facet_backflow_jac_p1); their plain versions; and FacetTerm and
+FacetBlock, which describe a facet block to the element kernels
+(kernels/ns_cell_residual.py), whose launch runs the blocks' bodies.
+
+The terms are cfdtpu's forms/facet_terms.py natural_correction,
+`p n.v - mu (nabla_grad u)^T n.v`, viscous_traction, `sign (2 mu
+eps(u) n).v`, and backflow, `- beta rho (u_prev.n)_- (u.v)`, as
+StabilizedNSForm maps them over a facet block, at the Crank-Nicolson
+midpoint or (`implicit`, BDF2's) at u. The plain versions are
+torch.func.vmap (and jacfwd) of the port's per-facet kernels in
+forms/facet_terms.py, which serve CPU tensors.
+
+The CUDA kernels cover P1 triangles (three velocity and three pressure
+dofs on the cell behind each facet, dim 2). For any other block a CUDA
+tensor raises; there is no fallback.
+
+A facet block is passed as its tensors: `dofmap_u`, `dofmap_p` (nf, 3)
+int32, `coords` (nf, 3, 2) and `tabs`, the dict of per-facet
+tabulations phi_u (nf, nq, 3), dphi_u (nf, nq, 3, 2), phi_p (nf, nq, 3),
+gdphi (nf, nq, 3, 2), normal (nf, nq, 2), dS (nf, nq) (and h, which no
+ported term reads).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import COUNTERS
+from ._common import (check_float, check_index, check_same_device, is_f64,
+                      on_cuda, require, stream_handle)
+
+TABS = ("phi_u", "dphi_u", "phi_p", "gdphi", "normal", "dS")
+# the terms as csrc/ns_facet.cuh numbers them, and each one's kernel
+TERM_CODE = {"natural": 0, "viscous": 1, "backflow": 2}
+KERNEL = {"natural": "ns_facet_natural", "viscous": "ns_facet_viscous",
+          "backflow": "ns_facet_backflow"}
+
+
+@dataclass(frozen=True)
+class FacetTerm:
+    """A facet term with a CUDA kernel and its options: `term` "natural"
+    (K7), "viscous" (K12) or "backflow" (K13); `implicit`: the term acts
+    on u (BDF2), else on the midpoint (u + u_prev) / 2; `sign` of the
+    viscous traction; `beta_key`, the prm key of backflow's beta."""
+
+    term: str
+    implicit: bool = False
+    sign: float = -1.0
+    beta_key: str = "beta_backflow"
+
+    def __post_init__(self):
+        if self.term not in TERM_CODE:
+            raise NotImplementedError(f"no facet kernel for {self.term!r}")
+
+    @property
+    def kernel(self) -> str:
+        """The name of the term's CUDA kernel."""
+        return KERNEL[self.term]
+
+    def counter(self, jacobian: bool, fused: bool = False) -> str:
+        """The counter of a launch of this term: alone, or (fused) as a
+        block in an element kernel's launch."""
+        name = self.kernel + ("_jac" if jacobian else "") + "_p1"
+        return name + ("_fused" if fused else "")
+
+    def scalars(self, prm: dict) -> dict:
+        """The prm entries the term reads."""
+        if self.term == "backflow":
+            return {"rho": float(prm["rho"]),
+                    self.beta_key: float(prm[self.beta_key])}
+        return {"mu": float(prm["mu"])}
+
+    def coef(self, scalars: dict) -> float:
+        """The one scalar the CUDA body takes: mu, sign mu or -beta rho."""
+        if self.term == "natural":
+            return scalars["mu"]
+        if self.term == "viscous":
+            return self.sign * scalars["mu"]
+        return -scalars[self.beta_key] * scalars["rho"]
+
+    def plain_kernel(self):
+        """The port's per-facet kernel of this term (forms/facet_terms)."""
+        # imported here: forms imports this module
+        from ..forms import facet_terms as ft
+
+        vel = ft.implicit_velocity if self.implicit else ft.midpoint_velocity
+        if self.term == "natural":
+            return ft.natural_correction(vel=vel)
+        if self.term == "viscous":
+            return ft.viscous_traction(vel=vel, sign=self.sign)
+        return ft.backflow(beta_key=self.beta_key, vel=vel)
+
+
+@dataclass
+class FacetBlock:
+    """A facet block as the element kernels take it: its term, its
+    tensors (int32 dofmaps) and the scalars its term reads."""
+
+    term: FacetTerm
+    dofmap_u: torch.Tensor
+    dofmap_p: torch.Tensor
+    coords: torch.Tensor
+    tabs: dict
+    scalars: dict
+
+    def args(self):
+        return (self.dofmap_u, self.dofmap_p, self.coords, self.tabs)
+
+
+def facet_plain(term: FacetTerm, scalars: dict, u, uprev, p, dofmap_u,
+                dofmap_p, coords, tabs):
+    """The plain residual: dofmap gathers + vmap of the facet kernel."""
+    kernel = term.plain_kernel()
+    dmu, dmp = dofmap_u.long(), dofmap_p.long()
+
+    def one(ue, pe, upe, ce, tb):
+        return kernel(ue, pe, (upe,), ce, tb, scalars)
+
+    return torch.func.vmap(one)(u[dmu], p[dmp], uprev[dmu], coords, tabs)
+
+
+def facet_jac_plain(term: FacetTerm, scalars: dict, u, uprev, p, dofmap_u,
+                    dofmap_p, coords, tabs):
+    """The plain Jacobian: vmap(jacfwd(.)) of the facet kernel in the
+    flat element layout, its pressure rows padded with zeros."""
+    kernel = term.plain_kernel()
+    dmu, dmp = dofmap_u.long(), dofmap_p.long()
+    nf, nbu = dmu.shape
+    nud = nbu * u.shape[1]
+    nbp = dmp.shape[1]
+
+    def fk(x, upe, ce, tb):
+        ru = kernel(x[:nud].reshape(nbu, -1), x[nud:], (upe,), ce, tb,
+                    scalars)
+        return torch.cat([ru.reshape(-1),
+                          torch.zeros((nbp,), dtype=ru.dtype,
+                                      device=ru.device)])
+
+    xe = torch.cat([u[dmu].reshape(nf, -1), p[dmp]], dim=1)
+    return torch.func.vmap(torch.func.jacfwd(fk))(xe, uprev[dmu], coords,
+                                                  tabs)
+
+
+def check_args(name, u, uprev, p, dofmap_u, dofmap_p, coords, tabs):
+    """The checks of a facet block's arguments; True where they are on
+    the card (where the block must be one the kernels cover)."""
+    check_float("u", u)
+    check_index("dofmap_u", dofmap_u)
+    check_index("dofmap_p", dofmap_p)
+    floats = [("uprev", uprev), ("p", p), ("coords", coords)]
+    floats += [(k, tabs[k]) for k in TABS]
+    for key, t in floats:
+        check_float(key, t, u.dtype)
+    check_same_device(("u", u), ("dofmap_u", dofmap_u),
+                      ("dofmap_p", dofmap_p), *floats)
+    if not on_cuda(u):
+        return False
+    nf = dofmap_u.shape[0]
+    nq = tabs["dS"].shape[1]
+    shapes = {"phi_u": (nf, nq, 3), "dphi_u": (nf, nq, 3, 2),
+              "phi_p": (nf, nq, 3), "gdphi": (nf, nq, 3, 2),
+              "normal": (nf, nq, 2), "dS": (nf, nq)}
+    p1 = (tuple(dofmap_u.shape) == (nf, 3)
+          and tuple(dofmap_p.shape) == (nf, 3)
+          and tuple(coords.shape) == (nf, 3, 2) and u.dim() == 2
+          and u.shape[1] == 2
+          and all(tuple(tabs[k].shape) == v for k, v in shapes.items()))
+    if not p1:
+        raise NotImplementedError(
+            f"{name} covers P1 triangles (3 velocity and 3 pressure dofs "
+            "a cell, dim 2) only"
+        )
+    require(tuple(uprev.shape) == tuple(u.shape) and p.dim() == 1,
+            f"{name}: uprev as u, p (n,)")
+    for key, t in [("u", u)] + floats:
+        require(t.is_contiguous(), f"{name}: {key} must be contiguous")
+    for key, t in (("u", u), ("uprev", uprev), ("coords", coords)):
+        # read as 2-vectors (8 or 16 bytes)
+        require(t.data_ptr() % (2 * t.element_size()) == 0,
+                f"{name}: {key} must be aligned to a pair of values")
+    return True
+
+
+def facet_call(term: FacetTerm, scalars: dict, jacobian: bool, u, uprev,
+               p, dofmap_u, dofmap_p, coords, tabs):
+    """One facet term over one block: its kernel launched alone on the
+    card, its plain version on the CPU."""
+    name = term.counter(jacobian)
+    args = (u, uprev, p, dofmap_u, dofmap_p, coords, tabs)
+    if not check_args(name, *args):
+        plain = facet_jac_plain if jacobian else facet_plain
+        return plain(term, scalars, *args)
+    from ._build import check, library
+
+    nf, nq = tabs["dS"].shape
+    shape = (nf, 9, 9) if jacobian else (nf, 3, 2)
+    out = torch.empty(shape, dtype=u.dtype, device=u.device)
+    with torch.cuda.device(u.device):
+        rc = library().cfd_ns_facet_p1(
+            TERM_CODE[term.term], int(term.implicit), u.data_ptr(),
+            uprev.data_ptr(), p.data_ptr(), dofmap_u.data_ptr(),
+            dofmap_p.data_ptr(), coords.data_ptr(),
+            *(tabs[k].data_ptr() for k in TABS), nf, nq,
+            float(term.coef(scalars)), int(jacobian), out.data_ptr(),
+            is_f64(u), stream_handle(u))
+    COUNTERS[name].n += 1
+    check(rc, name)
+    return out
+
+
+# ---------------------------------------------------------------------
+# the entry points of K7, K12 and K13
+# ---------------------------------------------------------------------
+def _natural(implicit):
+    return FacetTerm("natural", bool(implicit))
+
+
+def ns_facet_natural_plain(u, uprev, p, dofmap_u, dofmap_p, coords, tabs,
+                           mu, implicit=False):
+    """K7's plain residual: dofmap gathers + vmap of the facet kernel."""
+    return facet_plain(_natural(implicit), {"mu": mu}, u, uprev, p,
+                       dofmap_u, dofmap_p, coords, tabs)
+
+
+def ns_facet_natural_jac_plain(u, uprev, p, dofmap_u, dofmap_p, coords,
+                               tabs, mu, implicit=False):
+    """K7's plain Jacobian: vmap(jacfwd(.)) of the facet kernel in the
+    flat element layout, its pressure rows padded with zeros."""
+    return facet_jac_plain(_natural(implicit), {"mu": mu}, u, uprev, p,
+                           dofmap_u, dofmap_p, coords, tabs)
+
+
+def ns_facet_natural_p1(u, uprev, p, dofmap_u, dofmap_p, coords, tabs, mu,
+                        implicit=False):
+    """Facet residuals ru_f (nf, 3, 2) of the natural correction."""
+    return facet_call(_natural(implicit), {"mu": mu}, False, u, uprev, p,
+                      dofmap_u, dofmap_p, coords, tabs)
+
+
+def ns_facet_natural_jac_p1(u, uprev, p, dofmap_u, dofmap_p, coords, tabs,
+                            mu, implicit=False):
+    """Facet Jacobians A_f (nf, 9, 9) of the natural correction with
+    respect to the cell's (u, p), in the flat element layout [u(b, i)
+    row-major, then p(b)]; the pressure rows are zero."""
+    return facet_call(_natural(implicit), {"mu": mu}, True, u, uprev, p,
+                      dofmap_u, dofmap_p, coords, tabs)
+
+
+def ns_facet_viscous_p1(u, uprev, p, dofmap_u, dofmap_p, coords, tabs, mu,
+                        sign=-1.0, implicit=False):
+    """Facet residuals ru_f (nf, 3, 2) of the viscous traction."""
+    return facet_call(FacetTerm("viscous", implicit, sign=sign),
+                      {"mu": mu}, False, u, uprev, p, dofmap_u, dofmap_p,
+                      coords, tabs)
+
+
+def ns_facet_viscous_jac_p1(u, uprev, p, dofmap_u, dofmap_p, coords, tabs,
+                            mu, sign=-1.0, implicit=False):
+    """Facet Jacobians A_f (nf, 9, 9) of the viscous traction, in the
+    flat element layout [u(b, i) row-major, then p(b)]; the pressure rows
+    and columns are zero."""
+    return facet_call(FacetTerm("viscous", implicit, sign=sign),
+                      {"mu": mu}, True, u, uprev, p, dofmap_u, dofmap_p,
+                      coords, tabs)
+
+
+def _backflow(beta, rho, implicit):
+    return (FacetTerm("backflow", implicit),
+            {"rho": rho, "beta_backflow": beta})
+
+
+def ns_facet_backflow_p1(u, uprev, p, dofmap_u, dofmap_p, coords, tabs,
+                         beta, rho, implicit=False):
+    """Facet residuals ru_f (nf, 3, 2) of the backflow stabilisation."""
+    return facet_call(*_backflow(beta, rho, implicit), False, u, uprev, p,
+                      dofmap_u, dofmap_p, coords, tabs)
+
+
+def ns_facet_backflow_jac_p1(u, uprev, p, dofmap_u, dofmap_p, coords, tabs,
+                             beta, rho, implicit=False):
+    """Facet Jacobians A_f (nf, 9, 9) of the backflow stabilisation; the
+    pressure rows and columns are zero."""
+    return facet_call(*_backflow(beta, rho, implicit), True, u, uprev, p,
+                      dofmap_u, dofmap_p, coords, tabs)

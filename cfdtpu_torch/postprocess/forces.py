@@ -6,6 +6,11 @@ t = (n_y, -n_x),
 
     F_D = int_obs ( mu d(u·t)/dn n_y - p n_x ) ds
     F_L = -int_obs ( mu d(u·t)/dn n_x + p n_y ) ds
+
+and the traction-based force F_i = int (-sigma(u, p) n)_i ds that the
+dfg_2d_1 solver prints every step. Both are output-side facet
+quadratures over the obstacle facets in torch ops; their one host read
+is the caller's float().
 """
 
 from __future__ import annotations
@@ -79,3 +84,13 @@ class BoundaryForce:
         fl = -torch.sum(
             (mu * dut_dn * n[..., 0] + p_q * n[..., 1]) * self.dS)
         return fd, fl
+
+    def traction_force(self, u, p, mu: float):
+        """F_i = int (-sigma(u, p) n)_i ds with the outward fluid
+        normal: a (2,) tensor."""
+        _, grad_u, p_q = self._fields(u, p)
+        n = self.normal
+        eps_u = 0.5 * (grad_u + grad_u.transpose(2, 3))
+        sig_n = (2.0 * mu * torch.einsum("fqig,fqg->fqi", eps_u, n)
+                 - p_q[..., None] * n)
+        return -torch.einsum("fqi,fq->i", sig_n, self.dS)

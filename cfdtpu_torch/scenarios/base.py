@@ -128,10 +128,25 @@ class Scenario(ABC):
                 and f != "base.py"] or ["(none found)"]
 
     # ------------------------------------------------------------------
+    @property
+    def facet_tags(self):
+        return getattr(self, "_ft", None)
+
+    @property
+    def tags(self) -> dict:
+        """The boundary markers a solver variant may attach terms to."""
+        return {
+            "inlet": getattr(self, "inlet_marker", None),
+            "outlet": getattr(self, "outlet_marker", None),
+            "wall": getattr(self, "wall_marker", None),
+            "obstacle": getattr(self, "obstacle_marker", None),
+        }
+
     def setup(self):
         if self._is_setup:
             return
-        self.solver.setup(self.bcu, self.bcp)
+        self.solver.setup(self.bcu, self.bcp, facet_tags=self.facet_tags,
+                          tags=self.tags)
         self._is_setup = True
         num_dofs_V = self.solver.V.num_global_dofs
         num_dofs_Q = self.solver.Q.num_global_dofs

@@ -91,7 +91,7 @@ class SolverBase(ABC):
 
     # -- abstract interface ------------------------------------------------
     @abstractmethod
-    def setup(self, bcu, bcp) -> None:
+    def setup(self, bcu, bcp, facet_tags=None, tags=None) -> None:
         ...
 
     @abstractmethod

@@ -11,6 +11,15 @@ pc_lag_steps build/reuse split that carries the operator and
 preconditioner state across time steps. Unsupported option values raise
 NotImplementedError rather than being replaced silently.
 
+Variant hooks for subclasses, as in cfdtpu:
+    _make_form()            time scheme / boundary-correction choice
+    _setup_boundary_terms() attach tagged facet terms (backflow, the
+                            outlet traction), called first in setup
+    _aux()                  velocity history tuple (BDF2: two)
+    extra_params()          solver-specific prm entries
+    _post_step()            after a step's state is set (BDF2's history
+                            shift, DFG 2D-1's drag and lift)
+
 cfdtpu jit-compiles each step (with const-args wrappers for its remote
 TPU compiler); here the step runs eagerly and the hot operations are
 the CUDA kernels of cfdtpu_torch/kernels, except the preconditioner
@@ -169,14 +178,26 @@ class Solver(SolverBase):
             device=self.device, dtype=self.np_dtype,
         )
 
+    def _setup_boundary_terms(self, facet_tags, tags) -> None:
+        pass
+
     def _aux(self) -> tuple:
         return (self.u_prev,)
 
+    def extra_params(self) -> dict:
+        return {}
+
+    def _post_step(self) -> None:
+        pass
+
     def params(self) -> dict:
-        return self.base_params()
+        prm = self.base_params()
+        prm.update(self.extra_params())
+        return prm
 
     # ------------------------------------------------------------------
-    def setup(self, bcu, bcp) -> None:
+    def setup(self, bcu, bcp, facet_tags=None, tags=None) -> None:
+        self._setup_boundary_terms(facet_tags, tags)
         self.bcu_d = [bc.getBC(self.V) for bc in bcu]
         self.bcp_d = [bc.getBC(self.Q) for bc in bcp]
         self.bc_dofs_u, self._keep_u = combine_bcs(self.bcu_d,
@@ -506,4 +527,5 @@ class Solver(SolverBase):
         self.step_stats = dict(stats)
         self.u_sol, self.p_sol = u, p
         self.u_residual, self.p_residual = r_u, r_p
+        self._post_step()
         self.step_count += 1

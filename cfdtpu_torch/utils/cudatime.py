@@ -81,12 +81,12 @@ def empty_ms(n: int = 25) -> float:
     return cuda_ms(launch, n=n)
 
 
-def device_kernels(fn) -> list[str]:
+def device_kernels(fn, pad: int = 0) -> list[str]:
     """Names of the device activities (kernels, copies, fills) one fn()
     call issues, from torch.profiler's CUDA trace, in launch order
     (launches: one warm-up call first, so that a kernel's build is not
-    counted, and the fullest of three traces)."""
-    return launches(fn)[1]
+    counted, and the fullest of three traces; `pad` as there)."""
+    return launches(fn, pad=pad)[1]
 
 
 def device_ms(fn, n: int = 20, tries: int = 3) -> float | None:
@@ -144,13 +144,21 @@ def host_calls(events) -> dict[str, int]:
     return out
 
 
-def launches(fn, traces: int = 3) -> tuple[dict[str, int], list[str]]:
+# the device kernel of torch.cuda._sleep, launches' padding
+PAD_KERNEL = "spin_kernel"
+
+
+def launches(fn, traces: int = 3, pad: int = 0
+             ) -> tuple[dict[str, int], list[str]]:
     """The host's launch calls (host_calls) and the names of the device
     activities of one fn() call, from torch.profiler, after one warm-up
     call. The profiler can drop records of a short trace (now and then a
     trace comes back empty, or without one of two kernels), and it never
     adds one: fn() is traced `traces` times and the trace with the most
-    device activities is returned (the first of those)."""
+    device activities is returned (the first of those). With `pad`, each
+    trace also holds that many short spin kernels (torch.cuda._sleep)
+    queued after fn() and left out of what is returned, so that fn()'s
+    records are not the trace's last."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -163,9 +171,14 @@ def launches(fn, traces: int = 3) -> tuple[dict[str, int], list[str]]:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
+            for _ in range(pad):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         events = sorted(prof.events(), key=lambda e: e.time_range.start)
-        names = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        names = [e.name for e in events if e.device_type == DeviceType.CUDA
+                 and not (pad and PAD_KERNEL in e.name)]
         if len(names) > len(best[1]):
-            best = (host_calls(events), names)
+            calls = host_calls(events)
+            calls["kernel"] -= pad
+            best = (calls, names)
     return best

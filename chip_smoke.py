@@ -14,7 +14,9 @@ Run from the root of a checkout. Phases, each raising on failure:
    ns_cell_jacobian_p1, K4 selfp_triple, K5 patch_spmv, K6 ras_apply,
    K7 ns_facet_natural_p1 and ns_facet_natural_jac_p1, K8 amg_prolong,
    K9 krylov_cgs and krylov_lsq, K10 block_jacobi and block_jacobi_inv,
-   K11 amg_gcr2) is held against its plain PyTorch version at each of
+   K11 amg_gcr2; K12, K13, K14 and K7's implicit mode at paths E's and
+   F's shapes, items 9 and 10) is held against its plain PyTorch
+   version at each of
    its call sites on the paths below — including K1's cheby mode at the
    SELFP AMG's L0 and BlockAMG's L1 (the first step from w b through
    K1's input scale, a step with d stored, the first post-smoothing step
@@ -145,27 +147,50 @@ Run from the root of a checkout. Phases, each raising on failure:
    torch.profiler, the same checks (K10, and
    cheby_update, K1's cheby mode and K9's scaled normalisation where the
    method runs them), and phase_graph against amg_p's graph.
-9. parity: float64 at res_scale 1.0, 2 steps through the kernels on the
-   card and 2 steps through the plain versions (which the wrappers take
-   only for CPU tensors, so that run is on the host), for rasamg_sup,
-   amg_p, path C's configuration and gmres: equal Newton and KSP counts
+9. path E: DFG 2D-1 steady (DFG2D1Steady at res 0.0025, 121,515 DOF)
+   with the dfg_2d_1 solver (the viscous traction K12 and the backflow
+   K13 on the outlet, two facet blocks in K3's launch; Newton to rtol
+   1e-10) in float64 with path A's settings: first its kernel sites
+   (K12, K13 alone at a state with backflow on part of the outlet, K3
+   with both blocks beside the three launches apart; timed in float64,
+   checked again in float32) and its form's device kernels (residual 7,
+   Jacobian 1), then 4 steps from rest and 5-6 under torch.profiler,
+   each step's c_D and c_L printed; K12 and K13 must have run inside
+   K3's launches (their `_fused` counts) and never alone.
+10. path F: stabilized_schur_bdf2 on path A's mesh and settings in
+   float32 (K14, with K7's implicit mode in its launch): its sites
+   (timed in float32, checked in float64), its form's device kernels
+   (residual 5, Jacobian 1), steps 1-3 (BDF1, then BDF2) and step 4
+   under torch.profiler, ending on BDF2's coefficients.
+11. parity: float64 at res_scale 1.0, 2 steps (gmres: 1) through the
+   kernels on the card and as many through the plain versions (which
+   the wrappers take only for CPU tensors, so that run is on the host),
+   for rasamg_sup, amg_p, path C's configuration and gmres, with the
+   four CLI runs (13) going meanwhile: equal Newton and KSP counts
    per step, and equal to PARITY_COUNTS (the counts every earlier tree
    gave; path C's and gmres's from cfdtpu on the CPU), u, p, c_D, c_L
-   and dp within 1e-9 relative (gmres's c_L within 5e-9 of itself:
-   LIFT_LIMIT).
-10. path B: `python -m cfdtpu_torch.scripts.gather_micro --device cuda`
+   and dp within 1e-9 relative; and path E's solver at res 0.02 (2,058
+   DOF), 2 steps, card against host: counts equal to cfdtpu's
+   (PARITY_E_COUNTS), u, p and every step's c_D and c_L within 1e-9.
+12. path B: `python -m cfdtpu_torch.scripts.gather_micro --device cuda`
    exits 0 with every K5 result within 1e-5 relative of its plain
    version; it launches K5.
-11. CLI: `python -m cfdtpu_torch simulate ... --device cuda` exits 0 and
+13. CLI, four processes started together before the parity runs and
+   waited for after them: `python -m cfdtpu_torch simulate ... --device
+   cuda` exits 0 and
    writes simulation_params.txt, norms.txt and v.pvd, with the default
-   inner method and with the rasamg_sup flags; and the rasamg_sup run
-   once more without --device, which must take the card.
+   inner method and with the rasamg_sup flags; the rasamg_sup run
+   once more without --device, which must take the card; and
+   `--simulation dfg_2d_1 --solver dfg_2d_1` at res 0.02 in float64,
+   which must print its `DFG Metrics:` line every step.
 
 The second-to-last line is {"kernels": [...]} (per kernel at its
-headline site: launches on its path (A, B, C or D), max_abs_err, the cold ms,
+headline site: launches on its path (A-F), max_abs_err, the cold ms,
 plain_ms and library_ms, bound_ms and bound_by, the warm ms, the
-device time alone, and its calls and device ms in the profiled window),
-the last {"ok": true, "device": {...}}.
+device time alone, and its calls and device ms in the profiled window;
+a folded kernel's launches are its own, 0 on its path, and
+`launches_fused` those that carried its body), the last {"ok": true,
+"device": {...}}.
 """
 
 import argparse
@@ -235,11 +260,54 @@ PATH_D = {
                   ("sup_spmv", "sup_spmv_cheby", "block_jacobi",
                    "cheby_update", "krylov_cgs_scaled")),
 }
+# path E: DFG 2D-1 steady with its own solver (dfg_2d_1: no natural
+# correction, K12 and K13 on the outlet in K3's launch, Newton rtol
+# 1e-10), float64 (float32 cannot resolve those tolerances), RASAMG_KW,
+# at res 0.0025 (40,505 nodes, 121,515 DOF, 55 outlet facets): steps
+# from rest, then steps under torch.profiler
+PATH_E_RES = 0.0025
+PATH_E_STEPS = 4
+PATH_E_PROFILE = 2
+PATH_E_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
+                  *ELEMENT_KERNELS, *PC_KERNELS,
+                  "ns_facet_viscous_p1_fused", "ns_facet_viscous_jac_p1_fused",
+                  "ns_facet_backflow_p1_fused",
+                  "ns_facet_backflow_jac_p1_fused")
+# path E's float64 card run held against the host's plain versions: at
+# res 0.02 (2,058 DOF), where the host's run takes seconds (at res
+# 0.0025 its chord Newton to rtol 1e-10 would take many minutes)
+PARITY_E_RES = 0.02
+PARITY_E_STEPS = 2
+PARITY_E_COUNTS = [(18, 55), (35, 108)]  # cfdtpu's on the CPU
+# path F: stabilized_schur_bdf2 (K14 with the natural correction at u,
+# K7's implicit mode, in its launch) at res_scale 0.3, float32,
+# RASAMG_KW: step 1 BDF1, steps 2-4 BDF2, step 4 under torch.profiler
+PATH_F_STEPS = 3
+PATH_F_PROFILE = 1
+PATH_F_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
+                  "ns_cell_residual_bdf2_p1", "ns_cell_residual_bdf2_p1_facet",
+                  "ns_cell_jacobian_bdf2_p1", "ns_cell_jacobian_bdf2_p1_facet",
+                  "ns_facet_natural_p1_fused",
+                  "ns_facet_natural_jac_p1_fused", *PC_KERNELS)
+# K7's implicit mode (a flag of K7's launch) in the kernels line: its
+# launches are K7's on path F, where every natural correction is at u,
+# and it is folded into K14's launch: (counter, folded into)
+K7_IMPLICIT = "ns_facet_natural_implicit_p1"
+COUNTER_OF = {K7_IMPLICIT: ("ns_facet_natural_p1",
+                            "ns_cell_residual_bdf2_p1_facet"),
+              "ns_facet_natural_implicit_jac_p1": (
+                  "ns_facet_natural_jac_p1",
+                  "ns_cell_jacobian_bdf2_p1_facet")}
 # folded into another kernel's launch on the slices: held at their
-# kernel-phase sites, launched no time on paths A, C, D and amg_p
+# kernel-phase sites, launched alone no time on paths A, C-F and amg_p
+# (a facet term's launches in an element kernel count as `_fused`)
 FOLDED = {"amg_prolong": "sup_spmv_prolong",
           "ns_facet_natural_p1": "ns_cell_residual_p1_facet",
-          "ns_facet_natural_jac_p1": "ns_cell_jacobian_p1_facet"}
+          "ns_facet_natural_jac_p1": "ns_cell_jacobian_p1_facet",
+          "ns_facet_viscous_p1": "ns_cell_residual_p1_facet",
+          "ns_facet_viscous_jac_p1": "ns_cell_jacobian_p1_facet",
+          "ns_facet_backflow_p1": "ns_cell_residual_p1_facet",
+          "ns_facet_backflow_jac_p1": "ns_cell_jacobian_p1_facet"}
 # one preconditioner application on paths A and amg_p: the port's kernel
 # launches (the wrappers' counts) and the device kernels in all (PR 7's
 # 177 and 169 less the 31 and 20 K8 launches folded into K1 in PR 8;
@@ -248,21 +316,27 @@ FOLDED = {"amg_prolong": "sup_spmv_prolong",
 GRAPH_KERNELS = {"rasamg_sup": (131, 146), "amg_p": (134, 149)}
 PARITY_COUNTS = {"rasamg_sup": [(11, 52), (36, 161)],
                  "amg_p": [(11, 44), (36, 145)],
-                 # cfdtpu on the CPU, float64, res 1.0, 2 steps
+                 # cfdtpu on the CPU, float64, res 1.0, 2 steps (gmres:
+                 # its first step, (11, 180), (36, 575) over two)
                  "path_c": [(11, 53), (36, 151)],
-                 "gmres": [(11, 180), (36, 575)]}
-# parity runs whose c_L is held against itself at another limit than
-# 1e-9: gmres's c_L at step 2 (5.1e-5 against c_D 2.3e-2, the flow still
-# near symmetric) is a near cancellation that cfdtpu itself reproduces
-# only to ~1.5e-9 of its value when nothing but the sum order of its
-# outer Gram-Schmidt changes (tests/test_torch_gmres_parity.py, which
-# holds the port's plain versions against cfdtpu to the same limit)
-LIFT_LIMIT = {"gmres": 5e-9}
+                 "gmres": [(11, 180)]}
+# parity runs of fewer steps than 2: gmres's host run took 65-116 s of
+# the command's time for 2 steps on an H100's host, its first step a
+# quarter of the KSP iterations (and its c_L at step 2, a near
+# cancellation, is held to 5e-9 by tests/test_torch_gmres_parity.py)
+PARITY_STEPS = {"gmres": 1}
 MAX_HOST_LAUNCHES_PER_KSP = 30
 # counters that are subsets of another's (a fused variant or an option)
 SUBSET_COUNTERS = ("sup_spmv_prolong", "sup_spmv_cheby", "krylov_cgs_scaled",
-                   "ns_cell_residual_p1_facet", "ns_cell_jacobian_p1_facet")
+                   "ns_cell_residual_p1_facet", "ns_cell_jacobian_p1_facet",
+                   "ns_cell_residual_bdf2_p1_facet",
+                   "ns_cell_jacobian_bdf2_p1_facet",
+                   *(f"ns_facet_{t}{j}_p1_fused"
+                     for t in ("natural", "viscous", "backflow")
+                     for j in ("", "_jac")))
 # path D: steps per method from rest, then steps under torch.profiler
+# (step 5, the one profiled, runs 3 Newton iterations where step 4 runs
+# 13-15: its trace is the smaller, and the phase the shorter)
 PATH_D_STEPS = 4
 PATH_D_PROFILE = 1
 # name: (source, replaced TPU/XLA op, headline site, path that launches it)
@@ -284,10 +358,10 @@ SOURCES = {
                    "B"),
     "ras_apply": ("cfdtpu_torch/csrc/ras_apply.cu", "cfdtpu/la/ras.py:149",
                   "K6 ras apply", "A"),
-    "ns_facet_natural_p1": ("cfdtpu_torch/csrc/ns_facet_natural.cu",
+    "ns_facet_natural_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
                             "cfdtpu/forms/facet_terms.py:52",
                             "K7 facet residual", "A"),
-    "ns_facet_natural_jac_p1": ("cfdtpu_torch/csrc/ns_facet_natural.cu",
+    "ns_facet_natural_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
                                 "cfdtpu/forms/navier_stokes.py:369",
                                 "K7 facet jacobian", "A"),
     "amg_prolong": ("cfdtpu_torch/csrc/amg_prolong.cu",
@@ -321,13 +395,47 @@ SOURCES = {
                          "D"),
     "amg_gcr2": ("cfdtpu_torch/csrc/amg_gcr2.cu", "cfdtpu/la/amg.py:27",
                  "K11 second BlockAMG L1", "C"),
+    "ns_facet_viscous_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                            "cfdtpu/forms/facet_terms.py:110",
+                            "K12 viscous residual", "E"),
+    "ns_facet_viscous_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                                "cfdtpu/forms/navier_stokes.py:369",
+                                "K12 viscous jacobian", "E"),
+    "ns_facet_backflow_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                             "cfdtpu/forms/facet_terms.py:169",
+                             "K13 backflow residual", "E"),
+    "ns_facet_backflow_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                                 "cfdtpu/forms/navier_stokes.py:369",
+                                 "K13 backflow jacobian", "E"),
+    "ns_cell_residual_bdf2_p1": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
+                                 "cfdtpu/forms/navier_stokes.py:611",
+                                 "K14 cell residual", "F"),
+    "ns_cell_jacobian_bdf2_p1": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
+                                 "cfdtpu/forms/navier_stokes.py:384",
+                                 "K14 cell jacobian", "F"),
+    "ns_facet_natural_implicit_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                                     "cfdtpu/forms/facet_terms.py:52",
+                                     "K7 implicit facet residual", "F"),
+    "ns_facet_natural_implicit_jac_p1": (
+        "cfdtpu_torch/csrc/ns_facet.cu", "cfdtpu/forms/navier_stokes.py:369",
+        "K7 implicit facet jacobian", "F"),
+    "ns_cell_residual_bdf2_p1_facet": (
+        "cfdtpu_torch/csrc/ns_cell_residual.cu",
+        "cfdtpu/forms/navier_stokes.py:611", "K14+K7i residual", "F"),
+    "ns_cell_jacobian_bdf2_p1_facet": (
+        "cfdtpu_torch/csrc/ns_cell_residual.cu",
+        "cfdtpu/forms/navier_stokes.py:384", "K14+K7i jacobian", "F"),
 }
 PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
          "B": "python -m cfdtpu_torch.scripts.gather_micro",
          "C": "rasamg_sup with W + K + Chebyshev (Scenario.solve, 106,275 "
               "DOF)",
          "D": "gmres at 38,607 DOF, chebyshev_p at 4,461 and chebyshev at "
-              "1,626 (Scenario.solve)"}
+              "1,626 (Scenario.solve)",
+         "E": "dfg_2d_1 on DFG2D1Steady (Scenario.solve, 121,515 DOF, "
+              "float64)",
+         "F": "stabilized_schur_bdf2 on DFG 2D-1 (Scenario.solve, 106,275 "
+              "DOF)"}
 
 
 def log(*a):
@@ -344,6 +452,8 @@ def require(cond, msg):
 # kernel phase and the first one-launch call): a helper that comes back
 # with nothing is asked again, a second apart, a few times
 TRACE_TRIES = 5
+# spin kernels queued after the call in a one-launch trace
+TRACE_PAD = 4
 PROFILER_RETRIES = {"device_ms": 0, "launches": 0}
 
 
@@ -359,13 +469,13 @@ def traced_ms(fn):
         time.sleep(1.0)
 
 
-def traced_launches(fn):
+def traced_launches(fn, pad=0):
     """utils/cudatime.launches, asked again while its fullest trace holds
     no device activity (every call traced here issues some)."""
     from cfdtpu_torch.utils.cudatime import launches
 
     for i in range(TRACE_TRIES):
-        calls, names = launches(fn)
+        calls, names = launches(fn, pad=pad)
         if names or i == TRACE_TRIES - 1:
             return calls, names
         PROFILER_RETRIES["launches"] += 1
@@ -440,7 +550,7 @@ def kernel_sites(torch, np, sc, seed=0):
     from cfdtpu_torch.kernels.ns_cell_residual import (
         ns_cell_jacobian_p1, ns_cell_jacobian_plain, ns_cell_residual_p1,
         ns_cell_residual_plain)
-    from cfdtpu_torch.kernels.ns_facet_natural import (
+    from cfdtpu_torch.kernels.ns_facet import (
         ns_facet_natural_jac_p1, ns_facet_natural_jac_plain,
         ns_facet_natural_p1, ns_facet_natural_plain)
     from cfdtpu_torch.kernels.patch_spmv import patch_spmv, patch_spmv_plain
@@ -813,33 +923,34 @@ def kernel_sites(torch, np, sc, seed=0):
     fb = f._facet_blocks[0]
     fargs = f._fused_args(fb, u, p, (up,), prm)
     nf, nqf = fb["tabs"]["dS"].shape
+    k7_res, k7_jac = (facet_bytes(fargs, "natural", False, jac)
+                      for jac in (False, True))
     add("ns_facet_natural_p1", "K7 facet residual",
         lambda: ns_facet_natural_p1(*fargs),
         lambda: ns_facet_natural_plain(*fargs),
-        k7_bytes(fargs, 6), nf * (K7_OPS[0] + nqf * K7_OPS[1]))
+        k7_res[0], nf * (K7_OPS[0] + nqf * K7_OPS[1]))
     add("ns_facet_natural_jac_p1", "K7 facet jacobian",
         lambda: ns_facet_natural_jac_p1(*fargs),
         lambda: ns_facet_natural_jac_plain(*fargs),
-        k7_bytes(fargs, 81), 9 * nf * (K7_JAC_OPS[0] + nqf * K7_JAC_OPS[1]))
+        k7_jac[0], 9 * nf * (K7_JAC_OPS[0] + nqf * K7_JAC_OPS[1]))
     # K3 with the facet block in its launch (K7's bodies after the cells'
     # blocks), as the form calls it; beside it the two launches it
     # replaces. Its bytes: K3's and K7's, less the facet dofs' u, u_prev
     # and p, which K3's count of u, u_prev and p holds already
-    facet = fargs[3:]
-    shared = nf * 3 * 5 * u.element_size()
+    facet = [f._kernel_block(fb, prm)]
     add("ns_cell_residual_p1_facet", "K3+K7 residual",
-        lambda: ns_cell_residual_p1(*args, facet=facet),
+        lambda: ns_cell_residual_p1(*args, facets=facet),
         lambda: (*ns_cell_residual_plain(*args),
                  ns_facet_natural_plain(*fargs)),
-        k3_bytes(args[:8], (ru_e, rp_e)) + k7_bytes(fargs, 6) - shared,
+        k3_bytes(args[:8], (ru_e, rp_e)) + k7_res[0] - k7_res[1],
         k3_ops(f, K3_OPS) + nf * (K7_OPS[0] + nqf * K7_OPS[1]),
         pair=lambda: (*ns_cell_residual_p1(*args),
                       ns_facet_natural_p1(*fargs)))
     add("ns_cell_jacobian_p1_facet", "K3+K7 jacobian",
-        lambda: ns_cell_jacobian_p1(*args, facet=facet),
+        lambda: ns_cell_jacobian_p1(*args, facets=facet),
         lambda: (ns_cell_jacobian_plain(*args),
                  ns_facet_natural_jac_plain(*fargs)),
-        k3_bytes(args[:8], (A_cells,)) + k7_bytes(fargs, 81) - shared,
+        k3_bytes(args[:8], (A_cells,)) + k7_jac[0] - k7_jac[1],
         k3_ops(f, K3_OPS) + 3 * k3_ops(f, K3_JAC_TANGENT_OPS)
         + 9 * nf * (K7_JAC_OPS[0] + nqf * K7_JAC_OPS[1]),
         pair=lambda: (ns_cell_jacobian_p1(*args),
@@ -1090,7 +1201,7 @@ FP32_TFLOPS = 67.0  # its float32 rate outside the tensor cores (data sheet)
 # structurally zero. The dual numbers as written do more (398 and 405 a
 # lane, values included): that is the implementation's count, not the
 # function's, and is not what the bound is made of. K7
-# (csrc/ns_facet_natural.cu): per facet, and per column of a facet
+# (csrc/ns_facet.cu): per facet, and per column of a facet
 # (nine lanes a facet, one tangent each; on dual numbers of n tangents
 # a sum of duals or a dual times a plain number is 1 + n and a product
 # of duals 1 + 3n).
@@ -1098,6 +1209,12 @@ K3_OPS = (161, 117)
 K3_JAC_TANGENT_OPS = (117, 148)
 K7_OPS = (12, 103)
 K7_JAC_OPS = (12, 154)
+# K12 and K13 (csrc/ns_facet.cu, whose header itemises the residuals'):
+# per facet, and per column of a facet on dual numbers of one tangent
+K12_OPS = (12, 93)
+K12_JAC_OPS = (12, 137)
+K13_OPS = (12, 45)
+K13_JAC_OPS = (12, 70)
 
 
 def nbytes(*ts):
@@ -1140,14 +1257,36 @@ def k3_ops(form, ops):
     return form.cell_h.shape[0] * (ops[0] + form.tabs.qw.shape[0] * ops[1])
 
 
-def k7_bytes(fargs, out_per_facet):
-    """K7: the dofmaps, the facet cells' coordinates, the six per-facet
-    tables, the five gathered values (u, u_prev, p) of each of a
-    facet's three dofs, and the output, once each."""
-    u, _, _, dmu, dmp, coords, tabs, _ = fargs
-    keys = ("phi_u", "dphi_u", "phi_p", "gdphi", "normal", "dS")
-    return (nbytes(dmu, dmp, coords, *(tabs[k] for k in keys))
-            + dmu.shape[0] * (3 * 5 + out_per_facet) * u.element_size())
+# what a facet term's function reads besides its output: (the per-facet
+# tables, the block's arrays and the values gathered for each of a
+# facet's three dofs at the midpoint and at u for its residual; the
+# arrays and values for its Jacobian). Every term is linear in u and p,
+# so a Jacobian reads no value but backflow's u_prev.
+FACET_TABLES = ("phi_u", "dphi_u", "phi_p", "gdphi", "normal", "dS")
+FACET_READS = {
+    "natural": (FACET_TABLES, ("dofmap_u", "dofmap_p", "coords"), (5, 3),
+                ("coords",), 0),
+    "viscous": (("phi_u", "dphi_u", "gdphi", "normal", "dS"),
+                ("dofmap_u", "coords"), (4, 2), ("coords",), 0),
+    "backflow": (("phi_u", "normal", "dS"), ("dofmap_u",), (4, 4),
+                 ("dofmap_u",), 2),
+}
+
+
+def facet_bytes(fargs, term, implicit, jacobian):
+    """(bytes, gathered): what a facet term alone must move, its tables,
+    arrays and gathered values (FACET_READS) and its output (ru_f or
+    A_f) once each; `gathered`, the bytes of those values, which an
+    element kernel that carries the block reads with the cells'
+    vectors."""
+    u, _, _, dmu, dmp, coords, tabs = fargs[:7]
+    keys, arrays, vals, jarrays, jvals = FACET_READS[term]
+    have = {"dofmap_u": dmu, "dofmap_p": dmp, "coords": coords}
+    nf, sz = dmu.shape[0], u.element_size()
+    gathered = nf * 3 * (jvals if jacobian else vals[bool(implicit)]) * sz
+    return (nbytes(*(have[a] for a in (jarrays if jacobian else arrays)),
+                   *(tabs[k] for k in keys))
+            + gathered + nf * (81 if jacobian else 6) * sz, gathered)
 
 
 def k4_bytes(vals, e1, e2, kcol, inv):
@@ -1176,13 +1315,167 @@ def flat_outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def phase_kernels(torch, np, sc, tol, timed):
+def backflow_state(torch, np, s, seed, dtype):
+    """A developed state with backflow: the inlet profile less 0.1 (so
+    u_prev.n < 0 near the outlet's walls) plus noise, for u, u_prev and
+    u_prev2; p small; made with numpy from `seed`, in `dtype`."""
+    y = s.V.dof_coords[:, 1]
+    rng = np.random.default_rng(seed)
+    prof = np.stack([1.2 * y * (0.41 - y) / 0.41 ** 2 - 0.1, 0 * y], axis=1)
+    n_u, n_p = s.V.num_dofs, s.Q.num_dofs
+    out = [s.tensor(prof + 0.02 * rng.standard_normal((n_u, 2)))
+           for _ in range(3)]
+    out.append(s.tensor(0.1 * rng.standard_normal(n_p)))
+    return tuple(t.to(dtype).contiguous() for t in out)
+
+
+def variant_sites(torch, np, s, dtype):
+    """The sites of this slice's kernels at the solver's shapes, in
+    `dtype`: with the dfg_2d_1 solver (path E) K12 and K13 alone on the
+    outlet and K3 with both blocks in its launch; with the BDF2 solver
+    (path F) K14 alone, K7's implicit mode alone and K14 with it in its
+    launch; each fused site beside the launches it replaces. The state
+    has backflow on part of the outlet (backflow_state)."""
+    from cfdtpu_torch.kernels import ns_cell_residual as k3
+    from cfdtpu_torch.kernels.ns_facet import (FacetBlock, facet_call,
+                                               facet_jac_plain, facet_plain)
+
+    sites = []
+
+    def add(name, label, kern, plain, n_bytes, flops, pair=None):
+        sites.append(dict(name=name, label=label, kern=kern, plain=plain,
+                          bytes=n_bytes, flops=flops, lib=None, reset=None,
+                          pair=pair))
+
+    f, prm = s.form, s.params()
+    bdf2 = f.N_AUX == 2
+    if bdf2:
+        s._bdf = (1.5, -2.0, 0.5)
+        prm = s.params()
+    cast = (lambda t: t.to(dtype).contiguous())
+    u, up, up2, p = backflow_state(torch, np, s, 21, dtype)
+    tabs = type(f.tabs)(**{k: (cast(v) if torch.is_tensor(v) else v)
+                           for k, v in vars(f.tabs).items()})
+    eps = float(np.finfo(str(dtype)[6:]).resolution)
+    cell = (f.dofmap_u, f.dofmap_p, cast(f.cell_coords), cast(f.cell_h),
+            tabs, prm["rho"], prm["mu"], prm["dt"], prm["f"], eps)
+    blocks = [FacetBlock(b["term"], b["dofmap_u32"], b["dofmap_p32"],
+                         cast(b["coords"]),
+                         {k: cast(v) for k, v in b["tabs"].items()},
+                         b["term"].scalars(prm)) for b in f._facet_blocks]
+    tag = "E" if not bdf2 else "F"
+    nf, nqf = blocks[0].tabs["dS"].shape
+    facet_ops = {"viscous": (K12_OPS, K12_JAC_OPS),
+                 "backflow": (K13_OPS, K13_JAC_OPS),
+                 "natural": (K7_OPS, K7_JAC_OPS)}
+    alone, f_bytes, f_flops, shared = [], [0, 0], [0, 0], [0, 0]
+    for b in blocks:
+        fargs = (u, up, p, *b.args())
+        term = b.term
+        ops, jops = facet_ops[term.term]
+        kname = term.counter(False)
+        label = {"viscous": "K12 viscous", "backflow": "K13 backflow",
+                 "natural": "K7 implicit facet"}[term.term]
+        if term.implicit and term.term == "natural":
+            kname = K7_IMPLICIT
+        (nb_r, g_r), (nb_j, g_j) = (
+            facet_bytes(fargs, term.term, term.implicit, jac)
+            for jac in (False, True))
+        fl_r, fl_j = (nf * (ops[0] + nqf * ops[1]),
+                      9 * nf * (jops[0] + nqf * jops[1]))
+        for jac, nm, nb_, fl_ in ((False, kname, nb_r, fl_r),
+                                  (True, kname.replace("_p1", "_jac_p1"),
+                                   nb_j, fl_j)):
+            add(nm, f"{label} {'jacobian' if jac else 'residual'}",
+                lambda jac=jac, b=b, fa=fargs: facet_call(
+                    b.term, b.scalars, jac, *fa),
+                lambda jac=jac, b=b, fa=fargs: (
+                    facet_jac_plain if jac else facet_plain)(
+                        b.term, b.scalars, *fa), nb_, fl_)
+        alone.append((b, fargs))
+        f_bytes = [f_bytes[0] + nb_r, f_bytes[1] + nb_j]
+        f_flops = [f_flops[0] + fl_r, f_flops[1] + fl_j]
+        shared = [shared[0] + g_r, shared[1] + g_j]
+    if bdf2:
+        args = (u, up, up2, p, *cell, (prm["bdf_a0"], prm["bdf_a1"],
+                                       prm["bdf_a2"]))
+        res, jac = k3.ns_cell_residual_bdf2_p1, k3.ns_cell_jacobian_bdf2_p1
+        res_plain = k3.ns_cell_residual_bdf2_plain
+        jac_plain = k3.ns_cell_jacobian_bdf2_plain
+        ru_e, rp_e = res(*args)
+        cells = (u, up, p, *cell[:5])
+        nb_res = k3_bytes(cells, (ru_e, rp_e)) + nbytes(up2)
+        nb_jac = (k3_bytes(cells, ()) + nbytes(up2)
+                  + ru_e.shape[0] * 81 * u.element_size())
+        add("ns_cell_residual_bdf2_p1", "K14 cell residual",
+            lambda: res(*args), lambda: res_plain(*args), nb_res,
+            k3_ops(f, K3_OPS))
+        add("ns_cell_jacobian_bdf2_p1", "K14 cell jacobian",
+            lambda: jac(*args), lambda: jac_plain(*args), nb_jac,
+            k3_ops(f, K3_OPS) + 3 * k3_ops(f, K3_JAC_TANGENT_OPS))
+        fused = ("ns_cell_residual_bdf2_p1_facet",
+                 "ns_cell_jacobian_bdf2_p1_facet", "K14+K7i")
+    else:
+        args = (u, up, p, *cell)
+        res, jac = k3.ns_cell_residual_p1, k3.ns_cell_jacobian_p1
+        res_plain, jac_plain = (k3.ns_cell_residual_plain,
+                                k3.ns_cell_jacobian_plain)
+        ru_e, rp_e = res(*args)
+        nb_res = k3_bytes(args[:8], (ru_e, rp_e))
+        nb_jac = (k3_bytes(args[:8], ())
+                  + ru_e.shape[0] * 81 * u.element_size())
+        fused = ("ns_cell_residual_p1_facet", "ns_cell_jacobian_p1_facet",
+                 "K3+K12+K13")
+
+    def apart(jacobian):
+        cells_out = (jac if jacobian else res)(*args)
+        cells_out = (cells_out if isinstance(cells_out, tuple)
+                     else (cells_out,))
+        return cells_out + tuple(facet_call(b.term, b.scalars, jacobian, *fa)
+                                 for b, fa in alone)
+
+    def plain(jacobian):
+        cells_out = (jac_plain if jacobian else res_plain)(*args)
+        cells_out = (cells_out if isinstance(cells_out, tuple)
+                     else (cells_out,))
+        fp = facet_jac_plain if jacobian else facet_plain
+        return cells_out + tuple(fp(b.term, b.scalars, *fa)
+                                 for b, fa in alone)
+
+    add(fused[0], f"{fused[2]} residual",
+        lambda: res(*args, facets=blocks), lambda: plain(False),
+        nb_res + f_bytes[0] - shared[0], k3_ops(f, K3_OPS) + f_flops[0],
+        pair=lambda: apart(False))
+    add(fused[1], f"{fused[2]} jacobian",
+        lambda: jac(*args, facets=blocks), lambda: plain(True),
+        nb_jac + f_bytes[1] - shared[1],
+        k3_ops(f, K3_OPS) + 3 * k3_ops(f, K3_JAC_TANGENT_OPS) + f_flops[1],
+        pair=lambda: apart(True))
+    log(f"[kernels {tag}] {dtype}: {len(blocks)} facet blocks of {nf} "
+        f"facets, {nqf} points a facet")
+    if not bdf2:
+        # the outlet facets under backflow at this state: K13 compares
+        # no zeros
+        tb = blocks[-1].tabs
+        upq = torch.einsum("fqb,fbi->fqi", tb["phi_u"],
+                           up[blocks[-1].dofmap_u.long()])
+        n_back = int((torch.einsum("fqi,fqi->fq", upq, tb["normal"]) < 0)
+                     .any(dim=1).sum())
+        log(f"[kernels E] {n_back} of the {nf} outlet facets under "
+            f"backflow (u_prev.n < 0 at a point)")
+        require(0 < n_back < nf, "no facet under backflow: K13 would "
+                                 "compare zeros")
+    return sites
+
+
+def phase_kernels(torch, np, sc, tol, timed, sites=None):
     """Compare every kernel site with its plain version, and with a
     second call of itself (bitwise). With `timed`, time the kernel and
     the library yardstick with a warm L2 and with the L2 flushed before
     each call (cuda_ms(flush_l2=True)), and their device time alone;
     returns ({site: row dict}, {site: plain version}): the plain
-    versions are timed later (phase_plain_times)."""
+    versions are timed later (phase_plain_times). `sites` defaults to
+    kernel_sites(sc)."""
     from cfdtpu_torch.utils.cudatime import cuda_ms
 
     def both(fn):
@@ -1197,7 +1490,7 @@ def phase_kernels(torch, np, sc, tol, timed):
         return "not measured" if ms is None else f"{ms:.4f}"
 
     rows, plains = {}, {}
-    for st in kernel_sites(torch, np, sc):
+    for st in (kernel_sites(torch, np, sc) if sites is None else sites):
         label, kern, plain = st["label"], st["kern"], st["plain"]
         plains[label] = plain
         # a kernel that updates a state in place starts each compared call
@@ -1312,7 +1605,7 @@ def phase_one_launch(torch, np, sc):
     from cfdtpu_torch.kernels.krylov import (Givens, krylov_cgs,
                                              krylov_lsq_tri)
     from cfdtpu_torch.kernels.ns_cell_residual import ns_cell_jacobian_plain
-    from cfdtpu_torch.kernels.ns_facet_natural import (
+    from cfdtpu_torch.kernels.ns_facet import (
         ns_facet_natural_jac_plain, ns_facet_natural_plain)
     s = sc.solver
     f, nb = s.form, s._nodebsr
@@ -1452,6 +1745,82 @@ def phase_one_launch(torch, np, sc):
     out["form.residual"] = {"kernels": res, "with_plain_facet": res_before}
     out["form.element_jacobians"] = {"kernels": jac, "plain": jac_before}
     return out
+
+
+def phase_one_launch_form(torch, np, sc, tag):
+    """Launches per form.residual and per form.element_jacobians call on
+    a new path's form: the element kernel once with every facet block in
+    its launch and K2 twice for the cells and once per block (the
+    wrappers' counts, asserted); the device kernels of a trace, which
+    holds those and one add per block: the trace (padded, cudatime.
+    launches) is taken again, up to TRACE_TRIES times a second apart,
+    until one holds
+    them all, as a trace may lose records, never gain one (on an H100
+    traces of the residual's 7 lost 1 and 5, and every trace of the BDF2
+    Jacobian its one kernel, in two unpadded runs); the fullest must
+    hold the element kernel once and no more than the rest."""
+    from cfdtpu_torch import kernels
+
+    s = sc.solver
+    f = s.form
+    u, up, up2, p = backflow_state(torch, np, s, 23, s.dtype)
+    aux = (up, up2)[:f.N_AUX]
+    prm = s.params()
+    key = "bdf2_p1" if f.N_AUX == 2 else "p1"
+    nblk = len(f._facet_blocks)
+    want_res = {f"ns_cell_residual_{key}": 1,
+                f"ns_cell_residual_{key}_facet": 1, "ell_sum": 2 + nblk}
+    want_jac = {f"ns_cell_jacobian_{key}": 1,
+                f"ns_cell_jacobian_{key}_facet": 1}
+    counted = {}
+    for name, fn, want in (
+            ("residual", lambda: f.residual(u, p, aux, prm), want_res),
+            ("element_jacobians",
+             lambda: f.element_jacobians(u, p, aux, prm), want_jac)):
+        kernels.reset_counts()
+        fn()
+        got = {k: n for k, n in kernels.counts().items() if n
+               and not k.endswith("_fused")}
+        counted[name] = got
+        require(got == want, f"{tag}: form.{name} launched {got}, not "
+                             f"{want}")
+
+    def trace(fn, full):
+        best, tries = [], 0
+        while tries < TRACE_TRIES and len(best) < full:
+            if tries:
+                time.sleep(1.0)
+            names = traced_launches(fn, pad=TRACE_PAD)[1]
+            best = names if len(names) > len(best) else best
+            tries += 1
+        PROFILER_RETRIES["launches"] += tries - 1
+        return best, tries
+
+    n_res = 3 + 2 * nblk
+    res, tries_res = trace(lambda: f.residual(u, p, aux, prm), n_res)
+    jac, tries_jac = trace(lambda: f.element_jacobians(u, p, aux, prm), 1)
+    log(f"[one launch {tag}] form.residual ({nblk} facet blocks "
+        f"{[b['name'] for b in f._facet_blocks]}): port launches "
+        f"{counted['residual']}, {len(res)} of {n_res} device kernels in "
+        f"the fullest of {tries_res} traces {res}; "
+        f"form.element_jacobians: {counted['element_jacobians']}, "
+        f"{len(jac)} of 1 in {tries_jac} {jac}")
+    kinds = (f"ns_cell_residual_{key}_facet_kernel", "ell_sum_kernel",
+             "CUDAFunctor_add")
+    require(len(res) <= n_res
+            and all(any(k in n for k in kinds) for n in res),
+            f"{tag}: form.residual's trace holds {res}: more than one "
+            f"element kernel, {2 + nblk} sums and {nblk} adds")
+    require(sum(kinds[0] in n for n in res) == 1,
+            f"{tag}: no trace of form.residual held its element kernel "
+            f"once: {res}")
+    require(len(jac) == 1
+            and f"ns_cell_jacobian_{key}_facet_kernel" in jac[0],
+            f"{tag}: form.element_jacobians' traces hold {jac}, not its "
+            "element kernel once")
+    return {"residual": res, "element_jacobians": jac, "facet_blocks": nblk,
+            "residual_full": len(res) == n_res, "traces_residual": tries_res,
+            "traces_jacobian": tries_jac, "port_launches": counted}
 
 
 def pc_state(torch, np, sc, seed):
@@ -1753,7 +2122,8 @@ def run_steps(sc, out_dir, steps, on_step=None):
         now = time.perf_counter()
         st = s.step_stats
         rec.append((st["newton_iters"], st["ksp_iters"], st["ksp_max"],
-                    now - last[0], st["converged"]))
+                    now - last[0], st["converged"],
+                    getattr(s, "cd", None), getattr(s, "cl", None)))
         if on_step is not None:
             on_step(len(rec))
         last[0] = time.perf_counter()
@@ -1869,24 +2239,22 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     ndof = s.V.num_global_dofs + s.Q.num_global_dofs
-    for i, (n, k, kmax, w, _) in enumerate(rec, 1):
+    for i, (n, k, kmax, w, _, cd, cl) in enumerate(rec, 1):
+        forces = "" if cd is None else f" c_D {cd:.10f} c_L {cl:.10f}"
         log(f"[{tag}] step {i}: newton {n} ksp {k} (max per solve {kmax}) "
-            f"wall {w:.4f} s")
-    win = rec[steps - 4:steps]
+            f"wall {w:.4f} s{forces}")
+    win = rec[max(steps - 4, 0):steps]
     wall = sum(r[3] for r in win)
-    sps = 4 / wall
+    sps = len(win) / wall
     ksp = sum(r[1] for r in win)
-    fd, fl = sc.compute_drag_lift()
-    fdr, flr = sc.compute_drag_lift(method="reaction")
-    dp = sc.compute_pressure_diff()
-    log(f"[{tag}] {ndof} DOF float32: {sps:.4f} steps/s over steps "
-        f"{steps - 3}-{steps}; {sum(r[0] for r in win)} Newton and {ksp} "
-        f"KSP there, {1e3 * wall / ksp:.2f} ms per KSP iteration; "
-        f"c_D {500 * fd:.6f} c_L {500 * fl:.6f} (line), "
-        f"c_D {500 * fdr:.6f} c_L {500 * flr:.6f} (reaction), dp {dp:.6f} "
-        f"at step {len(rec)}; peak memory {peak / 2**20:.1f} MiB (allocated "
-        f"at the start {start_bytes / 2**20:.1f}); launches "
-        f"in steps 1-{steps} {launches}")
+    funcs = functionals(sc)
+    log(f"[{tag}] {ndof} DOF {str(s.dtype)[6:]}: {sps:.4f} steps/s over "
+        f"steps {steps - len(win) + 1}-{steps}; {sum(r[0] for r in win)} "
+        f"Newton and {ksp} KSP there, {1e3 * wall / ksp:.2f} ms per KSP "
+        f"iteration; {funcs} at step {len(rec)}; peak memory "
+        f"{peak / 2**20:.1f} MiB (allocated at the start "
+        f"{start_bytes / 2**20:.1f}); launches in steps 1-{steps} "
+        f"{launches}")
     if profile_steps:
         res = prof.result
         ksp_w = sum(r[1] for r in rec[steps:])
@@ -1950,9 +2318,19 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
     return launches, {"ndof": ndof, "steps_per_s": sps, "peak_bytes": peak,
                       "start_bytes": start_bytes,
                       "ms_per_ksp": 1e3 * wall / ksp,
-                      "steps": rec, "c_D": 500 * fd, "c_L": 500 * fl,
-                      "c_D_reaction": 500 * fdr, "c_L_reaction": 500 * flr,
-                      "dp": dp, "profile": prof.result}
+                      "steps": rec, **funcs, "profile": prof.result}
+
+
+def functionals(sc):
+    """c_D, c_L (the line integral and the reaction force) and dp of a
+    DFG1Benchmark; the traction c_D and c_L that the dfg_2d_1 solver
+    keeps of its last step."""
+    if not hasattr(sc, "compute_drag_lift"):
+        return {"c_D": sc.solver.cd, "c_L": sc.solver.cl}
+    fd, fl = sc.compute_drag_lift()
+    fdr, flr = sc.compute_drag_lift(method="reaction")
+    return {"c_D": 500 * fd, "c_L": 500 * fl, "c_D_reaction": 500 * fdr,
+            "c_L_reaction": 500 * flr, "dp": sc.compute_pressure_diff()}
 
 
 def phase_parity(torch, np, tmp, kw, tag):
@@ -1965,7 +2343,8 @@ def phase_parity(torch, np, tmp, kw, tag):
                            dtype="float64", device=dev, stats_every=1,
                            output_every=100, **kw)
         t0 = time.perf_counter()
-        rec = run_steps(sc, os.path.join(tmp, f"parity_{tag}_{dev}"), 2)
+        rec = run_steps(sc, os.path.join(tmp, f"parity_{tag}_{dev}"),
+                        PARITY_STEPS.get(tag, 2))
         s = sc.solver
         fd, fl = sc.compute_drag_lift()
         res[dev] = {
@@ -1993,10 +2372,47 @@ def phase_parity(torch, np, tmp, kw, tag):
         out[key] = rel
     relf = np.abs(a["f"] - b["f"]) / np.abs(b["f"])
     log(f"[parity {tag}] c_D, c_L, dp relative differences {relf}")
-    lim = np.array([1e-9, LIFT_LIMIT.get(tag, 1e-9), 1e-9])
-    require((relf <= lim).all(), f"{tag}: functionals differ: {relf}, "
-                                 f"limits {lim}")
+    require((relf <= 1e-9).all(), f"{tag}: functionals differ: {relf}")
     out["c_D_c_L_dp"] = relf.tolist()
+    return out
+
+
+def phase_parity_e(torch, np, tmp):
+    """Path E's float64 card run against the host's plain versions, at
+    PARITY_E_RES: equal Newton and KSP counts per step (cfdtpu's), u, p
+    and every step's c_D and c_L within 1e-9 relative."""
+    from cfdtpu_torch.scenarios.dfg_2d_1 import DFG2D1Steady
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        sc = DFG2D1Steady("dfg_2d_1", dt=DT, T=1.0, res=PARITY_E_RES,
+                          dtype="float64", device=dev, stats_every=1,
+                          output_every=100, **RASAMG_KW)
+        t0 = time.perf_counter()
+        rec = run_steps(sc, os.path.join(tmp, f"parity_e_{dev}"),
+                        PARITY_E_STEPS)
+        s = sc.solver
+        res[dev] = {"counts": [(r[0], r[1]) for r in rec],
+                    "u": s.u_sol.cpu().numpy(), "p": s.p_sol.cpu().numpy(),
+                    "f": np.array([(r[5], r[6]) for r in rec])}
+        log(f"[parity E] {dev}: counts {res[dev]['counts']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    a, b = res["cuda"], res["cpu"]
+    require(a["counts"] == b["counts"] == PARITY_E_COUNTS,
+            f"path E parity: counts {a['counts']} (card), {b['counts']} "
+            f"(host), cfdtpu's {PARITY_E_COUNTS}")
+    out = {"counts": a["counts"], "c_D_c_L_cuda": a["f"].tolist(),
+           "c_D_c_L_cpu": b["f"].tolist()}
+    for key in ("u", "p"):
+        rel = np.linalg.norm(a[key] - b[key]) / np.linalg.norm(b[key])
+        log(f"[parity E] {key} relative difference {rel:.3e}")
+        require(rel <= 1e-9, f"path E parity: {key} differs by {rel:.3e}")
+        out[key] = rel
+    relf = np.abs(a["f"] - b["f"]) / np.abs(b["f"])
+    log(f"[parity E] c_D, c_L per step on the card {a['f'].tolist()}, "
+        f"relative differences {relf.tolist()}")
+    require((relf <= 1e-9).all(), f"path E parity: c_D, c_L differ {relf}")
+    out["c_D_c_L"] = relf.tolist()
     return out
 
 
@@ -2025,32 +2441,99 @@ def phase_gather_micro():
     return got
 
 
-def phase_cli(tmp, name, flags=(), device="cuda"):
-    """The CLI as a user runs it; device None leaves out --device, and
-    the run must then take the card by default."""
+def start_cli(tmp, name, flags=(), device="cuda", simulation="dfg_1",
+              solver="stabilized_schur", size=("--res_scale", "1.0"),
+              want=None):
+    """Start the CLI as a user runs it, its output to files; device None
+    leaves out --device, and the run must then take the card by
+    default. `want`: a line the run must print every step (dfg_2d_1's
+    `DFG Metrics:`). finish_cli waits for it and checks it."""
     out = os.path.join(tmp, f"cli_{name}")
+    os.makedirs(out, exist_ok=True)
     dev = [] if device is None else ["--device", device]
     cmd = [sys.executable, "-m", "cfdtpu_torch", "simulate",
-           "--simulation", "dfg_1", "--solver", "stabilized_schur",
-           "--T", "0.1", "--dt", "0.05", "--res_scale", "1.0",
+           "--simulation", simulation, "--solver", solver,
+           "--T", "0.1", "--dt", "0.05", *size,
            *dev, "--output_dir", out, *flags]
     env = dict(os.environ, PYTHONPATH=HERE)
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
-                         text=True, timeout=600)
-    tail = (res.stdout + res.stderr)[-3000:]
-    require(res.returncode == 0, f"CLI exited {res.returncode}:\n{tail}")
-    runs = glob.glob(os.path.join(out, "dfg_1", "*"))
+    logs = [open(os.path.join(out, k), "w+") for k in ("stdout", "stderr")]
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=logs[0],
+                            stderr=logs[1], text=True)
+    return dict(name=name, proc=proc, logs=logs, out=out,
+                simulation=simulation, want=want, t0=time.perf_counter())
+
+
+def finish_cli(run, timeout=600):
+    """Wait for a CLI run (start_cli): exit 0, its run directory and
+    files, the card, and the `want` line every step."""
+    name, proc = run["name"], run["proc"]
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    outs = []
+    for fh in run["logs"]:
+        fh.seek(0)
+        outs.append(fh.read())
+    stdout, stderr = outs
+    tail = (stdout + stderr)[-3000:]
+    require(proc.returncode == 0,
+            f"CLI {name} exited {proc.returncode}:\n{tail}")
+    runs = glob.glob(os.path.join(run["out"], run["simulation"], "*"))
     require(len(runs) == 1, f"CLI run directory missing: {runs}")
     for fname in ("simulation_params.txt", "norms.txt", "v.pvd"):
         require(os.path.exists(os.path.join(runs[0], fname)),
                 f"CLI did not write {fname}")
-    require("'device': 'cuda'" in res.stdout,
+    require("'device': 'cuda'" in stdout,
             f"CLI {name} did not run on the card:\n{tail}")
-    log(f"[cli {name}] ok in {time.perf_counter() - t0:.1f} s: "
-        + " | ".join(ln for ln in res.stdout.splitlines()
-                     if ln.startswith(("Solver converged", "Drag", "Lift",
-                                       "Pressure"))))
+    want = run["want"]
+    if want is not None:
+        n_want = sum(want in ln for ln in stdout.splitlines())
+        require(n_want == 2, f"CLI {name} printed {n_want} lines with "
+                             f"{want!r}, not one a step:\n{tail}")
+    log(f"[cli {name}] ok in {time.perf_counter() - run['t0']:.1f} s: "
+        + " | ".join(ln.strip() for ln in stdout.splitlines()
+                     if ln.strip().startswith(("Solver converged", "Drag",
+                                               "Lift", "Pressure",
+                                               "DFG Metrics"))))
+
+
+def phase_parity_and_cli(torch, np, tmp, lap):
+    """The parity runs (phase_parity, phase_parity_e) with the four CLI
+    runs going at the same time, each a process of its own on the card:
+    the default inner method, the rasamg_sup flags with and without
+    --device, and dfg_2d_1 at PARITY_E_RES in float64. Every CLI process
+    is waited for (killed first if a parity run failed)."""
+    clis = [start_cli(tmp, "amg_p"),
+            start_cli(tmp, "rasamg_sup", RASAMG_FLAGS),
+            start_cli(tmp, "rasamg_sup_default_device", RASAMG_FLAGS,
+                      device=None),
+            start_cli(tmp, "dfg_2d_1", simulation="dfg_2d_1",
+                      solver="dfg_2d_1",
+                      size=("--res", str(PARITY_E_RES), "--dtype",
+                            "float64"), want="DFG Metrics:")]
+    parity = {}
+    try:
+        for tag, kw in (("rasamg_sup", RASAMG_KW), ("amg_p", SLICE_KW),
+                        ("path_c", PATH_C_KW),
+                        ("gmres", PATH_D["gmres"][1])):
+            parity[tag] = phase_parity(torch, np, tmp, kw, tag)
+            lap(f"parity {tag}")
+        parity["path_e"] = phase_parity_e(torch, np, tmp)
+        lap("parity path E")
+        for run in clis:
+            finish_cli(run)
+        lap("CLI (the wait after the parity runs)")
+    finally:
+        for run in clis:
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+            for fh in run["logs"]:
+                fh.close()
+    return parity
 
 
 # ----------------------------------------------------------------------
@@ -2159,26 +2642,69 @@ def main(argv=None):
                 torch, np, sc_d, f"path D {method}", base_p)
             del sc_d
             lap(f"path D {method}")
-        parity = {}
-        for tag, kw in (("rasamg_sup", RASAMG_KW), ("amg_p", SLICE_KW),
-                        ("path_c", PATH_C_KW), ("gmres", PATH_D["gmres"][1])):
-            parity[tag] = phase_parity(torch, np, tmp, kw, tag)
-            lap(f"parity {tag}")
+        # path E: DFG 2D-1 steady with the dfg_2d_1 solver, float64
+        from cfdtpu_torch.scenarios.dfg_2d_1 import DFG2D1Steady
+
+        t0 = time.perf_counter()
+        sc_e = DFG2D1Steady("dfg_2d_1", dt=DT, T=1.0, res=PATH_E_RES,
+                            dtype="float64", device="cuda", stats_every=1,
+                            output_every=100, **RASAMG_KW)
+        log(f"[setup] path E: res {PATH_E_RES} float64 dfg_2d_1 on cuda: "
+            f"{time.perf_counter() - t0:.1f} s")
+        rows_e, plains_e = phase_kernels(
+            torch, np, sc_e, 1e-12, timed=True,
+            sites=variant_sites(torch, np, sc_e.solver, torch.float64))
+        phase_kernels(torch, np, sc_e, 1e-5, timed=False,
+                      sites=variant_sites(torch, np, sc_e.solver,
+                                          torch.float32))
+        one_launch["path E"] = phase_one_launch_form(torch, np, sc_e, "E")
+        phase_plain_times(rows_e, plains_e)
+        rows.update(rows_e)
+        del plains_e
+        launches_e, slice_e = phase_slice(
+            torch, np, sc_e, os.path.join(tmp, "slice_e"), "path E",
+            PATH_E_STEPS, PATH_E_KERNELS, profile_steps=PATH_E_PROFILE)
+        del sc_e
+        lap("path E")
+        # path F: stabilized_schur_bdf2, float32
+        t0 = time.perf_counter()
+        sc_f = DFG1Benchmark("stabilized_schur_bdf2", dt=DT, T=1.0,
+                             res_scale=0.3, dtype="float32", device="cuda",
+                             stats_every=4, output_every=100, **RASAMG_KW)
+        log(f"[setup] path F: res_scale 0.3 float32 stabilized_schur_bdf2 "
+            f"on cuda: {time.perf_counter() - t0:.1f} s")
+        rows_f, plains_f = phase_kernels(
+            torch, np, sc_f, 1e-5, timed=True,
+            sites=variant_sites(torch, np, sc_f.solver, torch.float32))
+        phase_kernels(torch, np, sc_f, 1e-12, timed=False,
+                      sites=variant_sites(torch, np, sc_f.solver,
+                                          torch.float64))
+        one_launch["path F"] = phase_one_launch_form(torch, np, sc_f, "F")
+        phase_plain_times(rows_f, plains_f)
+        rows.update(rows_f)
+        del plains_f
+        launches_f, slice_f = phase_slice(
+            torch, np, sc_f, os.path.join(tmp, "slice_f"), "path F",
+            PATH_F_STEPS, PATH_F_KERNELS, profile_steps=PATH_F_PROFILE)
+        bdf = [sc_f.solver._bdf]
+        require(sc_f.solver.step_count == PATH_F_STEPS + PATH_F_PROFILE
+                and bdf == [(1.5, -2.0, 0.5)],
+                f"path F ended on coefficients {bdf}, not BDF2's")
+        del sc_f
+        lap("path F")
         gm = phase_gather_micro()
         lap("path B")
-        phase_cli(tmp, "amg_p")
-        phase_cli(tmp, "rasamg_sup", RASAMG_FLAGS)
-        phase_cli(tmp, "rasamg_sup_default_device", RASAMG_FLAGS,
-                  device=None)
-        lap("CLI")
+        parity = phase_parity_and_cli(torch, np, tmp, lap)
 
     launches = {"A": launches_a, "B": gm["launches"], "C": launches_c,
-                "D": launches_d}
+                "D": launches_d, "E": launches_e, "F": launches_f}
     # each kernel's calls in the profiled window of its path (path D:
     # the three methods' windows)
     windows = {"A": slice_a["profile"]["kernels"],
                "B": slice_a["profile"]["kernels"],
-               "C": slice_c["profile"]["kernels"], "D": {}}
+               "C": slice_c["profile"]["kernels"], "D": {},
+               "E": slice_e["profile"]["kernels"],
+               "F": slice_f["profile"]["kernels"]}
     for res in slices_d.values():
         for name, kv in (res["profile"] or {"kernels": {}})["kernels"].items():
             acc = windows["D"].setdefault(name, {"calls": 0,
@@ -2189,10 +2715,11 @@ def main(argv=None):
     for name, (src, replaces, site, path) in SOURCES.items():
         r = rows[site]
         window = windows[path]
+        counter, into = COUNTER_OF.get(name, (name, FOLDED.get(name)))
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "site": site, "path": PATHS[path],
-            "launches": launches[path][name],
+            "launches": launches[path][counter],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2203,8 +2730,11 @@ def main(argv=None):
         if "equals_pair" in r:
             entries[-1].update(equals_pair=r["equals_pair"],
                                pair_device_ms=r["pair_device_ms"])
-        if name in FOLDED:
-            entries[-1]["folded_into"] = FOLDED[name]
+        if into is not None:
+            # the element launches that carried its body
+            entries[-1].update(
+                folded_into=into,
+                launches_fused=launches[path].get(counter + "_fused", 0))
     log(f"[done] chip_smoke command time "
         f"{time.perf_counter() - t_start:.1f} s; empty profiler traces "
         f"taken again: {PROFILER_RETRIES}")
@@ -2216,6 +2746,7 @@ def main(argv=None):
                        "sites": rows, "slice_rasamg_sup": slice_a,
                        "slice_amg_p": slice_p, "launches_amg_p": launches_p,
                        "slice_path_c": slice_c, "slices_path_d": slices_d,
+                       "slice_path_e": slice_e, "slice_path_f": slice_f,
                        "graphs": graphs,
                        "launches": launches, "parity": parity,
                        "determinism": determinism, "gather_micro": gm,

@@ -21,6 +21,7 @@ from cfdtpu_torch.la.ras import RASPrecond
 from cfdtpu_torch.la.superell import SuperMaps
 from cfdtpu_torch.postprocess.forces import BoundaryForce
 from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+from cfdtpu_torch.scenarios.dfg_2d_1 import DFG2D1Steady
 from cfdtpu_torch.scripts.gather_micro import patch_inputs
 from cfdtpu_torch.solvers.base import SolverBase
 from cfdtpu_torch.solvers.stabilized_schur import Solver
@@ -50,7 +51,8 @@ def test_resolve_device_default_is_the_card(no_card, monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("cls", [SolverBase, Solver, DFG1Benchmark])
+@pytest.mark.parametrize("cls", [SolverBase, Solver, DFG1Benchmark,
+                                 DFG2D1Steady])
 def test_constructor_device_defaults_to_none(cls):
     assert inspect.signature(cls.__init__).parameters["device"].default \
         is None
@@ -82,6 +84,20 @@ def test_scenario_without_device_raises(no_card):
     kernels.reset_counts()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DFG1Benchmark("stabilized_schur", dt=0.05, T=0.05, res_scale=2.5)
+    assert kernels.counts() == {name: 0 for name in kernels.COUNTERS}
+
+
+@pytest.mark.parametrize("solver", [
+    "dfg_2d_1", "stabilized_schur_bdf2", "stabilized_schur_backflow",
+    "stabilized_schur_ramping", "stabilized_schur_adaptive"])
+def test_new_solvers_without_device_raise(no_card, solver):
+    """The dfg_2d_1 scenario and the solver variants take the card by
+    default too."""
+    kernels.reset_counts()
+    cls = DFG2D1Steady if solver == "dfg_2d_1" else DFG1Benchmark
+    size = {"res": 0.04} if solver == "dfg_2d_1" else {"res_scale": 2.5}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cls(solver, dt=0.05, T=0.05, v_max=0.3, **size)
     assert kernels.counts() == {name: 0 for name in kernels.COUNTERS}
 
 
@@ -123,3 +139,20 @@ def test_timers_refuse_a_machine_without_a_card(no_card, timer):
     fn = getattr(cudatime, timer)
     with pytest.raises(RuntimeError, match="none is available"):
         fn() if timer == "empty_ms" else fn(lambda: None)
+
+
+def test_dfg2d1_cli_without_device_exits_nonzero(tmp_path):
+    """The same for `--simulation dfg_2d_1 --solver dfg_2d_1`."""
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "cfdtpu_torch", "simulate",
+           "--simulation", "dfg_2d_1", "--solver", "dfg_2d_1",
+           "--T", "0.05", "--dt", "0.05", "--res", "0.04",
+           "--output_dir", str(out)]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0, res.stdout + res.stderr
+    assert "CUDA is not available" in res.stdout + res.stderr
+    assert "DFG Metrics" not in res.stdout
+    assert not out.exists()

@@ -23,10 +23,10 @@ from cfdtpu.scenarios.dfg_1 import DFG1Benchmark as JaxDFG
 
 from cfdtpu_torch import kernels
 from cfdtpu_torch.elements import LagrangeElement, quadrature
-from cfdtpu_torch.kernels.ns_cell_residual import (CellTabs,
+from cfdtpu_torch.kernels.ns_cell_residual import (MAX_FACET_BLOCKS, CellTabs,
                                                    ns_cell_jacobian_p1,
                                                    ns_cell_residual_p1)
-from cfdtpu_torch.kernels.ns_facet_natural import (ns_facet_natural_jac_p1,
+from cfdtpu_torch.kernels.ns_facet import (ns_facet_natural_jac_p1,
                                                    ns_facet_natural_p1)
 from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark as TorchDFG
 
@@ -72,6 +72,11 @@ def _facet_args(ts, u, up, p):
     T = torch.as_tensor
     return ts.form._fused_args(ts.form._facet_blocks[0], T(u), T(p),
                                (T(up),), ts.params())
+
+
+def _facet_blocks(ts):
+    """The form's natural-correction block as K3's entry points take it."""
+    return [ts.form._kernel_block(ts.form._facet_blocks[0], ts.params())]
 
 
 def _jax_jacobians(js, u, up, p):
@@ -136,8 +141,7 @@ def test_fused_residual_matches_cfdtpu(pair, seed):
     js, ts = pair
     u, up, p = _state(ts, seed)
     cargs = _cell_args(ts, u, up, p)
-    ru_e, rp_e, ru_f = ns_cell_residual_p1(
-        *cargs, facet=_facet_args(ts, u, up, p)[3:])
+    ru_e, rp_e, ru_f = ns_cell_residual_p1(*cargs, facets=_facet_blocks(ts))
     alone = ns_cell_residual_p1(*cargs)
     assert torch.equal(ru_e, alone[0]) and torch.equal(rp_e, alone[1])
     (jblock,) = js.form._facet_blocks
@@ -160,21 +164,32 @@ def test_fused_jacobian_matches_cfdtpu(pair, seed):
     u, up, p = _state(ts, seed)
     A_cells, ((_, A_f),) = _jax_jacobians(js, u, up, p)
     got_c, got_f = ns_cell_jacobian_p1(*_cell_args(ts, u, up, p),
-                                       facet=_facet_args(ts, u, up, p)[3:])
+                                       facets=_facet_blocks(ts))
     _close(got_c, A_cells)
     _close(got_f, A_f)
 
 
 def test_second_facet_block_raises(pair, monkeypatch):
-    """K3's launch carries one facet block: a form with two refuses to
-    split itself, on any device."""
+    """K3's launch carries up to MAX_FACET_BLOCKS facet blocks: a second
+    block is summed after the first (its residual twice the one block's
+    facet part), and a form with more blocks than the launch carries
+    refuses to split itself, on any device."""
     _, ts = pair
     u, up, p = (torch.as_tensor(a) for a in _state(ts, 7))
     (block,) = ts.form._facet_blocks
+    prm = ts.params()
+    one = ts.form.residual(u, p, (up,), prm)
     monkeypatch.setattr(ts.form, "_facet_blocks", [block, block])
+    two = ts.form.residual(u, p, (up,), prm)
+    _, ru_f = ts.form._block_residual(block, u, p, (up,), prm)
+    facet = block["scatter_u"](ru_f.reshape(-1, 2).contiguous())
+    _close(two[0], one[0] + facet)
+    assert torch.equal(two[1], one[1])
+    monkeypatch.setattr(ts.form, "_facet_blocks",
+                        [block] * (MAX_FACET_BLOCKS + 1))
     for call in (ts.form.residual, ts.form.element_jacobians):
         with pytest.raises(NotImplementedError, match="facet blocks"):
-            call(u, p, (up,), ts.params())
+            call(u, p, (up,), prm)
 
 
 def _flat_direction(dm_u, dm_p, du, dp):
@@ -253,8 +268,8 @@ def test_affine_flag(pair):
 
 
 def test_form_refuses_a_facet_term_without_a_kernel(pair):
-    """Only the natural correction is ported (kernel K7): the form takes
-    no other facet kernel, on any device."""
+    """The form takes only the facet terms that have a CUDA kernel (K7,
+    K12, K13: their `fused` names it), on any device."""
     _, ts = pair
 
     def other(u_e, p_e, aux_e, coords_e, tabs, prm):

@@ -6,13 +6,13 @@ another order (ksp_ortho_chunk 4: the same products, chunked). DFG 2D-1,
 of 30, ksp_restart 20. And each linear solve's iterations, the port's
 against cfdtpu's, at res_scale 2.5.
 
-Tolerances: counts equal per step and equal to chip_smoke.py's
-PARITY_COUNTS; u, p, c_D and dp within 1e-9 relative; c_L within 5e-9 of
-itself. At step 2 c_L is 5.1e-5 against c_D 2.3e-2 (the flow still near
-symmetric), a near cancellation that cfdtpu reproduces only to ~1.5e-9
-of its value when nothing but its Gram-Schmidt sum order changes (the
-spread is printed); chip_smoke.py holds the card against the host to
-the same limit (LIFT_LIMIT).
+Tolerances: counts equal per step and equal to cfdtpu's (COUNTS; the
+first step's is chip_smoke.py's PARITY_COUNTS); u, p, c_D and dp within
+1e-9 relative; c_L within 5e-9 of itself. At step 2 c_L is 5.1e-5
+against c_D 2.3e-2 (the flow still near symmetric), a near cancellation
+that cfdtpu reproduces only to ~1.5e-9 of its value when nothing but its
+Gram-Schmidt sum order changes (the spread is printed); chip_smoke.py
+holds the card against the host over the first step only, to 1e-9.
 
 Run as a script, the file logs each linear solve of the same slice at
 any size, through either package (JAX is imported only for cfdtpu):

@@ -11,6 +11,8 @@ with numpy. Tolerance 1e-12 relative: float64 on both sides, only the
 order of the sums differs.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -440,7 +442,7 @@ def test_element_kernels_match_plain_and_repeat(sc, entry, dt):
     per call."""
     from cfdtpu_torch import kernels
     from cfdtpu_torch.kernels import ns_cell_residual as k3
-    from cfdtpu_torch.kernels import ns_facet_natural as k7
+    from cfdtpu_torch.kernels import ns_facet as k7
 
     dtype, tol = _dev_tol(dt)
     cargs, fargs = _element_args(sc.solver, dtype, seed=8)
@@ -471,7 +473,7 @@ def test_element_kernels_reject_other_forms(sc):
     import dataclasses
 
     from cfdtpu_torch.kernels import ns_cell_residual as k3
-    from cfdtpu_torch.kernels import ns_facet_natural as k7
+    from cfdtpu_torch.kernels import ns_facet as k7
 
     cargs, fargs = _element_args(sc.solver, torch.float64, seed=1)
     other = cargs[:7] + (dataclasses.replace(cargs[7], p1=False),) + cargs[8:]
@@ -516,7 +518,7 @@ def test_k3_with_facet_block_matches_k3_and_k7(sc, kind, dt):
     plain versions, two calls bitwise equal, one launch counted."""
     from cfdtpu_torch import kernels
     from cfdtpu_torch.kernels import ns_cell_residual as k3
-    from cfdtpu_torch.kernels import ns_facet_natural as k7
+    from cfdtpu_torch.kernels import ns_facet as k7
 
     dtype, tol = _dev_tol(dt)
     cargs, fargs = _element_args(sc.solver, dtype, seed=9)
@@ -527,9 +529,13 @@ def test_k3_with_facet_block_matches_k3_and_k7(sc, kind, dt):
                      k3.ns_cell_jacobian_plain,
                      k7.ns_facet_natural_jac_plain),
     }[kind]
+    from cfdtpu_torch.kernels.ns_facet import FacetBlock, FacetTerm
+
+    blocks = [FacetBlock(FacetTerm("natural"), *fargs[3:7],
+                         {"mu": fargs[7]})]
     kernels.reset_counts()
-    got = cell(*cargs, facet=fargs[3:])
-    again = cell(*cargs, facet=fargs[3:])
+    got = cell(*cargs, facets=blocks)
+    again = cell(*cargs, facets=blocks)
     name = f"ns_cell_{kind}_p1_facet"
     assert kernels.counts()[name] == 2
     assert kernels.counts()["ns_facet_natural_p1"] == 0
@@ -1319,3 +1325,280 @@ def test_new_methods_graph_replay(sc, sc_cpu, method, kw):
             nb.sp_amg(**off)
             nb.uu_amg(fine_smoother=nb.uu_ras(32, 4), **off)
     _close_tol(out["cuda"], out["cpu"], 1e-9 if method == "gmres" else 1e-11)
+
+
+# ---------------------------------------------------------------------
+# K12, K13, K14 and K7's implicit mode
+# ---------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def sc2():
+    """DFG 2D-1 with the dfg_2d_1 solver (viscous_out and backflow_out
+    on the outlet), res 0.02, float64, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.scenarios.dfg_2d_1 import DFG2D1Steady
+
+    return DFG2D1Steady("dfg_2d_1", dt=0.05, T=1.0, res=0.02,
+                        dtype="float64", device="cuda")
+
+
+@pytest.fixture(scope="module")
+def sc_bdf2():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+
+    return DFG1Benchmark("stabilized_schur_bdf2", dt=0.05, T=1.0,
+                         res_scale=2.5, dtype="float64", device="cuda")
+
+
+def _developed(s, dtype, seed):
+    """The inlet profile less 0.1 plus noise (u_prev.n < 0 near the
+    outlet's walls: backflow there), u_prev2 and p random."""
+    rng = np.random.default_rng(seed)
+    y = s.V.dof_coords[:, 1]
+    prof = np.stack([1.2 * y * (0.41 - y) / 0.41 ** 2 - 0.1, 0 * y], axis=1)
+    n_u, n_p = s.V.num_dofs, s.Q.num_dofs
+    u, up, up2 = (s.tensor(prof + 0.02 * rng.standard_normal((n_u, 2)))
+                  .to(dtype) for _ in range(3))
+    return u, up, up2, s.tensor(0.1 * rng.standard_normal(n_p)).to(dtype)
+
+
+def _cast_form(f, dtype):
+    cast = (lambda t: t.to(dtype).contiguous())
+    tabs = type(f.tabs)(**{k: (cast(v) if torch.is_tensor(v) else v)
+                           for k, v in vars(f.tabs).items()})
+    return cast, (f.dofmap_u, f.dofmap_p, cast(f.cell_coords),
+                  cast(f.cell_h), tabs)
+
+
+def _facet_block(f, name, dtype, prm):
+    from cfdtpu_torch.kernels.ns_facet import FacetBlock
+
+    cast, _ = _cast_form(f, dtype)
+    b = next(b for b in f._facet_blocks if b["name"] == name)
+    return FacetBlock(b["term"], b["dofmap_u32"], b["dofmap_p32"],
+                      cast(b["coords"]),
+                      {k: cast(v) for k, v in b["tabs"].items()},
+                      b["term"].scalars(prm))
+
+
+def _on_cpu(args):
+    """Element-kernel arguments with every tensor (and the CellTabs'
+    tensors) moved to the CPU, where the wrappers take the plain
+    versions."""
+    def cpu(a):
+        if torch.is_tensor(a):
+            return a.cpu()
+        if hasattr(a, "qw"):  # CellTabs
+            return type(a)(**{k: cpu(v) for k, v in vars(a).items()})
+        return a
+    return tuple(cpu(a) for a in args)
+
+
+def _blocks_on_cpu(blocks):
+    if blocks is None:
+        return None
+    return [type(b)(b.term, *(t.cpu() for t in b.args()[:3]),
+                    {k: v.cpu() for k, v in b.tabs.items()}, b.scalars)
+            for b in blocks]
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("kind", ["residual", "jacobian"])
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("term", ["natural", "viscous", "backflow"])
+def test_facet_terms_match_plain_and_repeat(sc2, term, implicit, kind, dt):
+    """K7 (both modes), K12 and K13 alone on the outlet at a state with
+    backflow: within the tolerance of the plain versions, two calls
+    bitwise equal, one launch counted (and K7's implicit mode under its
+    own name too)."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.ns_facet import (FacetTerm, facet_call,
+                                               facet_jac_plain, facet_plain)
+
+    dtype, tol = _dev_tol(dt)
+    s = sc2.solver
+    prm = s.params()
+    u, up, _, p = _developed(s, dtype, seed=11)
+    blk = _facet_block(s.form, "viscous_out", dtype, prm)
+    ft = FacetTerm(term, implicit)
+    sc_ = ft.scalars(prm)
+    jac = kind == "jacobian"
+    args = (u, up, p, *blk.args())
+    kernels.reset_counts()
+    got, again = facet_call(ft, sc_, jac, *args), facet_call(ft, sc_, jac,
+                                                            *args)
+    ref = (facet_jac_plain if jac else facet_plain)(ft, sc_, *args)
+    torch.cuda.synchronize()
+    _close_tol(got, ref, tol)
+    assert torch.equal(got, again)
+    assert float(ref.abs().max()) > 0
+    assert kernels.counts()[ft.counter(jac)] == 2
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("kind", ["residual", "jacobian"])
+def test_element_launch_with_two_outlet_blocks(sc2, kind, dt):
+    """K3 with the dfg_2d_1 form's two blocks (K12 then K13 on the same
+    facets) in its launch: bitwise equal to K3, K12 and K13 launched
+    apart, within the tolerance of the plain versions, one element
+    launch counted with each block's _fused count."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels import ns_cell_residual as k3
+    from cfdtpu_torch.kernels.ns_facet import facet_call
+
+    dtype, tol = _dev_tol(dt)
+    s = sc2.solver
+    f, prm = s.form, s.params()
+    u, up, _, p = _developed(s, dtype, seed=12)
+    _, (dmu, dmp, coords, h, tabs) = _cast_form(f, dtype)
+    cargs = (u, up, p, dmu, dmp, coords, h, tabs, prm["rho"], prm["mu"],
+             prm["dt"], prm["f"], float(np.finfo(str(dtype)[6:]).resolution))
+    blocks = [_facet_block(f, n, dtype, prm)
+              for n in ("viscous_out", "backflow_out")]
+    jac = kind == "jacobian"
+    fn = k3.ns_cell_jacobian_p1 if jac else k3.ns_cell_residual_p1
+    kernels.reset_counts()
+    got = fn(*cargs, facets=blocks)
+    c = kernels.counts()
+    assert c[f"ns_cell_{kind}_p1_facet"] == 1
+    assert c[blocks[0].term.counter(jac, fused=True)] == 1
+    assert c[blocks[1].term.counter(jac, fused=True)] == 1
+    assert c[blocks[0].term.counter(jac)] == 0
+    apart = fn(*cargs)
+    apart = (apart if isinstance(apart, tuple) else (apart,)) + tuple(
+        facet_call(b.term, b.scalars, jac, u, up, p, *b.args())
+        for b in blocks)
+    ref = fn(*_on_cpu(cargs), facets=_blocks_on_cpu(blocks))
+    assert len(got) == len(apart) == len(ref) == (3 if jac else 4)
+    for g, a, r in zip(got, apart, ref):
+        assert torch.equal(g, a)
+        _close_tol(g.cpu(), r, tol)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("facet", [False, True])
+@pytest.mark.parametrize("kind", ["residual", "jacobian"])
+def test_k14_matches_plain_and_repeats(sc_bdf2, kind, facet, dt):
+    """K14 (the BDF2 cell body), alone and with the natural correction
+    at u in its launch (K7's implicit mode), under BDF2's coefficients:
+    within the tolerance of the plain versions, bitwise repeatable, one
+    launch counted."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels import ns_cell_residual as k3
+
+    dtype, tol = _dev_tol(dt)
+    s = sc_bdf2.solver
+    s._bdf = (1.5, -2.0, 0.5)
+    f, prm = s.form, s.params()
+    u, up, p = _state(s, 13)
+    u, up, up2, p = (t.to(dtype) for t in (u, up, _state(s, 14)[0], p))
+    up[: len(up) // 3] = 0  # cells at rest: tau's eps guard
+    _, (dmu, dmp, coords, h, tabs) = _cast_form(f, dtype)
+    a = (prm["bdf_a0"], prm["bdf_a1"], prm["bdf_a2"])
+    cargs = (u, up, up2, p, dmu, dmp, coords, h, tabs, prm["rho"],
+             prm["mu"], prm["dt"], prm["f"],
+             float(np.finfo(str(dtype)[6:]).resolution), a)
+    blocks = ([_facet_block(f, "natural_correction", dtype, prm)]
+              if facet else None)
+    jac = kind == "jacobian"
+    fn = k3.ns_cell_jacobian_bdf2_p1 if jac else k3.ns_cell_residual_bdf2_p1
+    kernels.reset_counts()
+    got, again = fn(*cargs, facets=blocks), fn(*cargs, facets=blocks)
+    c = kernels.counts()
+    assert c[f"ns_cell_{kind}_bdf2_p1"] == 2
+    assert c[f"ns_cell_{kind}_bdf2_p1_facet"] == (2 if facet else 0)
+    if facet:
+        assert c[f"ns_facet_natural{'_jac' if jac else ''}_p1_fused"] == 2
+    as_tuple = (lambda o: o if isinstance(o, tuple) else (o,))
+    ref = fn(*_on_cpu(cargs), facets=_blocks_on_cpu(blocks))
+    for g, r, x in zip(as_tuple(got), as_tuple(ref), as_tuple(again)):
+        _close_tol(g.cpu(), r, tol)
+        assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("which", ["dfg_2d_1", "bdf2"])
+def test_forms_with_new_blocks_issue_the_fused_kernels(sc2, sc_bdf2, which):
+    """form.residual launches one element kernel with every facet block
+    in its launch and K2 twice for the cells and once per block (the
+    wrappers' counts), and its trace holds those and one add per block
+    and nothing else (dfg_2d_1: at most 7 device kernels; BDF2 with its
+    natural correction: 5), the element kernel once; form.element_jacobians
+    one launch, which its trace holds. A trace may lose records, never
+    gain one (torch.profiler): it is padded and taken again, up to ten
+    times a second apart, until one holds them all."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.utils.cudatime import device_kernels
+
+    s = (sc2 if which == "dfg_2d_1" else sc_bdf2).solver
+    u, up, up2, p = _developed(s, s.dtype, seed=15)
+    aux = (up,) if which == "dfg_2d_1" else (up, up2)
+    prm = s.params()
+    nblocks = len(s.form._facet_blocks)
+    key = "p1" if which == "dfg_2d_1" else "bdf2_p1"
+    for name, fn, want in (
+            ("residual", lambda: s.form.residual(u, p, aux, prm),
+             {f"ns_cell_residual_{key}": 1,
+              f"ns_cell_residual_{key}_facet": 1, "ell_sum": 2 + nblocks}),
+            ("jacobian", lambda: s.form.element_jacobians(u, p, aux, prm),
+             {f"ns_cell_jacobian_{key}": 1,
+              f"ns_cell_jacobian_{key}_facet": 1})):
+        kernels.reset_counts()
+        fn()
+        got = {k: n for k, n in kernels.counts().items()
+               if n and not k.endswith("_fused")}
+        assert got == want, (name, got)
+
+    def fullest(fn, full):
+        best = []
+        for _ in range(10):
+            names = device_kernels(fn, pad=4)
+            best = names if len(names) > len(best) else best
+            if len(best) >= full:
+                break
+            time.sleep(1.0)
+        return best
+
+    res = fullest(lambda: s.form.residual(u, p, aux, prm), 3 + 2 * nblocks)
+    jac = fullest(lambda: s.form.element_jacobians(u, p, aux, prm), 1)
+    kinds = (f"ns_cell_residual_{key}_facet_kernel", "ell_sum_kernel",
+             "CUDAFunctor_add")
+    assert len(res) <= 3 + 2 * nblocks, res
+    assert all(any(k in n for k in kinds) for n in res), res
+    assert sum(kinds[0] in n for n in res) == 1, res
+    assert len(jac) == 1, jac
+    assert f"ns_cell_jacobian_{key}_facet_kernel" in jac[0], jac
+
+
+@pytest.mark.parametrize("solver", ["dfg_2d_1", "stabilized_schur_bdf2"])
+def test_new_solvers_on_card_match_cpu(solver):
+    """Two float64 steps through the kernels equal the plain versions
+    (CPU): counts, state and (dfg_2d_1) c_D and c_L within 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+    from cfdtpu_torch.scenarios.dfg_2d_1 import DFG2D1Steady
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        if solver == "dfg_2d_1":
+            scen = DFG2D1Steady(solver, dt=0.05, T=1.0, res=0.04,
+                                dtype="float64", device=dev)
+        else:
+            scen = DFG1Benchmark(solver, dt=0.05, T=1.0, res_scale=2.5,
+                                 dtype="float64", device=dev)
+        s = scen.solver
+        rec = []
+        for _ in range(2):
+            s.solveStep()
+            rec.append((s.last_stats["newton_iters"],
+                        s.last_stats["ksp_iters"]))
+            s.u_prev, s.p_prev = s.u_sol, s.p_sol
+        out.append((rec, s.u_sol.cpu().numpy(), s.p_sol.cpu().numpy(),
+                    np.array([getattr(s, "cd", 1.0), getattr(s, "cl", 1.0)])))
+    (ca, ua, pa, fa), (cb, ub, pb, fb) = out
+    assert ca == cb
+    for a, b in ((ua, ub), (pa, pb)):
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-9
+    np.testing.assert_allclose(fa, fb, rtol=1e-9, atol=0)
