@@ -57,27 +57,48 @@
 // body three times a cell, value and three tangents) takes about as
 // long as its bytes.
 //
-// The facet blocks ride in the same launch. The form's natural-correction
-// term (K7, ns_facet.cuh) alone was a launch of its own, 2.6-2.9 us of
-// device time for 0.07-0.14 us of bytes (H100 80GB HBM3, 700 W), once a
-// residual and once a Jacobian build. The _facet kernels below run the
-// cell blocks as above and, after them, each facet block of the form
-// (up to MAXF: K7, K12 or K13, ns_facet.cuh) as a range of blocks at the
-// cells' block size: one lane a facet (residual) or a (facet, column)
-// (Jacobian), which read nothing the cell blocks stage and write the
-// block's own output (ru_f, A_f). One launch then covers a form's
-// residual and one its Jacobian build, whatever its facet blocks; their
-// few lanes run beside the cells' single wave.
+// The facet blocks ride in the same launch. The form's
+// natural-correction term (K7, ns_facet.cuh) alone was a launch of its
+// own, 2.6-2.9 us of device time for 0.07-0.14 us of bytes (H100 80GB
+// HBM3, 700 W), once a residual and once a Jacobian build. The _facet
+// kernels below run the cell blocks as above and, after them, each
+// facet block of the form (up to MAXF: K7, K12, K13, K16, K17 or K18,
+// ns_facet.cuh) as a range of blocks at the cells' block size: one lane
+// a facet (residual) or a (facet, column) (Jacobian), which read
+// nothing the cell blocks stage and write the block's own output (ru_f,
+// A_f). One launch then covers a form's residual and one its Jacobian
+// build, whatever its facet blocks; their few lanes run beside the
+// cells' single wave. Each _facet kernel is compiled for a set of terms
+// (ns_facet.cuh: K7 alone, the outlet terms K7, K12 and K13, or all),
+// and a launch takes the smallest set that holds its blocks' terms: the
+// BDF2 Jacobian with K7 in its launch took 27.1-27.5 us alone in a
+// kernel with all eight bodies, 22.4-22.7 us with K7's alone (H100 80GB
+// HBM3, 700 W).
 //
 // K14, the BDF2 cell body (cfdtpu's StabilizedNSFormBDF2), is the same
-// body instantiated with BDF2 = true: the time term (a0 u + a1 u_prev +
-// a2 u_prev2) / dt, convection, stress and continuity at u itself
-// instead of the midpoint, tau still from |u_prev|; each lane reads the
-// second previous velocity too (the _bdf2 kernels). Its operation
-// count is K3's within a few: the midpoint's averages go, the time
-// term's two products come.
+// body instantiated with FORM = FORM_BDF2: the time term (a0 u + a1
+// u_prev + a2 u_prev2) / dt, convection, stress and continuity at u
+// itself instead of the midpoint, tau still from |u_prev|; each lane
+// reads the second previous velocity too (the _bdf2 kernels). Its
+// operation count is K3's within a few: the midpoint's averages go, the
+// time term's two products come.
 //
-// Operations, counted from this file with each add, multiply, min, max,
+// K15, the curl-curl (rotational) cell body (cfdtpu's
+// StabilizedNSFormCurlCurl), is the body with FORM = FORM_CURL, at the
+// midpoint as K3: the viscous term mu omega(u_mid) rot(v), omega = d
+// u_y / dx - d u_x / dy, which is the antisymmetric 2 x 2 [[0, -mu
+// omega], [mu omega, 0]] against grad v, in place of K3's stress; the
+// Lamb-form convection rho (curl u_mid x u_mid) = rho omega (-u_mid,y,
+// u_mid,x) in place of (grad u_mid) u_mid, in the Galerkin inertia and
+// in the strong residual R alike; and -(p + rho/2 |u_mid|^2) div v on
+// the diagonal. SUPG, PSPG, LSIC and tau are K3's (the _curl kernels).
+// The template keeps K3's and K14's instantiations as they were: every
+// difference is an `if constexpr` on FORM. Its operations: 156 a cell
+// outside the loop (K3's 161, the stress's 8 replaced by omega and mu
+// omega, 3) and 118 a point (K3's 117, the convection's 8 replaced by
+// the cross product's 4, and |u_mid|^2 rho / 2 on the diagonal, 5).
+//
+// Operations of K3, counted from this file with each add, multiply, min, max,
 // reciprocal and reciprocal square root as one (chip_smoke.py holds the
 // same numbers): the residual, 161 a cell outside the loop (geometry
 // 49, gradients 71, 1/h and the t3 term 5, the contraction 36) and 117
@@ -103,7 +124,17 @@ namespace {
 constexpr int MAXQ = 16;        // quadrature points held in shared memory
 constexpr int RES_CELLS = 128;  // residual: cells (lanes) a block
 constexpr int JAC_CELLS = 32;   // Jacobian: cells a block, 3 lanes each
-constexpr int MAXF = 4;         // facet blocks a launch carries
+// facet blocks a launch carries: with FacetRange<double> 152 bytes (13
+// pointers, nf, nq, term, implicit and the two scalars), the ranges, their
+// nine offsets and their count are 1,296 bytes of the 4 KB of kernel
+// parameters, CellIn and CellParams 216 more
+constexpr int MAXF = 8;
+
+// the cell bodies: Crank-Nicolson midpoint (K3), BDF2 (K14), curl-curl
+// at the midpoint (K15)
+constexpr int FORM_MID = 0;
+constexpr int FORM_BDF2 = 1;
+constexpr int FORM_CURL = 2;
 
 template <typename T>
 struct CellParams {
@@ -182,12 +213,12 @@ struct CellIn {
 
 // one vertex of one cell as a lane loads it: u, u_prev, p, X and, for
 // BDF2, u_prev2
-template <bool BDF2>
+template <int FORM>
 struct Vert {
-  static constexpr int value = BDF2 ? 9 : 7;
+  static constexpr int value = FORM == FORM_BDF2 ? 9 : 7;
 };
 
-template <typename T, bool BDF2>
+template <typename T, int FORM>
 __device__ __forceinline__ void load_vertex(int64_t lane, const CellIn<T>& ci,
                                             T* sv) {
   using V2 = typename Vec2<T>::type;
@@ -203,7 +234,7 @@ __device__ __forceinline__ void load_vertex(int64_t lane, const CellIn<T>& ci,
   sv[4] = c;
   sv[5] = x.x;
   sv[6] = x.y;
-  if constexpr (BDF2) {
+  if constexpr (FORM == FORM_BDF2) {
     const V2 e = __ldg(reinterpret_cast<const V2*>(ci.uprev2) + n);
     sv[7] = e.x;
     sv[8] = e.y;
@@ -220,9 +251,9 @@ struct CellState {
   T h;
 };
 
-template <typename T, typename N, bool BDF2>
+template <typename T, typename N, int FORM>
 __device__ __forceinline__ void read_state(
-    const T (*sv)[Vert<BDF2>::value], T h, CellState<T, N>& s) {
+    const T (*sv)[Vert<FORM>::value], T h, CellState<T, N>& s) {
 #pragma unroll
   for (int v = 0; v < 3; ++v) {
     s.ue[v][0] = Lift<N>::of(sv[v][0]);
@@ -232,7 +263,7 @@ __device__ __forceinline__ void read_state(
     s.pe[v] = Lift<N>::of(sv[v][4]);
     s.X[v][0] = sv[v][5];
     s.X[v][1] = sv[v][6];
-    if constexpr (BDF2) {
+    if constexpr (FORM == FORM_BDF2) {
       s.up2e[v][0] = sv[v][7];
       s.up2e[v][1] = sv[v][8];
     }
@@ -246,11 +277,13 @@ struct Grads {
   N gum[2][2];  // grad of the scheme's velocity, [i][g] = d u_i / d x_g
   N c[2];       // grad p - rho f
   N div;
-  N sv[2][2];  // viscous stress mu (grad u + grad u^T)
+  N sv[2][2];  // viscous stress mu (grad u + grad u^T); curl-curl: the
+               // viscous term against grad v, [[0, -mu om], [mu om, 0]]
+  N om;        // curl-curl: omega = d u_y / dx - d u_x / dy
 };
 
 // the scheme's velocity: the midpoint (u + u_prev) / 2, or (BDF2) u
-template <typename T, typename N, bool BDF2>
+template <typename T, typename N, int FORM>
 __device__ __forceinline__ void gradients(const Geom<T>& g,
                                           const CellState<T, N>& s,
                                           const CellParams<T>& prm,
@@ -262,7 +295,7 @@ __device__ __forceinline__ void gradients(const Geom<T>& g,
     for (int a = 0; a < 2; ++a) {
       const N gu = s.ue[0][i] * g.gu[0][a] + s.ue[1][i] * g.gu[1][a] +
                    s.ue[2][i] * g.gu[2][a];
-      if constexpr (BDF2) {
+      if constexpr (FORM == FORM_BDF2) {
         G.gum[i][a] = gu;
       } else {
         const T gup = s.upe[0][i] * g.gu[0][a] + s.upe[1][i] * g.gu[1][a] +
@@ -275,11 +308,21 @@ __device__ __forceinline__ void gradients(const Geom<T>& g,
              prm.rho * f[i];
   }
   G.div = G.gum[0][0] + G.gum[1][1];
+  if constexpr (FORM == FORM_CURL) {
+    // mu omega rot(v): rot(phi_b e_0) = -d phi_b / dy, rot(phi_b e_1) =
+    // d phi_b / dx
+    G.om = G.gum[1][0] - G.gum[0][1];
+    const N muom = prm.mu * G.om;
+    G.sv[0][0] = G.sv[1][1] = Lift<N>::of(T(0));
+    G.sv[0][1] = muom * T(-1);
+    G.sv[1][0] = muom;
+  } else {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      G.sv[i][j] = prm.mu * (G.gum[i][j] + G.gum[j][i]);
+      for (int j = 0; j < 2; ++j)
+        G.sv[i][j] = prm.mu * (G.gum[i][j] + G.gum[j][i]);
+  }
 }
 
 // What the points leave to contract with the physical gradients:
@@ -302,8 +345,9 @@ __device__ __forceinline__ void contract(const Geom<T>& g,
 }
 
 // The cell residual ru[b][i], rp[b] as _make_cell_kernel computes it
-// (BDF2: as StabilizedNSFormBDF2's does).
-template <typename T, typename N, bool BDF2>
+// (BDF2: as StabilizedNSFormBDF2's does; curl-curl: as
+// StabilizedNSFormCurlCurl's).
+template <typename T, typename N, int FORM>
 __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
                                           const Tabs<T>& tb,
                                           const CellParams<T>& prm, int nq,
@@ -329,7 +373,7 @@ __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
   Geom<T> g;
   Grads<N> G;
   p1_geometry(s.X, tb.dphi, tb.dphi, g);
-  gradients<T, N, BDF2>(g, s, prm, G);
+  gradients<T, N, FORM>(g, s, prm, G);
   for (int q = 0; q < nq; ++q) {
     const T* ph = tb.phi + q * 3;
     const T w = tb.qw[q] * g.adet;
@@ -341,7 +385,7 @@ __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
       uq[i] = s.ue[0][i] * ph[0] + s.ue[1][i] * ph[1] + s.ue[2][i] * ph[2];
       upq[i] =
           s.upe[0][i] * ph[0] + s.upe[1][i] * ph[1] + s.upe[2][i] * ph[2];
-      if constexpr (BDF2) {
+      if constexpr (FORM == FORM_BDF2) {
         const T up2q = s.up2e[0][i] * ph[0] + s.up2e[1][i] * ph[1] +
                        s.up2e[2][i] * ph[2];
         umq[i] = uq[i];
@@ -365,12 +409,20 @@ __device__ __forceinline__ void cell_body(const CellState<T, N>& s,
     N tR[2], wm[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const N acc = dudt[i] + (G.gum[i][0] * umq[0] + G.gum[i][1] * umq[1]);
+      N acc;
+      if constexpr (FORM == FORM_CURL) {
+        // curl u x u = omega (-u_y, u_x)
+        acc = dudt[i] + (i == 0 ? (G.om * umq[1]) * T(-1) : G.om * umq[0]);
+      } else {
+        acc = dudt[i] + (G.gum[i][0] * umq[0] + G.gum[i][1] * umq[1]);
+      }
       tR[i] = tau * (prm.rho * acc + G.c[i]);
       wm[i] = w * (prm.rho * (acc - f[i]));
     }
     // stress and LSIC on the diagonal, SUPG: all meet grad v
-    const N iso = (tau_lsic * prm.rho) * G.div - pq;
+    N iso = (tau_lsic * prm.rho) * G.div - pq;
+    if constexpr (FORM == FORM_CURL)  // -rho/2 |u_mid|^2 div v
+      iso = iso - (T(0.5) * prm.rho) * (umq[0] * umq[0] + umq[1] * umq[1]);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -400,10 +452,9 @@ struct FacetRanges {
   int n;
 };
 
-// the lanes of facet block `b` (counted after the cells' blocks); the
-// range is picked by constant indices, so the ranges stay in the
-// parameter space
-template <typename T>
+// the lanes of facet block `b` (counted after the cells' blocks), whose
+// terms are in MASK
+template <typename T, unsigned MASK>
 __device__ __forceinline__ void facet_block(const FacetRanges<T>& fr,
                                             int64_t b, bool jacobian) {
   int k = 0;
@@ -411,24 +462,35 @@ __device__ __forceinline__ void facet_block(const FacetRanges<T>& fr,
   for (int i = 1; i < MAXF; ++i)
     if (i < fr.n && b >= fr.first[i]) k = i;
   const int64_t lane = (b - fr.first[k]) * blockDim.x + threadIdx.x;
-  if (k == 0)
-    facet_lane(fr.r[0], lane, jacobian);
-  else if (k == 1)
-    facet_lane(fr.r[1], lane, jacobian);
-  else if (k == 2)
-    facet_lane(fr.r[2], lane, jacobian);
-  else
-    facet_lane(fr.r[3], lane, jacobian);
+  // the range is copied out of parameter space by constant indices
+  // into registers, and one facet_lane runs it: one inlined copy of the
+  // terms' bodies, not one a range (`nvcc -Xptxas -v`, sm_90a: with a
+  // facet_lane a case and all eight terms, the float64 K3 Jacobian with
+  // its blocks spilled 192 bytes a lane and its residual 48; with the
+  // copy 48 and none, as with four ranges and three terms)
+  static_assert(MAXF == 8, "one case a range");
+  FacetRange<T> r;
+  switch (k) {
+    case 0: r = fr.r[0]; break;
+    case 1: r = fr.r[1]; break;
+    case 2: r = fr.r[2]; break;
+    case 3: r = fr.r[3]; break;
+    case 4: r = fr.r[4]; break;
+    case 5: r = fr.r[5]; break;
+    case 6: r = fr.r[6]; break;
+    default: r = fr.r[7];
+  }
+  facet_lane<T, MASK>(r, lane, jacobian);
 }
 
 // Residual: one lane a cell, RES_CELLS cells a block; block blk of the
 // cell range
-template <typename T, bool BDF2>
+template <typename T, int FORM>
 __device__ __forceinline__ void cell_residual_block(
     int64_t blk, const CellIn<T>& ci, const CellParams<T>& prm,
     T* __restrict__ ru_e, T* __restrict__ rp_e) {
   using V2 = typename Vec2<T>::type;
-  constexpr int VERT = Vert<BDF2>::value;
+  constexpr int VERT = Vert<FORM>::value;
   const int64_t nc = ci.nc;
   const int nq = ci.nq;
   __shared__ Tabs<T> tb;
@@ -439,15 +501,15 @@ __device__ __forceinline__ void cell_residual_block(
   T h = T(1);
   if (active) {
 #pragma unroll
-    for (int v = 0; v < 3; ++v) load_vertex<T, BDF2>(c * 3 + v, ci, sv[v]);
+    for (int v = 0; v < 3; ++v) load_vertex<T, FORM>(c * 3 + v, ci, sv[v]);
     h = __ldg(ci.hcell + c);
   }
   __syncthreads();
   if (!active) return;
   CellState<T, T> s;
-  read_state<T, T, BDF2>(sv, h, s);
+  read_state<T, T, FORM>(sv, h, s);
   T ru[3][2], rp[3];
-  cell_body<T, T, BDF2>(s, tb, prm, nq, ru, rp);
+  cell_body<T, T, FORM>(s, tb, prm, nq, ru, rp);
 #pragma unroll
   for (int v = 0; v < 3; ++v) {
     V2 o;
@@ -468,14 +530,14 @@ __device__ __forceinline__ int jac_column(int j, int k) {
   return k < 2 ? 2 * j + k : 6 + j;
 }
 
-template <typename T, bool BDF2>
+template <typename T, int FORM>
 __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
                                                     const CellIn<T>& ci,
                                                     const CellParams<T>& prm,
                                                     T* __restrict__ A) {
   using N = Dual<T, JAC_ND>;
   using V16 = typename Vec16<T>::type;
-  constexpr int VERT = Vert<BDF2>::value;
+  constexpr int VERT = Vert<FORM>::value;
   const int64_t nc = ci.nc;
   const int nq = ci.nq;
   __shared__ Tabs<T> tb;
@@ -485,7 +547,7 @@ __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
   const int64_t c0 = blk * (int64_t)JAC_CELLS;
   load_tabs(tb, ci.phi, ci.dphi, ci.qw, nq);
   if (c0 * 3 + t < 3 * nc)  // one (cell, vertex) slot a lane
-    load_vertex<T, BDF2>(c0 * 3 + t, ci, s_vert[t]);
+    load_vertex<T, FORM>(c0 * 3 + t, ci, s_vert[t]);
   const int cl = t / JAC_LPC;
   const int j = t - cl * JAC_LPC;
   const bool active = c0 + cl < nc;
@@ -494,7 +556,7 @@ __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
   __syncthreads();
   if (active) {
     CellState<T, N> s;
-    read_state<T, N, BDF2>(s_vert + cl * 3, h, s);
+    read_state<T, N, FORM>(s_vert + cl * 3, h, s);
 #pragma unroll
     for (int k = 0; k < JAC_ND; ++k) {
       const int c = jac_column(j, k);
@@ -506,7 +568,7 @@ __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
       }
     }
     N ru[3][2], rp[3];
-    cell_body<T, N, BDF2>(s, tb, prm, nq, ru, rp);
+    cell_body<T, N, FORM>(s, tb, prm, nq, ru, rp);
 #pragma unroll
     for (int k = 0; k < JAC_ND; ++k) {
       T* col = tile + cl * (NLOC * NLOC) + jac_column(j, k);
@@ -531,51 +593,53 @@ __device__ __forceinline__ void cell_jacobian_block(int64_t blk,
   for (int i = nvec * PER + t; i < count; i += blockDim.x) dst[i] = tile[i];
 }
 
-// The kernels: the residual and the Jacobian, Crank-Nicolson (K3) and
-// BDF2 (K14), without facet blocks and with them (after the cell
-// blocks). Each has a name of its own, so that a trace tells them apart.
-#define CELL_KERNELS(NAME, BDF2)                                             \
+// The kernels: the residual and the Jacobian, Crank-Nicolson (K3),
+// BDF2 (K14) and curl-curl (K15), without facet blocks and with them
+// (after the cell blocks; for a set of terms, MASK). Each has a name of
+// its own, so that a trace tells them apart.
+#define CELL_KERNELS(NAME, FORM)                                             \
   template <typename T>                                                      \
   __global__ void __launch_bounds__(RES_CELLS)                               \
       ns_cell_residual_##NAME##_kernel(const CellIn<T> ci,                   \
                                        const CellParams<T> prm,              \
                                        T* __restrict__ ru_e,                 \
                                        T* __restrict__ rp_e) {               \
-    cell_residual_block<T, BDF2>(blockIdx.x, ci, prm, ru_e, rp_e);           \
+    cell_residual_block<T, FORM>(blockIdx.x, ci, prm, ru_e, rp_e);           \
   }                                                                          \
-  template <typename T>                                                      \
+  template <typename T, unsigned MASK>                                      \
   __global__ void __launch_bounds__(RES_CELLS)                               \
       ns_cell_residual_##NAME##_facet_kernel(                                \
           const CellIn<T> ci, const CellParams<T> prm, T* __restrict__ ru_e, \
           T* __restrict__ rp_e, const FacetRanges<T> fr,                     \
           int64_t cell_blocks) {                                             \
     if (blockIdx.x >= cell_blocks) {                                         \
-      facet_block(fr, blockIdx.x - cell_blocks, false);                      \
+      facet_block<T, MASK>(fr, blockIdx.x - cell_blocks, false);             \
       return;                                                                \
     }                                                                        \
-    cell_residual_block<T, BDF2>(blockIdx.x, ci, prm, ru_e, rp_e);           \
+    cell_residual_block<T, FORM>(blockIdx.x, ci, prm, ru_e, rp_e);           \
   }                                                                          \
   template <typename T>                                                      \
   __global__ void __launch_bounds__(JAC_THREADS)                             \
       ns_cell_jacobian_##NAME##_kernel(const CellIn<T> ci,                   \
                                        const CellParams<T> prm,              \
                                        T* __restrict__ A) {                  \
-    cell_jacobian_block<T, BDF2>(blockIdx.x, ci, prm, A);                    \
+    cell_jacobian_block<T, FORM>(blockIdx.x, ci, prm, A);                    \
   }                                                                          \
-  template <typename T>                                                      \
+  template <typename T, unsigned MASK>                                      \
   __global__ void __launch_bounds__(JAC_THREADS)                             \
       ns_cell_jacobian_##NAME##_facet_kernel(                                \
           const CellIn<T> ci, const CellParams<T> prm, T* __restrict__ A,    \
           const FacetRanges<T> fr, int64_t cell_blocks) {                    \
     if (blockIdx.x >= cell_blocks) {                                         \
-      facet_block(fr, blockIdx.x - cell_blocks, true);                       \
+      facet_block<T, MASK>(fr, blockIdx.x - cell_blocks, true);              \
       return;                                                                \
     }                                                                        \
-    cell_jacobian_block<T, BDF2>(blockIdx.x, ci, prm, A);                    \
+    cell_jacobian_block<T, FORM>(blockIdx.x, ci, prm, A);                    \
   }
 
-CELL_KERNELS(p1, false)
-CELL_KERNELS(bdf2_p1, true)
+CELL_KERNELS(p1, FORM_MID)
+CELL_KERNELS(bdf2_p1, FORM_BDF2)
+CELL_KERNELS(curl_p1, FORM_CURL)
 
 // the facet ranges' block offsets at `threads` lanes a block
 template <typename T>
@@ -591,7 +655,7 @@ int64_t place_ranges(FacetRanges<T>& fr, bool jacobian, int threads) {
 }
 
 template <typename T>
-int launch(const CellIn<T>& ci, const CellParams<T>& prm, bool bdf2,
+int launch(const CellIn<T>& ci, const CellParams<T>& prm, int form,
            void* out0, void* out1, FacetRanges<T>& fr, bool jacobian,
            cudaStream_t st) {
   T* o0 = static_cast<T*>(out0);
@@ -602,31 +666,57 @@ int launch(const CellIn<T>& ci, const CellParams<T>& prm, bool bdf2,
   const unsigned total =
       (unsigned)(blocks + (fr.n > 0 ? place_ranges(fr, jacobian, threads)
                                     : 0));
-#define CELL_LAUNCH(NAME)                                                  \
-  if (fr.n == 0 && jacobian)                                               \
-    ns_cell_jacobian_##NAME##_kernel<T><<<total, threads, 0, st>>>(ci, prm, \
-                                                                   o0);    \
-  else if (fr.n == 0)                                                      \
-    ns_cell_residual_##NAME##_kernel<T><<<total, threads, 0, st>>>(        \
-        ci, prm, o0, o1);                                                  \
-  else if (jacobian)                                                       \
-    ns_cell_jacobian_##NAME##_facet_kernel<T><<<total, threads, 0, st>>>(  \
-        ci, prm, o0, fr, blocks);                                          \
-  else                                                                     \
-    ns_cell_residual_##NAME##_facet_kernel<T><<<total, threads, 0, st>>>(  \
-        ci, prm, o0, o1, fr, blocks);
-  if (bdf2) {
-    CELL_LAUNCH(bdf2_p1)
+  unsigned used = 0;  // the blocks' terms
+  for (int k = 0; k < fr.n; ++k) used |= term_bit(fr.r[k].term);
+#define CELL_LAUNCH(NAME)                                                   \
+  if (jacobian)                                                             \
+    ns_cell_jacobian_##NAME##_kernel<T><<<total, threads, 0, st>>>(ci, prm,  \
+                                                                   o0);     \
+  else                                                                      \
+    ns_cell_residual_##NAME##_kernel<T><<<total, threads, 0, st>>>(         \
+        ci, prm, o0, o1);
+#define FACET_LAUNCH(NAME, MASK)                                            \
+  if (jacobian)                                                             \
+    ns_cell_jacobian_##NAME##_facet_kernel<T, MASK>                         \
+        <<<total, threads, 0, st>>>(ci, prm, o0, fr, blocks);               \
+  else                                                                      \
+    ns_cell_residual_##NAME##_facet_kernel<T, MASK>                         \
+        <<<total, threads, 0, st>>>(ci, prm, o0, o1, fr, blocks);
+  // the term sets: K7 alone (paths A and F), K7, K12 and K13 (DFG
+  // 2D-1's outlets; K3 only) and all of them
+  const bool k7 = (used & ~TERMS_K7) == 0;
+  const bool outlet = (used & ~TERMS_OUTLET) == 0;
+  if (fr.n == 0) {
+    if (form == FORM_BDF2) {
+      CELL_LAUNCH(bdf2_p1)
+    } else if (form == FORM_CURL) {
+      CELL_LAUNCH(curl_p1)
+    } else {
+      CELL_LAUNCH(p1)
+    }
+  } else if (form == FORM_BDF2) {
+    if (k7) {
+      FACET_LAUNCH(bdf2_p1, TERMS_K7)
+    } else {
+      FACET_LAUNCH(bdf2_p1, TERMS_ALL)
+    }
+  } else if (form == FORM_CURL) {
+    FACET_LAUNCH(curl_p1, TERMS_ALL)
+  } else if (k7) {
+    FACET_LAUNCH(p1, TERMS_K7)
+  } else if (outlet) {
+    FACET_LAUNCH(p1, TERMS_OUTLET)
   } else {
-    CELL_LAUNCH(p1)
+    FACET_LAUNCH(p1, TERMS_ALL)
   }
+#undef FACET_LAUNCH
 #undef CELL_LAUNCH
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int run(const void* const* cp, int64_t nc, int nq, const double* sc,
-        int bdf2, void* out0, void* out1, int nfb, const void* const* fptr,
+        int form, void* out0, void* out1, int nfb, const void* const* fptr,
         const int64_t* fsize, const int* fopt, const double* fc,
         void* const* fout, int jacobian, cudaStream_t st) {
   const CellIn<T> ci{
@@ -641,10 +731,11 @@ int run(const void* const* cp, int64_t nc, int nq, const double* sc,
   FacetRanges<T> fr;
   fr.n = nfb;
   for (int k = 0; k < nfb; ++k)
-    fr.r[k] = facet_range<T>(cp[0], cp[1], cp[3], fptr + 9 * k,
+    fr.r[k] = facet_range<T>(cp[0], cp[1], cp[3], fptr + 10 * k,
                              fsize[2 * k], (int)fsize[2 * k + 1],
-                             fopt[2 * k], fopt[2 * k + 1], fc[k], fout[k]);
-  return launch<T>(ci, prm, bdf2 != 0, out0, out1, fr, jacobian != 0, st);
+                             fopt[2 * k], fopt[2 * k + 1], fc[2 * k],
+                             fc[2 * k + 1], fout[k]);
+  return launch<T>(ci, prm, form, out0, out1, fr, jacobian != 0, st);
 }
 
 }  // namespace
@@ -653,20 +744,22 @@ int run(const void* const* cp, int64_t nc, int nq, const double* sc,
 //   cp: the cells' pointers u, u_prev, u_prev2 (BDF2; else unused), p,
 //       dofmap, coords, h, phi, dphi, qw
 //   sc: rho, mu, dt, f0, f1, eps, a0, a1, a2 (BDF2's coefficients)
-//   bdf2: 0 the Crank-Nicolson body (K3), 1 the BDF2 body (K14)
+//   form: 0 the Crank-Nicolson body (K3), 1 the BDF2 body (K14), 2 the
+//       curl-curl body (K15)
 //   out0, out1: ru_e, rp_e (residual) or A_cells, null (jacobian = 1)
-//   nfb facet blocks (at most MAXF), each: fptr[9 k ..] its dofmap_u,
-//       dofmap_p, coords, phi_u, dphi_u, phi_p, gdphi, normal, dS;
-//       fsize[2 k ..] nf, nq; fopt[2 k ..] term, implicit; fc[k] its
-//       scalar (ns_facet.cuh); fout[k] its ru_f or A_f
+//   nfb facet blocks (at most MAXF), each: fptr[10 k ..] its dofmap_u,
+//       dofmap_p, coords, phi_u, dphi_u, phi_p, gdphi, normal, dS, h;
+//       fsize[2 k ..] nf, nq; fopt[2 k ..] term, implicit; fc[2 k ..]
+//       its scalars c, c2 (ns_facet.cuh); fout[k] its ru_f or A_f
 extern "C" int cfd_ns_element_p1(const void* const* cp, int64_t nc,
-                                 int64_t nq, const double* sc, int bdf2,
+                                 int64_t nq, const double* sc, int form,
                                  void* out0, void* out1, int nfb,
                                  const void* const* fptr,
                                  const int64_t* fsize, const int* fopt,
                                  const double* fc, void* const* fout,
                                  int jacobian, int is_f64, void* stream) {
-  if (nq < 1 || nq > MAXQ || nfb < 0 || nfb > MAXF)
+  if (nq < 1 || nq > MAXQ || nfb < 0 || nfb > MAXF || form < FORM_MID ||
+      form > FORM_CURL)
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k < nfb; ++k)
     if (fsize[2 * k] < 1 || fsize[2 * k + 1] < 1 || fopt[2 * k] < 0 ||
@@ -675,8 +768,8 @@ extern "C" int cfd_ns_element_p1(const void* const* cp, int64_t nc,
   if (nc <= 0 && nfb == 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f64)
-    return run<double>(cp, nc, (int)nq, sc, bdf2, out0, out1, nfb, fptr,
+    return run<double>(cp, nc, (int)nq, sc, form, out0, out1, nfb, fptr,
                        fsize, fopt, fc, fout, jacobian, st);
-  return run<float>(cp, nc, (int)nq, sc, bdf2, out0, out1, nfb, fptr, fsize,
+  return run<float>(cp, nc, (int)nq, sc, form, out0, out1, nfb, fptr, fsize,
                     fopt, fc, fout, jacobian, st);
 }

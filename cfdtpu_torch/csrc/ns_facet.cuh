@@ -1,6 +1,8 @@
 // The facet-term bodies, residual and Jacobian, one facet (residual) or
 // one (facet, column) (Jacobian) a lane: K7 the natural correction, K12
-// the viscous traction, K13 the backflow stabilisation (see the file
+// the viscous traction, K13 the backflow stabilisation, K16 the weak
+// pressure, K17 the symmetric Nitsche u_T = 0 (sigma and curl forms),
+// K18 the convective and directional do-nothing outlets (see the file
 // comment of ns_facet.cu for the terms). csrc/ns_facet.cu launches each
 // alone; csrc/ns_cell_residual.cu runs a form's facet blocks in the
 // element kernel's launch, each block a range of blocks after the
@@ -16,7 +18,12 @@
 constexpr int TERM_NATURAL = 0;   // K7:  p n.v - mu (nabla_grad u)^T n.v
 constexpr int TERM_VISCOUS = 1;   // K12: sign (2 mu eps(u) n).v
 constexpr int TERM_BACKFLOW = 2;  // K13: -beta rho (u_prev.n)_- (u.v)
-constexpr int NTERMS = 3;
+constexpr int TERM_WEAKP = 3;     // K16: scale pbar (v.n)
+constexpr int TERM_NITSCHE = 4;   // K17: Nitsche u_T = 0, sigma form
+constexpr int TERM_NITSCHE_CURL = 5;  // K17: Nitsche u_T = 0, curl form
+constexpr int TERM_CBC = 6;       // K18: -1/2 (u_prev.n) (u.v)
+constexpr int TERM_DDN = 7;       // K18: -1/2 min(u_prev.n, 0) (u.v)
+constexpr int NTERMS = 8;
 
 // per-facet tabulations (nf, nq, ...), as add_facet_term builds them
 template <typename T>
@@ -27,6 +34,7 @@ struct FacetTabs {
   const T* gdphi;   // (nf, nq, 3, 2)
   const T* normal;  // (nf, nq, 2)
   const T* dS;      // (nf, nq)
+  const T* h;       // (nf,): the size of the cell behind the facet
 };
 
 template <typename T>
@@ -39,9 +47,10 @@ struct FacetIn {
   const T* coords;      // (nf, 3, 2)
 };
 
-// one facet block: its arguments, its term and options, and the one
-// scalar the term's body takes: mu (natural), sign mu (viscous),
-// -beta rho (backflow)
+// one facet block: its arguments, its term and options, and the
+// scalars the term's body takes: c is mu (natural), sign mu (viscous),
+// -beta rho (backflow), scale pbar (weak pressure), mu (Nitsche) or
+// -1/2 (CBC, DDN); c2 is beta mu (Nitsche's penalty), else unused
 template <typename T>
 struct FacetRange {
   FacetIn<T> in;
@@ -51,6 +60,7 @@ struct FacetRange {
   int term;
   int implicit;  // the velocity u (BDF2), else the midpoint (u + u_prev) / 2
   T c;
+  T c2;
   T* out;  // ru_f (nf, 3, 2) or A_f (nf, 9, 9)
 };
 
@@ -61,11 +71,17 @@ __device__ __forceinline__ void facet_body(const FacetTabs<T>& tb, int64_t f,
                                            int nq, const T (&X)[3][2],
                                            const N (&uv)[3][2],
                                            const T (&upe)[3][2],
-                                           const N (&pe)[3], T c,
+                                           const N (&pe)[3], T c, T c2,
                                            N (&ru)[3][2]) {
+  constexpr bool UPREV =
+      TERM == TERM_BACKFLOW || TERM == TERM_CBC || TERM == TERM_DDN;
+  constexpr bool NITSCHE = TERM == TERM_NITSCHE || TERM == TERM_NITSCHE_CURL;
   const N zero = Lift<N>::of(T(0));
 #pragma unroll
   for (int b = 0; b < 3; ++b) ru[b][0] = ru[b][1] = zero;
+  // Nitsche's penalty beta mu / h, once a facet
+  T pen = T(0);
+  if constexpr (NITSCHE) pen = c2 * recip(__ldg(tb.h + f));
   for (int q = 0; q < nq; ++q) {
     const int64_t fq = f * nq + q;
     T ph[3];
@@ -74,19 +90,27 @@ __device__ __forceinline__ void facet_body(const FacetTabs<T>& tb, int64_t f,
     const T n[2] = {__ldg(tb.normal + fq * 2), __ldg(tb.normal + fq * 2 + 1)};
     const T dS = __ldg(tb.dS + fq);
     N term[2];
-    if constexpr (TERM == TERM_BACKFLOW) {
-      // (u_prev.n)_- = (a - |a|) / 2 at the point: plain numbers, so
-      // the term is linear in u and no dual meets |.|
+    if constexpr (UPREV) {
+      // the coefficient at u_prev: plain numbers, so the term is linear
+      // in u and no dual meets |.|; (a)_- = (a - |a|) / 2 = min(a, 0)
       T un = T(0);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         un = un + (upe[0][i] * ph[0] + upe[1][i] * ph[1] +
                    upe[2][i] * ph[2]) * n[i];
-      const T s = c * (T(0.5) * (un - fabs(un)));
+      T s;
+      if constexpr (TERM == TERM_CBC)
+        s = c * un;
+      else
+        s = c * (T(0.5) * (un - fabs(un)));
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         term[i] = s * (uv[0][i] * ph[0] + uv[1][i] * ph[1] +
                        uv[2][i] * ph[2]);
+    } else if constexpr (TERM == TERM_WEAKP) {
+      // reads no state: its tangents are zero
+#pragma unroll
+      for (int i = 0; i < 2; ++i) term[i] = Lift<N>::of(c * n[i]);
     } else {
       T gd[6], dp[6];
 #pragma unroll
@@ -113,12 +137,63 @@ __device__ __forceinline__ void facet_body(const FacetTabs<T>& tb, int64_t f,
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           term[i] = pq * n[i] - c * (G[0][i] * n[0] + G[1][i] * n[1]);
-      } else {
+      } else if constexpr (TERM == TERM_VISCOUS) {
         // 2 eps(uv) n = (G + G^T) n, times sign mu
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           term[i] = c * ((G[i][0] + G[0][i]) * n[0] +
                          (G[i][1] + G[1][i]) * n[1]);
+      } else {
+        // Nitsche: uv at the point and its tangential part u_T
+        N uq[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          uq[i] = uv[0][i] * ph[0] + uv[1][i] * ph[1] + uv[2][i] * ph[2];
+        const N un = uq[0] * n[0] + uq[1] * n[1];
+        const N uT[2] = {uq[0] - un * n[0], uq[1] - un * n[1]};
+        const T cw = c * dS;  // mu dS: the symmetry term's weight
+        if constexpr (TERM == TERM_NITSCHE) {
+          // consistency -(2 mu eps(u) n)_T . v and penalty (beta mu / h)
+          // u_T . v (u_T . n = 0), both against phi_b
+          N sn[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            sn[i] = c * ((G[i][0] + G[0][i]) * n[0] +
+                         (G[i][1] + G[1][i]) * n[1]);
+          const N snn = sn[0] * n[0] + sn[1] * n[1];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            term[i] = pen * uT[i] - (sn[i] - snn * n[i]);
+          // symmetry -(2 mu eps(v) n) . u_T, v = phi_b e_i:
+          // -mu ((grad phi_b . n) u_T,i + (grad phi_b . u_T) n_i)
+#pragma unroll
+          for (int b = 0; b < 3; ++b) {
+            const T gn = g.gu[b][0] * n[0] + g.gu[b][1] * n[1];
+            const N gt = uT[0] * g.gu[b][0] + uT[1] * g.gu[b][1];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              ru[b][i] = ru[b][i] - cw * (uT[i] * gn + gt * n[i]);
+          }
+        } else {
+          // curl form, 2D: omega = d u_y / dx - d u_x / dy, curl u x n =
+          // (-omega n_y, omega n_x); consistency -mu (curl u x n)_T . v
+          // and the penalty, against phi_b
+          const N om = G[1][0] - G[0][1];
+          const N ccn[2] = {om * (-n[1]), om * n[0]};
+          const N cn = ccn[0] * n[0] + ccn[1] * n[1];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            term[i] = pen * uT[i] - c * (ccn[i] - cn * n[i]);
+          // symmetry -mu (curl v x n) . u_T, v = phi_b e_i: curl v is
+          // -d phi_b / dy (i = 0) or d phi_b / dx (i = 1), so the term is
+          // -mu curl(v) (u_T,y n_x - u_T,x n_y)
+          const N w = uT[1] * n[0] - uT[0] * n[1];
+#pragma unroll
+          for (int b = 0; b < 3; ++b) {
+            ru[b][0] = ru[b][0] + (cw * g.gu[b][1]) * w;
+            ru[b][1] = ru[b][1] - (cw * g.gu[b][0]) * w;
+          }
+        }
       }
     }
 #pragma unroll
@@ -165,7 +240,7 @@ __device__ __forceinline__ void facet_residual_lane(const FacetRange<T>& r,
                                                     int64_t f) {
   T X[3][2], uv[3][2], upe[3][2], pe[3], ru[3][2];
   load_facet<T, T>(r.in, f, r.implicit, X, uv, upe, pe);
-  facet_body<T, T, TERM>(r.tb, f, r.nq, X, uv, upe, pe, r.c, ru);
+  facet_body<T, T, TERM>(r.tb, f, r.nq, X, uv, upe, pe, r.c, r.c2, ru);
 #pragma unroll
   for (int b = 0; b < 3; ++b) {
     r.out[(f * 3 + b) * 2] = ru[b][0];
@@ -174,7 +249,8 @@ __device__ __forceinline__ void facet_residual_lane(const FacetRange<T>& r,
 }
 
 // column lane % 9 of facet lane / 9 < nf: A_f (nf, 9, 9); the three
-// pressure rows are zero (no term has a continuity part)
+// pressure rows are zero (no term has a continuity part), and so is
+// the whole block of the weak pressure, which reads no state
 template <typename T, int TERM>
 __device__ __forceinline__ void facet_jacobian_lane(const FacetRange<T>& r,
                                                     int64_t lane) {
@@ -192,7 +268,7 @@ __device__ __forceinline__ void facet_jacobian_lane(const FacetRange<T>& r,
     uv[b][1].d[0] = j == 2 * b + 1 ? du : T(0);
     pe[b].d[0] = j == 6 + b ? T(1) : T(0);
   }
-  facet_body<T, N, TERM>(r.tb, f, r.nq, X, uv, upe, pe, r.c, ru);
+  facet_body<T, N, TERM>(r.tb, f, r.nq, X, uv, upe, pe, r.c, r.c2, ru);
   T* col = r.out + f * (NLOC * NLOC) + j;
 #pragma unroll
   for (int b = 0; b < 3; ++b) {
@@ -202,37 +278,55 @@ __device__ __forceinline__ void facet_jacobian_lane(const FacetRange<T>& r,
   }
 }
 
+// the term sets a fused launch is compiled for (bit TERM of the mask):
+// each element kernel with facet blocks is instantiated for the sets
+// its forms need, and the launch takes the smallest that holds every
+// block's term, so that a kernel carries only the bodies it can run
+__host__ __device__ constexpr unsigned term_bit(int term) {
+  return 1u << term;
+}
+constexpr unsigned TERMS_K7 = term_bit(TERM_NATURAL);
+constexpr unsigned TERMS_OUTLET =
+    TERMS_K7 | term_bit(TERM_VISCOUS) | term_bit(TERM_BACKFLOW);
+constexpr unsigned TERMS_ALL = (1u << NTERMS) - 1;
+
 // lane `lane` of a facet range whose term is known at run time only (a
-// fused launch: every block of the range takes the same branch)
-template <typename T>
+// fused launch: every block of the range takes the same branch), one of
+// the terms in MASK
+template <typename T, unsigned MASK>
 __device__ __forceinline__ void facet_lane(const FacetRange<T>& r,
                                            int64_t lane, bool jacobian) {
-  if (jacobian) {
-    if (lane >= r.nf * NLOC) return;
-    if (r.term == TERM_NATURAL)
-      facet_jacobian_lane<T, TERM_NATURAL>(r, lane);
-    else if (r.term == TERM_VISCOUS)
-      facet_jacobian_lane<T, TERM_VISCOUS>(r, lane);
-    else
-      facet_jacobian_lane<T, TERM_BACKFLOW>(r, lane);
-  } else {
-    if (lane >= r.nf) return;
-    if (r.term == TERM_NATURAL)
-      facet_residual_lane<T, TERM_NATURAL>(r, lane);
-    else if (r.term == TERM_VISCOUS)
-      facet_residual_lane<T, TERM_VISCOUS>(r, lane);
-    else
-      facet_residual_lane<T, TERM_BACKFLOW>(r, lane);
+#define FACET_TERM_CASE(TERM)                       \
+  case TERM:                                        \
+    if constexpr ((MASK & term_bit(TERM)) != 0) {   \
+      if (jacobian)                                 \
+        facet_jacobian_lane<T, TERM>(r, lane);      \
+      else                                          \
+        facet_residual_lane<T, TERM>(r, lane);      \
+    }                                               \
+    break;
+  if (lane >= (jacobian ? r.nf * NLOC : r.nf)) return;
+  switch (r.term) {
+    FACET_TERM_CASE(TERM_NATURAL)
+    FACET_TERM_CASE(TERM_VISCOUS)
+    FACET_TERM_CASE(TERM_BACKFLOW)
+    FACET_TERM_CASE(TERM_WEAKP)
+    FACET_TERM_CASE(TERM_NITSCHE)
+    FACET_TERM_CASE(TERM_NITSCHE_CURL)
+    FACET_TERM_CASE(TERM_CBC)
+    FACET_TERM_CASE(TERM_DDN)
   }
+#undef FACET_TERM_CASE
 }
 
 // a facet range from the C entry points' pointers: dofmap_u,
-// dofmap_p, coords and the six tables phi_u, dphi_u, phi_p, gdphi,
-// normal, dS, in this order
+// dofmap_p, coords, the six tables phi_u, dphi_u, phi_p, gdphi, normal,
+// dS and the cell sizes h, in this order
 template <typename T>
 FacetRange<T> facet_range(const void* u, const void* uprev, const void* p,
                           const void* const* fp, int64_t nf, int nq,
-                          int term, int implicit, double c, void* out) {
+                          int term, int implicit, double c, double c2,
+                          void* out) {
   FacetRange<T> r;
   r.in = FacetIn<T>{static_cast<const T*>(u), static_cast<const T*>(uprev),
                     static_cast<const T*>(p), static_cast<const int*>(fp[0]),
@@ -243,12 +337,14 @@ FacetRange<T> facet_range(const void* u, const void* uprev, const void* p,
                       static_cast<const T*>(fp[5]),
                       static_cast<const T*>(fp[6]),
                       static_cast<const T*>(fp[7]),
-                      static_cast<const T*>(fp[8])};
+                      static_cast<const T*>(fp[8]),
+                      static_cast<const T*>(fp[9])};
   r.nf = nf;
   r.nq = nq;
   r.term = term;
   r.implicit = implicit;
   r.c = (T)c;
+  r.c2 = (T)c2;
   r.out = static_cast<T*>(out);
   return r;
 }

@@ -1,26 +1,30 @@
 """SUPG/PSPG/LSIC-stabilized incompressible Navier-Stokes residual.
 
 The counterpart of cfdtpu/forms/navier_stokes.py StabilizedNSForm
-(Crank-Nicolson midpoint, equal-order Pk-Pk) and StabilizedNSFormBDF2.
-The cell residual and the exact element Jacobians are the entry points
-of kernel K3 (kernels/ns_cell_residual.py: P1 triangles on CUDA,
-elsewhere the plain vmapped cell kernel and vmap(jacfwd(.)) of it, the
-analogue of jax.vmap(jax.jacfwd(.))), under BDF2 those of K14. A form
-carries any number of facet blocks (up to the launch's
-MAX_FACET_BLOCKS), several on the same facets if need be: the natural
-correction (K7), the viscous traction (K12) and the backflow
-stabilisation (K13), each at the midpoint or at u (forms/
-facet_terms.py). Their bodies run inside the element kernel's launch,
-residual and Jacobian alike: one launch a residual, one a Jacobian
-build. Cell and facet contributions are reduced to the nodes by K2,
-the cells first, then each facet block over its own sorted scatter in
-the order the blocks were added (cfdtpu's .at[dm_u].add order), so the
-residual is the same on every run (an index_add on CUDA sums with
-atomics in no fixed order).
+(Crank-Nicolson midpoint, equal-order Pk-Pk), StabilizedNSFormBDF2 and
+StabilizedNSFormCurlCurl. The cell residual and the exact element
+Jacobians are the entry points of kernel K3 (kernels/
+ns_cell_residual.py: P1 triangles on CUDA, elsewhere the plain vmapped
+cell kernel and vmap(jacfwd(.)) of it, the analogue of
+jax.vmap(jax.jacfwd(.))), under BDF2 those of K14, in the curl-curl form
+those of K15. A form carries any number of facet blocks (up to the
+launch's MAX_FACET_BLOCKS), several on the same facets if need be: the
+natural correction (K7), the viscous traction (K12), the backflow
+stabilisation (K13), the weak pressure (K16), Nitsche's u_T = 0 (K17)
+and the convective and directional do-nothing outlets (K18), each at the
+midpoint or at u (forms/facet_terms.py), and flux-only blocks, which
+facet_flux reads and no kernel runs. Their bodies run inside the element
+kernel's launch, residual and Jacobian alike: one launch a residual, one
+a Jacobian build. Cell and facet contributions are reduced to the nodes
+by K2, the cells first, then each facet block over its own sorted
+scatter in the order the blocks were added (cfdtpu's .at[dm_u].add
+order), so the residual is the same on every run (an index_add on CUDA
+sums with atomics in no fixed order).
 
 Parameters `prm` are a dict of Python floats: dt, rho, mu, and the body
-force f as a tuple, plus what the facet terms read (beta_backflow) and,
-under BDF2, bdf_a0..bdf_a2. Velocity u is (n_u, d); p is (n_p,).
+force f as a tuple, plus what the facet terms read (beta_backflow,
+beta_nitsche, the weak pressures such as p_inlet or p_c) and, under
+BDF2, bdf_a0..bdf_a2. Velocity u is (n_u, d); p is (n_p,).
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ import torch
 from ..assembly import FacetQuadrature
 from ..elements import LagrangeElement, quadrature
 from ..kernels.ns_cell_residual import (CellTabs, ns_cell_jacobian_bdf2_p1,
+                                        ns_cell_jacobian_curl_p1,
                                         ns_cell_jacobian_p1,
                                         ns_cell_residual_bdf2_p1,
+                                        ns_cell_residual_curl_p1,
                                         ns_cell_residual_p1)
 from ..kernels.ns_facet import FacetBlock, FacetTerm, facet_call
 from ..spaces import FunctionSpace
@@ -52,6 +58,8 @@ class StabilizedNSForm:
     """
 
     N_AUX = 1
+    # the cell body's entry points (residual, Jacobian): K3
+    CELL_KERNELS = (ns_cell_residual_p1, ns_cell_jacobian_p1)
 
     def __init__(
         self,
@@ -137,6 +145,8 @@ class StabilizedNSForm:
         # "p"): SortedScatter}
         self._row_scatters: dict = {}
         self._facet_blocks: list[dict] = []
+        # blocks that only measure a flux (facet_flux): no term, no launch
+        self._flux_blocks: list[dict] = []
         if boundary_correction and len(mesh.facets):
             self.add_facet_term(
                 "natural_correction",
@@ -160,15 +170,29 @@ class StabilizedNSForm:
         if not isinstance(term, FacetTerm):
             raise NotImplementedError(
                 f"facet term {name!r} has no CUDA kernel: the ported facet "
-                "terms are natural_correction (K7), viscous_traction (K12) "
-                "and backflow (K13); weak_pressure, nitsche_tangential, "
-                "nitsche_tangential_curl, cbc, directional_do_nothing and "
-                "natural_correction_full_stress come with ROADMAP queue "
-                "B5f")
+                "terms are natural_correction (K7), viscous_traction (K12), "
+                "backflow (K13), weak_pressure (K16), nitsche_tangential "
+                "and nitsche_tangential_curl (K17), cbc and "
+                "directional_do_nothing (K18); "
+                "natural_correction_full_stress comes with ROADMAP A11")
+        block = self._make_block(name, facet_indices)
+        if block is not None:
+            block["term"] = term
+            self._facet_blocks.append(block)
+
+    def add_flux_block(self, name: str, facet_indices) -> None:
+        """A facet subset that facet_flux measures and no term acts on
+        (cfdtpu adds a term of zeros for it, which changes no sum)."""
+        block = self._make_block(name, facet_indices)
+        if block is not None:
+            self._flux_blocks.append(block)
+
+    def _make_block(self, name: str, facet_indices):
+        """A facet block's tables and maps (None for no facets)."""
         mesh = self.mesh
         facet_indices = np.asarray(facet_indices, dtype=np.int32)
         if facet_indices.size == 0:
-            return
+            return None
         fq = FacetQuadrature(mesh, facet_indices, self.quad_degree)
         phi_u, dphi_u = fq.tabulate(self.V.element)
         phi_p, _ = fq.tabulate(self.Q.element)
@@ -185,9 +209,8 @@ class StabilizedNSForm:
 
         dm_u = np.asarray(self.V.dofmap)[cells].astype(np.int64)
         dm_p = np.asarray(self.Q.dofmap)[cells].astype(np.int64)
-        block = {
+        return {
             "name": name,
-            "term": term,
             "dofmap_u": torch.as_tensor(dm_u, device=dev),
             # int32 copies for the facet kernels' gathers
             "dofmap_u32": torch.as_tensor(dm_u.astype(np.int32), device=dev),
@@ -213,7 +236,6 @@ class StabilizedNSForm:
             "coords": self.cell_coords[
                 torch.as_tensor(cells.astype(np.int64), device=dev)],
         }
-        self._facet_blocks.append(block)
 
     @staticmethod
     def _fused_args(block, u, p, aux, prm):
@@ -239,8 +261,8 @@ class StabilizedNSForm:
 
     def _element_call(self, jacobian: bool, u, p, aux, prm):
         """One element-kernel launch: the cells and every facet block
-        (K3; K14 in the BDF2 form)."""
-        fn = ns_cell_jacobian_p1 if jacobian else ns_cell_residual_p1
+        (CELL_KERNELS; K14 in the BDF2 form)."""
+        fn = self.CELL_KERNELS[jacobian]
         out = fn(u, aux[0], p, self.dofmap_u, self.dofmap_p,
                  self.cell_coords, self.cell_h, self.tabs, prm["rho"],
                  prm["mu"], prm["dt"], prm["f"], self.eps,
@@ -273,8 +295,9 @@ class StabilizedNSForm:
                         in zip(self._facet_blocks, out[1:])]
 
     def facet_flux(self, u, name: str):
-        """Q = int u·n dS over the named facet block (torch ops)."""
-        for block in self._facet_blocks:
+        """Q = int u·n dS over the named facet block or flux-only block
+        (torch ops)."""
+        for block in self._facet_blocks + self._flux_blocks:
             if block["name"] == name:
                 tabs = block["tabs"]
                 u_q = torch.einsum("fqb,fbi->fqi", tabs["phi_u"],
@@ -394,3 +417,16 @@ class StabilizedNSFormBDF2(StabilizedNSForm):
                   (prm["bdf_a0"], prm["bdf_a1"], prm["bdf_a2"]),
                   facets=[self._kernel_block(b, prm)
                           for b in self._facet_blocks])
+
+
+class StabilizedNSFormCurlCurl(StabilizedNSForm):
+    """Curl-curl (rotational) formulation (cfdtpu's
+    StabilizedNSFormCurlCurl): viscous term mu curl(u_mid)·curl(v),
+    Lamb-form convection rho (curl(u_mid) x u_mid)·v - rho/2 |u_mid|^2
+    div(v), pressure -p div(v), continuity q div(u_mid); SUPG/PSPG/LSIC
+    with the strong residual R = rho(du/dt + curl(u_mid) x u_mid) +
+    grad p - rho f. 2D (the scalar rotation omega). The cell body is
+    kernel K15.
+    """
+
+    CELL_KERNELS = (ns_cell_residual_curl_p1, ns_cell_jacobian_curl_p1)

@@ -38,6 +38,16 @@ K14 ns_cell_residual_bdf2_p1 K3's cell body under BDF2 (the time term
     ns_cell_jacobian_bdf2_p1 over u, u_prev, u_prev2; the rest at u),
                        residual and Jacobian, with the form's facet
                        blocks in its launch as K3 takes them
+K15 ns_cell_residual_curl_p1 K3's cell body in the curl-curl form
+    ns_cell_jacobian_curl_p1 (viscous term mu curl u . curl v, Lamb-form
+                       convection), residual and Jacobian, with the
+                       form's facet blocks in its launch
+K16 ns_facet_weakp_p1  the weak pressure facet term (its Jacobian is zero)
+K17 ns_facet_nitsche_p1 symmetric Nitsche u_T = 0, sigma form, and
+    ns_facet_nitsche_curl_p1 curl form, with their element Jacobians
+K18 ns_facet_cbc_p1    the convective outlet and the directional
+    ns_facet_ddn_p1    do-nothing outlet (K13's body at -1/2), with
+                       their element Jacobians
 
 Every wrapper takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors (or raises); each call of a
@@ -47,10 +57,10 @@ fused variant or option also counts under its own name:
 (K1's cheby mode), `krylov_cgs_scaled` (K9's scaled normalisation),
 `ns_cell_residual_p1_facet` and
 `ns_cell_jacobian_p1_facet` (K3 with facet blocks; `..._bdf2_p1_facet`
-K14's), each a subset of its kernel's count; a facet term that runs in
-an element kernel's launch counts under its kernel's name with
-`_fused` (`ns_facet_viscous_p1_fused`: launches that carried a K12
-block);
+K14's, `..._curl_p1_facet` K15's), each a subset of its kernel's
+count; a facet term that runs in an element kernel's launch counts
+under its kernel's name with `_fused` (`ns_facet_viscous_p1_fused`:
+launches that carried a K12 block);
 the fused variants' device kernels carry the same names
 (`sup_spmv_prolong_kernel`, ...), so a trace matches them as a
 name contains them (the two options run in their kernel's device
@@ -86,8 +96,11 @@ COUNTERS = {
                  "block_jacobi", "block_jacobi_inv", "amg_gcr2",
                  "ns_cell_residual_bdf2_p1", "ns_cell_residual_bdf2_p1_facet",
                  "ns_cell_jacobian_bdf2_p1", "ns_cell_jacobian_bdf2_p1_facet",
+                 "ns_cell_residual_curl_p1", "ns_cell_residual_curl_p1_facet",
+                 "ns_cell_jacobian_curl_p1", "ns_cell_jacobian_curl_p1_facet",
                  *(f"ns_facet_{term}{jac}_p1{fused}"
-                   for term in ("natural", "viscous", "backflow")
+                   for term in ("natural", "viscous", "backflow", "weakp",
+                                "nitsche", "nitsche_curl", "cbc", "ddn")
                    for jac in ("", "_jac") for fused in ("", "_fused")))
 }
 

@@ -50,16 +50,16 @@ SIGNATURES = {
     "cfd_ell_sum": [P, P, P, P, I64, I64, I32, I32, I32, P],
     # cell pointers (10: u, u_prev, u_prev2, p, dofmap, coords, h, phi,
     # dphi, qw), nc, nq, scalars (9: rho, mu, dt, f0, f1, eps, a0, a1,
-    # a2), bdf2, out0, out1, facet blocks nfb, their pointers (9 each),
-    # sizes (nf, nq each), options (term, implicit each), scalars, outputs,
-    # jacobian, is_f64, stream
+    # a2), form, out0, out1, facet blocks nfb, their pointers (10 each),
+    # sizes (nf, nq each), options (term, implicit each), scalars (c, c2
+    # each), outputs, jacobian, is_f64, stream
     "cfd_ns_element_p1": [P, I64, I64, P, I32, P, P, I32, P, P, P, P, P,
                           I32, I32, P],
     # term, implicit, u, uprev, p, dofmap_u, dofmap_p, coords, phi_u,
-    # dphi_u, phi_p, gdphi, normal, dS, nf, nq, c, jacobian, out, is_f64,
-    # stream
-    "cfd_ns_facet_p1": [I32, I32, P, P, P, P, P, P, P, P, P, P, P, P, I64,
-                        I64, F64, I32, P, I32, P],
+    # dphi_u, phi_p, gdphi, normal, dS, h, nf, nq, c, c2, jacobian, out,
+    # is_f64, stream
+    "cfd_ns_facet_p1": [I32, I32, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                        I64, I64, F64, F64, I32, P, I32, P],
     # vals, e1, e2, kcol, inv_duu, contrib, nt, d, is_f64, stream
     "cfd_selfp_triple": [P, P, P, P, P, P, I64, I64, I32, P],
     # x, vals, idx, y, P, L, K, is_f64, stream

@@ -1,29 +1,33 @@
-"""K3 and K14: the stabilized-NS cell kernels (csrc/ns_cell_residual.cu)
-with their entry points, ns_cell_residual_p1 and ns_cell_jacobian_p1
-(Crank-Nicolson midpoint, K3), ns_cell_residual_bdf2_p1 and
-ns_cell_jacobian_bdf2_p1 (BDF2, K14): element residuals and exact
-element Jacobians, and the plain cell kernels they replace.
+"""K3, K14 and K15: the stabilized-NS cell kernels
+(csrc/ns_cell_residual.cu) with their entry points, ns_cell_residual_p1
+and ns_cell_jacobian_p1 (Crank-Nicolson midpoint, K3),
+ns_cell_residual_bdf2_p1 and ns_cell_jacobian_bdf2_p1 (BDF2, K14),
+ns_cell_residual_curl_p1 and ns_cell_jacobian_curl_p1 (the curl-curl
+form at the midpoint, K15): element residuals and exact element
+Jacobians, and the plain cell kernels they replace.
 
 `ns_cell_kernel` is the per-cell Crank-Nicolson-midpoint residual of
 cfdtpu's StabilizedNSForm (forms/navier_stokes.py _make_cell_kernel),
 `ns_cell_kernel_bdf2` that of StabilizedNSFormBDF2 (time term (a0 u +
 a1 u_prev + a2 u_prev2) / dt, everything else at u, tau from |u_prev|),
+`ns_cell_kernel_curl` that of StabilizedNSFormCurlCurl (viscous term mu
+curl u . curl v, Lamb-form convection, -(p + rho/2 |u|^2) div v),
 written for torch.func: no in-place ops and no host reads. Batched with
 vmap each is the plain version of its residual; vmap(jacfwd(.)) of its
 flat form is the plain version of its Jacobian, as cfdtpu's
 element_jacobians takes it. On the card one CUDA cell body serves all
-four: on plain numbers for the residuals, on forward-mode dual numbers
-for the Jacobians, instantiated for each scheme.
+six: on plain numbers for the residuals, on forward-mode dual numbers
+for the Jacobians, instantiated for each form.
 
 The CUDA kernels cover P1 triangles only (dim 2, degree 1: velocity,
 pressure and geometry share one basis, and V and Q share the dofmap).
 For any other form a CUDA tensor raises; there is no fallback.
 
 Every entry point takes the form's facet blocks, `facets`, a sequence
-of kernels/ns_facet.FacetBlock (at most MAX_FACET_BLOCKS): K7's, K12's
-or K13's bodies then run in the same launch, each block a range of
-blocks after the cells', and each adds one output (ru_f (nf, 3, 2), or
-A_f (nf, 9, 9)) in its order. The plain versions run the cell
+of kernels/ns_facet.FacetBlock (at most MAX_FACET_BLOCKS): their
+bodies (K7, K12, K13, K16-K18) then run in the same launch, each block
+a range of blocks after the cells', and each adds one output (ru_f (nf,
+3, 2), or A_f (nf, 9, 9)) in its order. The plain versions run the cell
 kernel's and then each block's plain version, in that order.
 """
 
@@ -43,7 +47,9 @@ from .ns_facet import (TABS as FACET_TABS, TERM_CODE,
 from ..utils.geometry import det_and_inv
 
 MAX_POINTS = 16  # quadrature points the CUDA kernels hold (MAXQ)
-MAX_FACET_BLOCKS = 4  # facet blocks a launch carries (MAXF)
+MAX_FACET_BLOCKS = 8  # facet blocks a launch carries (MAXF)
+# the cell bodies as csrc/ns_cell_residual.cu numbers them
+FORM_MID, FORM_BDF2, FORM_CURL = 0, 1, 2
 
 
 @dataclass
@@ -211,10 +217,73 @@ def ns_cell_kernel_bdf2(u_e, p_e, uprev_e, uprev2_e, coords_e, h_e,
     return ru, rp
 
 
-def _plain_kernel(tabs, rho, mu, dt, f, eps, a, like):
+def ns_cell_kernel_curl(u_e, p_e, uprev_e, coords_e, h_e, tabs: CellTabs,
+                        rho, mu, dt, f, eps: float):
+    """Residual of one cell in the curl-curl (rotational) form (cfdtpu's
+    StabilizedNSFormCurlCurl): (ru (nbu, d), rp (nbp,)) at the
+    Crank-Nicolson midpoint, 2D (the scalar rotation omega = du_y/dx -
+    du_x/dy, curl x w = (-omega w_y, omega w_x))."""
+    nu = mu / rho
+    phi_u, dphi_u = tabs.phi_u, tabs.dphi_u
+    phi_p, dphi_p = tabs.phi_p, tabs.dphi_p
+    if coords_e.shape[-1] != 2:
+        raise NotImplementedError("the curl-curl cell kernel is 2D")
+
+    J = torch.einsum("vg,qvd->qgd", coords_e, tabs.gdphi)
+    detJ, invJ = det_and_inv(J)
+    wdet = tabs.qw * detJ.abs()
+
+    gu = torch.einsum("qbd,qdg->qbg", dphi_u, invJ)
+    gp = torch.einsum("qbd,qdg->qbg", dphi_p, invJ)
+
+    u_q = phi_u @ u_e
+    up_q = phi_u @ uprev_e
+    um_q = 0.5 * (u_q + up_q)
+    grad_um = 0.5 * torch.einsum("bi,qbg->qig", u_e + uprev_e, gu)
+    p_q = phi_p @ p_e
+    grad_p = torch.einsum("b,qbg->qg", p_e, gp)
+    div_um = torch.diagonal(grad_um, dim1=1, dim2=2).sum(-1)
+
+    omega = grad_um[:, 1, 0] - grad_um[:, 0, 1]
+    cross = torch.stack([-omega * um_q[:, 1], omega * um_q[:, 0]], dim=-1)
+    # rot of the test function phi_b e_i: i = 0 -dphi_b/dy, i = 1 dphi_b/dx
+    rot_v = torch.stack([-gu[:, :, 1], gu[:, :, 0]], dim=-1)
+    visc = torch.einsum("q,qbi->bi", wdet * mu * omega, rot_v)
+    umag2 = torch.sum(um_q * um_q, dim=-1)
+
+    R = rho * ((u_q - up_q) / dt + cross) + grad_p - rho * f
+
+    vn = torch.sqrt(torch.sum(up_q * up_q, dim=-1))
+    t1 = h_e / torch.clamp(2.0 * vn, min=eps)
+    t2 = dt / 2.0
+    t3 = (h_e * h_e) / (4.0 * nu)
+    tau = (t1 ** -2.0 + t2 ** -2.0 + t3 ** -2.0) ** -0.5
+    Re_h = vn * h_e / (2.0 * nu)
+    z = torch.clamp(Re_h / 3.0, max=1.0)
+    tau_lsic = vn * h_e * z / 2.0
+
+    mass = rho * ((u_q - up_q) / dt + cross - f)
+    ru = torch.einsum("q,qb,qi->bi", wdet, phi_u, mass)
+    ru = ru + visc
+    # -(p + rho/2 |u_mid|^2) div(v)
+    ru = ru + torch.einsum("q,qbi->bi", -wdet * (p_q + 0.5 * rho * umag2),
+                           gu)
+    adv_v = torch.einsum("qbg,qg->qb", gu, um_q)
+    ru = ru + torch.einsum("q,qi,qb->bi", wdet * tau, R, adv_v)
+    ru = ru + torch.einsum("q,qbi->bi", wdet * tau_lsic * rho * div_um, gu)
+
+    rp = torch.einsum("q,qb->b", wdet * div_um, phi_p)
+    rp = rp + torch.einsum("q,qi,qbi->b", wdet * tau / rho, R, gp)
+    return ru, rp
+
+
+def _plain_kernel(tabs, rho, mu, dt, f, eps, a, like, form=FORM_MID):
     """The plain cell kernel as fn(u_e, p_e, hist_e, coords_e, h_e),
     hist_e = (u_prev_e,) or (u_prev_e, u_prev2_e) (a given: BDF2)."""
     f_t = torch.as_tensor(f, dtype=like.dtype, device=like.device)
+    if form == FORM_CURL:
+        return lambda ue, pe, he, ce, hh: ns_cell_kernel_curl(
+            ue, pe, he[0], ce, hh, tabs, rho, mu, dt, f_t, eps)
     if a is None:
         return lambda ue, pe, he, ce, hh: ns_cell_kernel(
             ue, pe, he[0], ce, hh, tabs, rho, mu, dt, f_t, eps)
@@ -223,17 +292,17 @@ def _plain_kernel(tabs, rho, mu, dt, f, eps, a, like):
 
 
 def _residual_plain(u, hist, p, dofmap_u, dofmap_p, coords, h, tabs, rho,
-                    mu, dt, f, eps, a=None):
+                    mu, dt, f, eps, a=None, form=FORM_MID):
     dmu, dmp = dofmap_u.long(), dofmap_p.long()
-    kernel = _plain_kernel(tabs, rho, mu, dt, f, eps, a, u)
+    kernel = _plain_kernel(tabs, rho, mu, dt, f, eps, a, u, form)
     return torch.func.vmap(kernel)(u[dmu], p[dmp],
                                    tuple(x[dmu] for x in hist), coords, h)
 
 
 def _jacobian_plain(u, hist, p, dofmap_u, dofmap_p, coords, h, tabs, rho,
-                    mu, dt, f, eps, a=None):
+                    mu, dt, f, eps, a=None, form=FORM_MID):
     dmu, dmp = dofmap_u.long(), dofmap_p.long()
-    kernel = _plain_kernel(tabs, rho, mu, dt, f, eps, a, u)
+    kernel = _plain_kernel(tabs, rho, mu, dt, f, eps, a, u, form)
     nc, nbu = dmu.shape
     nud = nbu * u.shape[1]
 
@@ -275,6 +344,20 @@ def ns_cell_jacobian_bdf2_plain(u, uprev, uprev2, p, dofmap_u, dofmap_p,
     """K14's plain Jacobian: vmap(jacfwd(.)) of ns_cell_kernel_bdf2."""
     return _jacobian_plain(u, (uprev, uprev2), p, dofmap_u, dofmap_p,
                            coords, h, tabs, rho, mu, dt, f, eps, a)
+
+
+def ns_cell_residual_curl_plain(u, uprev, p, dofmap_u, dofmap_p, coords, h,
+                                tabs: CellTabs, rho, mu, dt, f, eps):
+    """K15's plain residual: dofmap gather + vmap of ns_cell_kernel_curl."""
+    return _residual_plain(u, (uprev,), p, dofmap_u, dofmap_p, coords, h,
+                           tabs, rho, mu, dt, f, eps, form=FORM_CURL)
+
+
+def ns_cell_jacobian_curl_plain(u, uprev, p, dofmap_u, dofmap_p, coords, h,
+                                tabs: CellTabs, rho, mu, dt, f, eps):
+    """K15's plain Jacobian: vmap(jacfwd(.)) of ns_cell_kernel_curl."""
+    return _jacobian_plain(u, (uprev,), p, dofmap_u, dofmap_p, coords, h,
+                           tabs, rho, mu, dt, f, eps, form=FORM_CURL)
 
 
 def _check_args(name, u, hist, p, dofmap_u, dofmap_p, coords, h, tabs):
@@ -332,10 +415,11 @@ def _ptrs(ctype, values):
     return (ctype * max(len(values), 1))(*values)
 
 
-def _element(name, jacobian, u, hist, p, dofmap_u, dofmap_p, coords, h,
-             tabs, rho, mu, dt, f, eps, a, blocks):
-    """One element-kernel call: the cells and every facet block, in one
-    launch on the card, as the plain versions in order on the CPU."""
+def _element(name, form, jacobian, u, hist, p, dofmap_u, dofmap_p, coords,
+             h, tabs, rho, mu, dt, f, eps, a, blocks):
+    """One element-kernel call of cell body `form` (FORM_*): the cells and
+    every facet block, in one launch on the card, as the plain versions
+    in order on the CPU."""
     args = (u, hist, p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt,
             f, eps, a)
     cuda = _check_args(name, *args[:8])
@@ -344,7 +428,7 @@ def _element(name, jacobian, u, hist, p, dofmap_u, dofmap_p, coords, h,
     if not cuda:
         plain = _jacobian_plain if jacobian else _residual_plain
         fplain = facet_jac_plain if jacobian else facet_plain
-        out = plain(*args)
+        out = plain(*args, form=form)
         out = (out,) if jacobian else tuple(out)
         return out + tuple(fplain(b.term, b.scalars, u, hist[0], p,
                                   *b.args()) for b in blocks)
@@ -380,12 +464,12 @@ def _element(name, jacobian, u, hist, p, dofmap_u, dofmap_p, coords, h,
     fopt = _ptrs(ctypes.c_int, [v for b in blocks
                                 for v in (TERM_CODE[b.term.term],
                                           int(b.term.implicit))])
-    fc = _ptrs(ctypes.c_double, [float(b.term.coef(b.scalars))
-                                 for b in blocks])
+    fc = _ptrs(ctypes.c_double, [c for b in blocks
+                                 for c in b.term.coefs(b.scalars)])
     fo = _ptrs(ctypes.c_void_p, [t.data_ptr() for t in fouts])
     with torch.cuda.device(dev):
         rc = library().cfd_ns_element_p1(
-            cp, nc, tabs.qw.shape[0], sc, int(a is not None),
+            cp, nc, tabs.qw.shape[0], sc, form,
             outs[0].data_ptr(), outs[1].data_ptr() if len(outs) > 1 else None,
             len(blocks), fptr, fsize, fopt, fc, fo, int(jacobian),
             is_f64(u), stream_handle(u))
@@ -403,9 +487,9 @@ def ns_cell_residual_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
     """Element residuals (ru_e (nc, nbu, d), rp_e (nc, nbp)) and, for
     each facet block (module docstring), its ru_f (nf, 3, 2), from one
     launch."""
-    return _element("ns_cell_residual_p1", False, u, (uprev,), p, dofmap_u,
-                    dofmap_p, coords, h, tabs, rho, mu, dt, f, eps, None,
-                    _blocks(facets))
+    return _element("ns_cell_residual_p1", FORM_MID, False, u, (uprev,), p,
+                    dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt, f, eps,
+                    None, _blocks(facets))
 
 
 def ns_cell_jacobian_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
@@ -415,9 +499,9 @@ def ns_cell_jacobian_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
     layout [u(b, i) row-major, then p(b)]; with facet blocks (module
     docstring), (A_cells, A_f (nf, 9, 9) per block) from the same
     launch."""
-    out = _element("ns_cell_jacobian_p1", True, u, (uprev,), p, dofmap_u,
-                   dofmap_p, coords, h, tabs, rho, mu, dt, f, eps, None,
-                   _blocks(facets))
+    out = _element("ns_cell_jacobian_p1", FORM_MID, True, u, (uprev,), p,
+                   dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt, f, eps,
+                   None, _blocks(facets))
     return out if len(out) > 1 else out[0]
 
 
@@ -426,9 +510,10 @@ def ns_cell_residual_bdf2_p1(u, uprev, uprev2, p, dofmap_u, dofmap_p,
                              a, facets=None):
     """K14: the BDF2 element residuals (ru_e, rp_e), a = (a0, a1, a2),
     and each facet block's ru_f, from one launch."""
-    return _element("ns_cell_residual_bdf2_p1", False, u, (uprev, uprev2),
-                    p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt, f,
-                    eps, tuple(float(x) for x in a), _blocks(facets))
+    return _element("ns_cell_residual_bdf2_p1", FORM_BDF2, False, u,
+                    (uprev, uprev2), p, dofmap_u, dofmap_p, coords, h, tabs,
+                    rho, mu, dt, f, eps, tuple(float(x) for x in a),
+                    _blocks(facets))
 
 
 def ns_cell_jacobian_bdf2_p1(u, uprev, uprev2, p, dofmap_u, dofmap_p,
@@ -436,7 +521,30 @@ def ns_cell_jacobian_bdf2_p1(u, uprev, uprev2, p, dofmap_u, dofmap_p,
                              a, facets=None):
     """K14: the BDF2 element Jacobians A_cells (nc, 9, 9) and each facet
     block's A_f, from one launch (A_cells alone without facet blocks)."""
-    out = _element("ns_cell_jacobian_bdf2_p1", True, u, (uprev, uprev2),
-                   p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu, dt, f,
-                   eps, tuple(float(x) for x in a), _blocks(facets))
+    out = _element("ns_cell_jacobian_bdf2_p1", FORM_BDF2, True, u,
+                   (uprev, uprev2), p, dofmap_u, dofmap_p, coords, h, tabs,
+                   rho, mu, dt, f, eps, tuple(float(x) for x in a),
+                   _blocks(facets))
+    return out if len(out) > 1 else out[0]
+
+
+def ns_cell_residual_curl_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
+                             tabs: CellTabs, rho, mu, dt, f, eps,
+                             facets=None):
+    """K15: the curl-curl element residuals (ru_e, rp_e) and each facet
+    block's ru_f, from one launch."""
+    return _element("ns_cell_residual_curl_p1", FORM_CURL, False, u,
+                    (uprev,), p, dofmap_u, dofmap_p, coords, h, tabs, rho,
+                    mu, dt, f, eps, None, _blocks(facets))
+
+
+def ns_cell_jacobian_curl_p1(u, uprev, p, dofmap_u, dofmap_p, coords, h,
+                             tabs: CellTabs, rho, mu, dt, f, eps,
+                             facets=None):
+    """K15: the curl-curl element Jacobians A_cells (nc, 9, 9) and each
+    facet block's A_f, from one launch (A_cells alone without facet
+    blocks)."""
+    out = _element("ns_cell_jacobian_curl_p1", FORM_CURL, True, u,
+                   (uprev,), p, dofmap_u, dofmap_p, coords, h, tabs, rho, mu,
+                   dt, f, eps, None, _blocks(facets))
     return out if len(out) > 1 else out[0]

@@ -1,19 +1,27 @@
 """The facet-term kernels (csrc/ns_facet.cu), each with two entry
 points, the facet residuals and the facet Jacobians: K7 the natural
 correction (ns_facet_natural_p1, ns_facet_natural_jac_p1), K12 the
-outlet viscous traction (ns_facet_viscous_p1, ns_facet_viscous_jac_p1)
-and K13 the backflow stabilisation (ns_facet_backflow_p1,
-ns_facet_backflow_jac_p1); their plain versions; and FacetTerm and
-FacetBlock, which describe a facet block to the element kernels
-(kernels/ns_cell_residual.py), whose launch runs the blocks' bodies.
+outlet viscous traction (ns_facet_viscous_p1, ns_facet_viscous_jac_p1),
+K13 the backflow stabilisation (ns_facet_backflow_p1,
+ns_facet_backflow_jac_p1), K16 the weak pressure (term "weakp"), K17
+the symmetric Nitsche u_T = 0 in the sigma and curl forms ("nitsche",
+"nitsche_curl") and K18 the convective and directional do-nothing
+outlets ("cbc", "ddn"), each through facet_call; their plain versions;
+and FacetTerm and FacetBlock, which describe a facet block to the
+element kernels (kernels/ns_cell_residual.py), whose launch runs the
+blocks' bodies.
 
 The terms are cfdtpu's forms/facet_terms.py natural_correction,
 `p n.v - mu (nabla_grad u)^T n.v`, viscous_traction, `sign (2 mu
-eps(u) n).v`, and backflow, `- beta rho (u_prev.n)_- (u.v)`, as
-StabilizedNSForm maps them over a facet block, at the Crank-Nicolson
-midpoint or (`implicit`, BDF2's) at u. The plain versions are
-torch.func.vmap (and jacfwd) of the port's per-facet kernels in
-forms/facet_terms.py, which serve CPU tensors.
+eps(u) n).v`, backflow, `- beta rho (u_prev.n)_- (u.v)`,
+weak_pressure, `scale pbar (v.n)`, nitsche_tangential and
+nitsche_tangential_curl, `-(2 mu eps(u) n).v_T - (2 mu eps(v) n).u_T +
+(beta mu / h) u_T.v_T` and its curl form, cbc, `- 1/2 (u_prev.n)
+(u.v)`, and directional_do_nothing, `- 1/2 min(u_prev.n, 0) (u.v)`,
+as StabilizedNSForm maps them over a facet block, at the
+Crank-Nicolson midpoint or (`implicit`, BDF2's) at u. The plain
+versions are torch.func.vmap (and jacfwd) of the port's per-facet
+kernels in forms/facet_terms.py, which serve CPU tensors.
 
 The CUDA kernels cover P1 triangles (three velocity and three pressure
 dofs on the cell behind each facet, dim 2). For any other block a CUDA
@@ -22,8 +30,8 @@ tensor raises; there is no fallback.
 A facet block is passed as its tensors: `dofmap_u`, `dofmap_p` (nf, 3)
 int32, `coords` (nf, 3, 2) and `tabs`, the dict of per-facet
 tabulations phi_u (nf, nq, 3), dphi_u (nf, nq, 3, 2), phi_p (nf, nq, 3),
-gdphi (nf, nq, 3, 2), normal (nf, nq, 2), dS (nf, nq) (and h, which no
-ported term reads).
+gdphi (nf, nq, 3, 2), normal (nf, nq, 2), dS (nf, nq) and h (nf,),
+the size of the cell behind each facet (read by Nitsche).
 """
 
 from __future__ import annotations
@@ -36,24 +44,45 @@ from . import COUNTERS
 from ._common import (check_float, check_index, check_same_device, is_f64,
                       on_cuda, require, stream_handle)
 
-TABS = ("phi_u", "dphi_u", "phi_p", "gdphi", "normal", "dS")
-# the terms as csrc/ns_facet.cuh numbers them, and each one's kernel
-TERM_CODE = {"natural": 0, "viscous": 1, "backflow": 2}
-KERNEL = {"natural": "ns_facet_natural", "viscous": "ns_facet_viscous",
-          "backflow": "ns_facet_backflow"}
+TABS = ("phi_u", "dphi_u", "phi_p", "gdphi", "normal", "dS", "h")
+# the terms as csrc/ns_facet.cuh numbers them (each one's kernel is
+# ns_facet_<term>)
+TERM_CODE = {"natural": 0, "viscous": 1, "backflow": 2, "weakp": 3,
+             "nitsche": 4, "nitsche_curl": 5, "cbc": 6, "ddn": 7}
+# the scalars c, c2 of each term's body (csrc/ns_facet.cuh FacetRange)
+# from the prm entries it reads
+_COEFS = {
+    "natural": lambda t, s: (s["mu"], 0.0),
+    "viscous": lambda t, s: (t.sign * s["mu"], 0.0),
+    "backflow": lambda t, s: (-s[t.beta_key] * s["rho"], 0.0),
+    "weakp": lambda t, s: (t.scale * s[t.pressure_key], 0.0),
+    "nitsche": lambda t, s: (s["mu"], s[t.beta_key] * s["mu"]),
+    "nitsche_curl": lambda t, s: (s["mu"], s[t.beta_key] * s["mu"]),
+    "cbc": lambda t, s: (-0.5, 0.0),
+    "ddn": lambda t, s: (-0.5, 0.0),
+}
+# the prm keys each term reads (beta_key and pressure_key by name)
+_READS = {"natural": ("mu",), "viscous": ("mu",),
+          "backflow": ("rho", "beta_key"), "weakp": ("pressure_key",),
+          "nitsche": ("mu", "beta_key"), "nitsche_curl": ("mu", "beta_key"),
+          "cbc": (), "ddn": ()}
 
 
 @dataclass(frozen=True)
 class FacetTerm:
     """A facet term with a CUDA kernel and its options: `term` "natural"
-    (K7), "viscous" (K12) or "backflow" (K13); `implicit`: the term acts
+    (K7), "viscous" (K12), "backflow" (K13), "weakp" (K16), "nitsche" or
+    "nitsche_curl" (K17), "cbc" or "ddn" (K18); `implicit`: the term acts
     on u (BDF2), else on the midpoint (u + u_prev) / 2; `sign` of the
-    viscous traction; `beta_key`, the prm key of backflow's beta."""
+    viscous traction; `beta_key`, the prm key of backflow's or Nitsche's
+    beta; `pressure_key` and `scale` of the weak pressure."""
 
     term: str
     implicit: bool = False
     sign: float = -1.0
     beta_key: str = "beta_backflow"
+    pressure_key: str = ""
+    scale: float = 1.0
 
     def __post_init__(self):
         if self.term not in TERM_CODE:
@@ -62,7 +91,7 @@ class FacetTerm:
     @property
     def kernel(self) -> str:
         """The name of the term's CUDA kernel."""
-        return KERNEL[self.term]
+        return "ns_facet_" + self.term
 
     def counter(self, jacobian: bool, fused: bool = False) -> str:
         """The counter of a launch of this term: alone, or (fused) as a
@@ -71,19 +100,18 @@ class FacetTerm:
         return name + ("_fused" if fused else "")
 
     def scalars(self, prm: dict) -> dict:
-        """The prm entries the term reads."""
-        if self.term == "backflow":
-            return {"rho": float(prm["rho"]),
-                    self.beta_key: float(prm[self.beta_key])}
-        return {"mu": float(prm["mu"])}
+        """The prm entries the term reads, as Python floats: read at
+        every call, so a value that changes between steps (a resistance
+        outlet's p_c) reaches the next launch."""
+        keys = [getattr(self, k) if k.endswith("_key") else k
+                for k in _READS[self.term]]
+        return {k: float(prm[k]) for k in keys}
 
-    def coef(self, scalars: dict) -> float:
-        """The one scalar the CUDA body takes: mu, sign mu or -beta rho."""
-        if self.term == "natural":
-            return scalars["mu"]
-        if self.term == "viscous":
-            return self.sign * scalars["mu"]
-        return -scalars[self.beta_key] * scalars["rho"]
+    def coefs(self, scalars: dict) -> tuple[float, float]:
+        """The two scalars the CUDA body takes (c, c2): mu, sign mu,
+        -beta rho, scale pbar, (mu, beta mu) or -1/2."""
+        c, c2 = _COEFS[self.term](self, scalars)
+        return float(c), float(c2)
 
     def plain_kernel(self):
         """The port's per-facet kernel of this term (forms/facet_terms)."""
@@ -91,11 +119,18 @@ class FacetTerm:
         from ..forms import facet_terms as ft
 
         vel = ft.implicit_velocity if self.implicit else ft.midpoint_velocity
-        if self.term == "natural":
-            return ft.natural_correction(vel=vel)
-        if self.term == "viscous":
-            return ft.viscous_traction(vel=vel, sign=self.sign)
-        return ft.backflow(beta_key=self.beta_key, vel=vel)
+        make = {
+            "natural": lambda: ft.natural_correction(vel=vel),
+            "viscous": lambda: ft.viscous_traction(vel=vel, sign=self.sign),
+            "backflow": lambda: ft.backflow(beta_key=self.beta_key, vel=vel),
+            "weakp": lambda: ft.weak_pressure(self.pressure_key, self.scale),
+            "nitsche": lambda: ft.nitsche_tangential(self.beta_key, vel=vel),
+            "nitsche_curl": lambda: ft.nitsche_tangential_curl(
+                self.beta_key, vel=vel),
+            "cbc": lambda: ft.cbc(vel=vel),
+            "ddn": lambda: ft.directional_do_nothing(vel=vel),
+        }
+        return make[self.term]()
 
 
 @dataclass
@@ -166,7 +201,7 @@ def check_args(name, u, uprev, p, dofmap_u, dofmap_p, coords, tabs):
     nq = tabs["dS"].shape[1]
     shapes = {"phi_u": (nf, nq, 3), "dphi_u": (nf, nq, 3, 2),
               "phi_p": (nf, nq, 3), "gdphi": (nf, nq, 3, 2),
-              "normal": (nf, nq, 2), "dS": (nf, nq)}
+              "normal": (nf, nq, 2), "dS": (nf, nq), "h": (nf,)}
     p1 = (tuple(dofmap_u.shape) == (nf, 3)
           and tuple(dofmap_p.shape) == (nf, 3)
           and tuple(coords.shape) == (nf, 3, 2) and u.dim() == 2
@@ -208,7 +243,7 @@ def facet_call(term: FacetTerm, scalars: dict, jacobian: bool, u, uprev,
             uprev.data_ptr(), p.data_ptr(), dofmap_u.data_ptr(),
             dofmap_p.data_ptr(), coords.data_ptr(),
             *(tabs[k].data_ptr() for k in TABS), nf, nq,
-            float(term.coef(scalars)), int(jacobian), out.data_ptr(),
+            *term.coefs(scalars), int(jacobian), out.data_ptr(),
             is_f64(u), stream_handle(u))
     COUNTERS[name].n += 1
     check(rc, name)

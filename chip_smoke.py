@@ -15,7 +15,8 @@ Run from the root of a checkout. Phases, each raising on failure:
    K7 ns_facet_natural_p1 and ns_facet_natural_jac_p1, K8 amg_prolong,
    K9 krylov_cgs and krylov_lsq, K10 block_jacobi and block_jacobi_inv,
    K11 amg_gcr2; K12, K13, K14 and K7's implicit mode at paths E's and
-   F's shapes, items 9 and 10) is held against its plain PyTorch
+   F's shapes, items 9 and 10; K15-K18 at paths G's, H's and I's,
+   items 11 and 12) is held against its plain PyTorch
    version at each of
    its call sites on the paths below — including K1's cheby mode at the
    SELFP AMG's L0 and BlockAMG's L1 (the first step from w b through
@@ -162,20 +163,45 @@ Run from the root of a checkout. Phases, each raising on failure:
    (timed in float32, checked in float64), its form's device kernels
    (residual 5, Jacobian 1), steps 1-3 (BDF1, then BDF2) and step 4
    under torch.profiler, ending on BDF2's coefficients.
-11. parity: float64 at res_scale 1.0, 2 steps (gmres: 1) through the
+11. paths G and H: pipe_cylinder_pressurebc (the DFG geometry driven
+   by weak pressures, p_inlet 0.15, p_outlet 0) at res_scale 0.3
+   (106,275 DOF), float32, no pressure dof pinned (asserted): G under
+   stabilized_schur_pressurebc (K15 with K16 and K17's curl form at
+   both ends in its launch) with the solver's default inner method,
+   amg_p (under rasamg_sup this form's linear solves stop at ksp_max_it
+   from 38,607 DOF up, in cfdtpu as in the port); H under
+   stabilized_schur_pressure_backflow with R_resistance 1.0 and
+   RASAMG_KW (K3 with five blocks: K16, K17, K16 at 0.5 p_c, K12, K13).
+   Each: its kernel sites (every block's term alone, K15 alone on G,
+   the element kernel with every block beside the launches apart;
+   timed in float32, checked in float64 too), its form's device kernels
+   (one element launch a residual and a Jacobian build), PATH_GH_STEPS
+   steps from rest and one under torch.profiler (Newton/KSP a step and,
+   on H, p_c a step), every residual and Jacobian build of the steps
+   one element launch with the blocks in it (asserted).
+12. path I: stabilized_schur_vascularbc_cbc and _ddn (K18 in K15's
+   launch) on DFG 2D-1 at res_scale 0.3 (106,275 DOF), float32, amg_p
+   (under rasamg_sup this form's linear solves stop at ksp_max_it there,
+   as on path G): their kernel sites, then PATH_I_STEPS steps each from
+   rest.
+13. parity: float64 at res_scale 1.0, 2 steps (gmres: 1) through the
    kernels on the card and as many through the plain versions (which
    the wrappers take only for CPU tensors, so that run is on the host),
    for rasamg_sup, amg_p, path C's configuration and gmres, with the
-   four CLI runs (13) going meanwhile: equal Newton and KSP counts
+   four CLI runs (15) going meanwhile: equal Newton and KSP counts
    per step, and equal to PARITY_COUNTS (the counts every earlier tree
    gave; path C's and gmres's from cfdtpu on the CPU), u, p, c_D, c_L
-   and dp within 1e-9 relative; and path E's solver at res 0.02 (2,058
+   and dp within 1e-9 relative; path E's solver at res 0.02 (2,058
    DOF), 2 steps, card against host: counts equal to cfdtpu's
-   (PARITY_E_COUNTS), u, p and every step's c_D and c_L within 1e-9.
-12. path B: `python -m cfdtpu_torch.scripts.gather_micro --device cuda`
+   (PARITY_E_COUNTS), u, p and every step's c_D and c_L within 1e-9;
+   and paths G's and H's solvers at res_scale 2.0 (2,520 DOF) under
+   RASAMG_KW, and G's under amg_p (path G's SLICE_KW), 2 steps, card
+   against host: counts equal to cfdtpu's (PARITY_GH_COUNTS), u, p and
+   each step's p_c within 1e-9.
+14. path B: `python -m cfdtpu_torch.scripts.gather_micro --device cuda`
    exits 0 with every K5 result within 1e-5 relative of its plain
    version; it launches K5.
-13. CLI, four processes started together before the parity runs and
+15. CLI, four processes started together before the parity runs and
    waited for after them: `python -m cfdtpu_torch simulate ... --device
    cuda` exits 0 and
    writes simulation_params.txt, norms.txt and v.pvd, with the default
@@ -185,7 +211,7 @@ Run from the root of a checkout. Phases, each raising on failure:
    which must print its `DFG Metrics:` line every step.
 
 The second-to-last line is {"kernels": [...]} (per kernel at its
-headline site: launches on its path (A-F), max_abs_err, the cold ms,
+headline site: launches on its path (A-I), max_abs_err, the cold ms,
 plain_ms and library_ms, bound_ms and bound_by, the warm ms, the
 device time alone, and its calls and device ms in the profiled window;
 a folded kernel's launches are its own, 0 on its path, and
@@ -289,6 +315,60 @@ PATH_F_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
                   "ns_cell_jacobian_bdf2_p1", "ns_cell_jacobian_bdf2_p1_facet",
                   "ns_facet_natural_p1_fused",
                   "ns_facet_natural_jac_p1_fused", *PC_KERNELS)
+# path G: pipe_cylinder_pressurebc (the DFG geometry driven by weak
+# pressures) under stabilized_schur_pressurebc (the curl-curl form, K15,
+# with four blocks in its launch: K16 at the inlet and the outlet, K17's
+# curl form at both), at res_scale 0.3 (106,275 DOF), float32, p_inlet
+# 0.15, p_outlet 0, with the solver's default inner method (amg_p,
+# SLICE_KW): under rasamg_sup every linear solve of this form stops at
+# ksp_max_it from 38,607 DOF up (res_scale 0.5; at 26,940 it converges),
+# in cfdtpu on the CPU as in the port (PERF.md, section 6); path H: the same
+# scenario under stabilized_schur_pressure_backflow (R_resistance 1.0:
+# K3 with five blocks, K16 and K17's sigma form at the inlet, K16 at 0.5
+# p_c, K12 and K13 at the outlet; p_c from the outlet flux of u_prev
+# after each step), float32, RASAMG_KW. Each: steps from rest, then
+# steps under torch.profiler.
+PIPE_KW = dict(p_inlet=0.15, p_outlet=0.0)
+PATH_GH = {"G": ("stabilized_schur_pressurebc", SLICE_KW),
+           "H": ("stabilized_schur_pressure_backflow",
+                 dict(RASAMG_KW, R_resistance=1.0))}
+PATH_GH_STEPS = 3
+PATH_GH_PROFILE = 1
+CURL_KERNELS = ("ns_cell_residual_curl_p1", "ns_cell_residual_curl_p1_facet",
+                "ns_cell_jacobian_curl_p1", "ns_cell_jacobian_curl_p1_facet")
+PATH_GH_KERNELS = {
+    "G": ("sup_spmv", "ell_sum", "selfp_triple", *CURL_KERNELS, *PC_KERNELS,
+          "block_jacobi", "block_jacobi_inv", "ns_facet_weakp_p1_fused",
+          "ns_facet_weakp_jac_p1_fused",
+          "ns_facet_nitsche_curl_p1_fused",
+          "ns_facet_nitsche_curl_jac_p1_fused"),
+    "H": ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
+          *ELEMENT_KERNELS, *PC_KERNELS, "ns_facet_weakp_p1_fused",
+          "ns_facet_weakp_jac_p1_fused", "ns_facet_nitsche_p1_fused",
+          "ns_facet_nitsche_jac_p1_fused", "ns_facet_viscous_p1_fused",
+          "ns_facet_backflow_p1_fused")}
+# G's and H's solvers in float64 on the card against the host's plain
+# versions at res_scale 2.0 (2,520 DOF), 2 steps: both under RASAMG_KW,
+# and G under path G's SLICE_KW too; cfdtpu's counts on the CPU
+PARITY_GH = {"G": ("stabilized_schur_pressurebc", RASAMG_KW),
+             "G amg_p": ("stabilized_schur_pressurebc", SLICE_KW),
+             "H": PATH_GH["H"]}
+PARITY_GH_RES = 2.0
+PARITY_GH_STEPS = 2
+PARITY_GH_COUNTS = {"G": [(2, 10), (3, 14)], "G amg_p": [(2, 9), (3, 12)],
+                    "H": [(3, 15), (3, 13)]}
+# path I: the convective and the directional do-nothing outlets (K18, in
+# K15's launch) under stabilized_schur_vascularbc_cbc and _ddn on the
+# DFG 2D-1 channel (its parabolic inlet, v_max 0.3) at path A's width,
+# res_scale 0.3 (106,275 DOF, 43 outlet facets), float32, steps from
+# rest under amg_p (SLICE_KW, the solvers' default: under rasamg_sup
+# every linear solve of the curl-curl form stops at ksp_max_it at this
+# width, as on path G)
+PATH_I = {"cbc": "stabilized_schur_vascularbc_cbc",
+          "ddn": "stabilized_schur_vascularbc_ddn"}
+PATH_I_RES = 0.3
+PATH_I_STEPS = 2
+PATH_I_KERNELS = ("ell_sum", *CURL_KERNELS)
 # K7's implicit mode (a flag of K7's launch) in the kernels line: its
 # launches are K7's on path F, where every natural correction is at u,
 # and it is folded into K14's launch: (counter, folded into)
@@ -307,7 +387,17 @@ FOLDED = {"amg_prolong": "sup_spmv_prolong",
           "ns_facet_viscous_p1": "ns_cell_residual_p1_facet",
           "ns_facet_viscous_jac_p1": "ns_cell_jacobian_p1_facet",
           "ns_facet_backflow_p1": "ns_cell_residual_p1_facet",
-          "ns_facet_backflow_jac_p1": "ns_cell_jacobian_p1_facet"}
+          "ns_facet_backflow_jac_p1": "ns_cell_jacobian_p1_facet",
+          "ns_facet_weakp_p1": "ns_cell_residual_curl_p1_facet",
+          "ns_facet_weakp_jac_p1": "ns_cell_jacobian_curl_p1_facet",
+          "ns_facet_nitsche_curl_p1": "ns_cell_residual_curl_p1_facet",
+          "ns_facet_nitsche_curl_jac_p1": "ns_cell_jacobian_curl_p1_facet",
+          "ns_facet_nitsche_p1": "ns_cell_residual_p1_facet",
+          "ns_facet_nitsche_jac_p1": "ns_cell_jacobian_p1_facet",
+          "ns_facet_cbc_p1": "ns_cell_residual_curl_p1_facet",
+          "ns_facet_cbc_jac_p1": "ns_cell_jacobian_curl_p1_facet",
+          "ns_facet_ddn_p1": "ns_cell_residual_curl_p1_facet",
+          "ns_facet_ddn_jac_p1": "ns_cell_jacobian_curl_p1_facet"}
 # one preconditioner application on paths A and amg_p: the port's kernel
 # launches (the wrappers' counts) and the device kernels in all (PR 7's
 # 177 and 169 less the 31 and 20 K8 launches folded into K1 in PR 8;
@@ -331,8 +421,11 @@ SUBSET_COUNTERS = ("sup_spmv_prolong", "sup_spmv_cheby", "krylov_cgs_scaled",
                    "ns_cell_residual_p1_facet", "ns_cell_jacobian_p1_facet",
                    "ns_cell_residual_bdf2_p1_facet",
                    "ns_cell_jacobian_bdf2_p1_facet",
+                   "ns_cell_residual_curl_p1_facet",
+                   "ns_cell_jacobian_curl_p1_facet",
                    *(f"ns_facet_{t}{j}_p1_fused"
-                     for t in ("natural", "viscous", "backflow")
+                     for t in ("natural", "viscous", "backflow", "weakp",
+                               "nitsche", "nitsche_curl", "cbc", "ddn")
                      for j in ("", "_jac")))
 # path D: steps per method from rest, then steps under torch.profiler
 # (step 5, the one profiled, runs 3 Newton iterations where step 4 runs
@@ -397,34 +490,78 @@ SOURCES = {
                  "K11 second BlockAMG L1", "C"),
     "ns_facet_viscous_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
                             "cfdtpu/forms/facet_terms.py:110",
-                            "K12 viscous residual", "E"),
+                            "K12 viscous residual viscous_out (E)", "E"),
     "ns_facet_viscous_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
                                 "cfdtpu/forms/navier_stokes.py:369",
-                                "K12 viscous jacobian", "E"),
+                                "K12 viscous jacobian viscous_out (E)", "E"),
     "ns_facet_backflow_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
                              "cfdtpu/forms/facet_terms.py:169",
-                             "K13 backflow residual", "E"),
-    "ns_facet_backflow_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
-                                 "cfdtpu/forms/navier_stokes.py:369",
-                                 "K13 backflow jacobian", "E"),
+                             "K13 backflow residual backflow_out (E)", "E"),
+    "ns_facet_backflow_jac_p1": (
+        "cfdtpu_torch/csrc/ns_facet.cu", "cfdtpu/forms/navier_stokes.py:369",
+        "K13 backflow jacobian backflow_out (E)", "E"),
     "ns_cell_residual_bdf2_p1": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
                                  "cfdtpu/forms/navier_stokes.py:611",
                                  "K14 cell residual", "F"),
     "ns_cell_jacobian_bdf2_p1": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
                                  "cfdtpu/forms/navier_stokes.py:384",
                                  "K14 cell jacobian", "F"),
-    "ns_facet_natural_implicit_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
-                                     "cfdtpu/forms/facet_terms.py:52",
-                                     "K7 implicit facet residual", "F"),
+    "ns_facet_natural_implicit_p1": (
+        "cfdtpu_torch/csrc/ns_facet.cu", "cfdtpu/forms/facet_terms.py:52",
+        "K7 implicit facet residual natural_correction (F)", "F"),
     "ns_facet_natural_implicit_jac_p1": (
         "cfdtpu_torch/csrc/ns_facet.cu", "cfdtpu/forms/navier_stokes.py:369",
-        "K7 implicit facet jacobian", "F"),
+        "K7 implicit facet jacobian natural_correction (F)", "F"),
     "ns_cell_residual_bdf2_p1_facet": (
         "cfdtpu_torch/csrc/ns_cell_residual.cu",
         "cfdtpu/forms/navier_stokes.py:611", "K14+K7i residual", "F"),
     "ns_cell_jacobian_bdf2_p1_facet": (
         "cfdtpu_torch/csrc/ns_cell_residual.cu",
         "cfdtpu/forms/navier_stokes.py:384", "K14+K7i jacobian", "F"),
+    "ns_cell_residual_curl_p1": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
+                                 "cfdtpu/forms/navier_stokes.py:695",
+                                 "K15 cell residual", "G"),
+    "ns_cell_jacobian_curl_p1": ("cfdtpu_torch/csrc/ns_cell_residual.cu",
+                                 "cfdtpu/forms/navier_stokes.py:384",
+                                 "K15 cell jacobian", "G"),
+    "ns_cell_residual_curl_p1_facet": (
+        "cfdtpu_torch/csrc/ns_cell_residual.cu",
+        "cfdtpu/forms/navier_stokes.py:695", "K15+K16+K17c residual", "G"),
+    "ns_cell_jacobian_curl_p1_facet": (
+        "cfdtpu_torch/csrc/ns_cell_residual.cu",
+        "cfdtpu/forms/navier_stokes.py:384", "K15+K16+K17c jacobian", "G"),
+    "ns_facet_weakp_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                          "cfdtpu/forms/facet_terms.py:97",
+                          "K16 weak pressure residual weak_pressure_in (G)",
+                          "G"),
+    "ns_facet_weakp_jac_p1": (
+        "cfdtpu_torch/csrc/ns_facet.cu", "cfdtpu/forms/navier_stokes.py:369",
+        "K16 weak pressure jacobian weak_pressure_in (G)", "G"),
+    "ns_facet_nitsche_curl_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                                 "cfdtpu/forms/facet_terms.py:229",
+                                 "K17c nitsche curl residual nitsche_in (G)",
+                                 "G"),
+    "ns_facet_nitsche_curl_jac_p1": (
+        "cfdtpu_torch/csrc/ns_facet.cu", "cfdtpu/forms/navier_stokes.py:369",
+        "K17c nitsche curl jacobian nitsche_in (G)", "G"),
+    "ns_facet_nitsche_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                            "cfdtpu/forms/facet_terms.py:126",
+                            "K17 nitsche residual nitsche_in (H)", "H"),
+    "ns_facet_nitsche_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                                "cfdtpu/forms/navier_stokes.py:369",
+                                "K17 nitsche jacobian nitsche_in (H)", "H"),
+    "ns_facet_cbc_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                        "cfdtpu/forms/facet_terms.py:191",
+                        "K18 cbc residual cbc_out (I)", "I"),
+    "ns_facet_cbc_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                            "cfdtpu/forms/navier_stokes.py:369",
+                            "K18 cbc jacobian cbc_out (I)", "I"),
+    "ns_facet_ddn_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                        "cfdtpu/forms/facet_terms.py:208",
+                        "K18 ddn residual ddn_out (I)", "I"),
+    "ns_facet_ddn_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
+                            "cfdtpu/forms/navier_stokes.py:369",
+                            "K18 ddn jacobian ddn_out (I)", "I"),
 }
 PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
          "B": "python -m cfdtpu_torch.scripts.gather_micro",
@@ -435,7 +572,13 @@ PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
          "E": "dfg_2d_1 on DFG2D1Steady (Scenario.solve, 121,515 DOF, "
               "float64)",
          "F": "stabilized_schur_bdf2 on DFG 2D-1 (Scenario.solve, 106,275 "
-              "DOF)"}
+              "DOF)",
+         "G": "stabilized_schur_pressurebc on pipe_cylinder_pressurebc "
+              "(Scenario.solve, 106,275 DOF)",
+         "H": "stabilized_schur_pressure_backflow on "
+              "pipe_cylinder_pressurebc (Scenario.solve, 106,275 DOF)",
+         "I": "stabilized_schur_vascularbc_cbc and _ddn on DFG 2D-1 "
+              "(Scenario.solve, 106,275 DOF, amg_p)"}
 
 
 def log(*a):
@@ -1215,6 +1358,25 @@ K12_OPS = (12, 93)
 K12_JAC_OPS = (12, 137)
 K13_OPS = (12, 45)
 K13_JAC_OPS = (12, 70)
+# K15 (csrc/ns_cell_residual.cu's header): K3's counts with the curl
+# body's differences, the residual's outside the loop and a point; its
+# Jacobian's tangent work as K3's less the stress's 8 and plus omega's
+# 3 outside the loop, less the convection's 4 and plus |u_mid|^2's 6 a
+# point. K16-K18 (csrc/ns_facet.cu's header): per facet and per point;
+# the Jacobians per column, every operation after the geometry (46) on
+# a value and its one tangent; K16's Jacobian is zero and needs none.
+K15_OPS = (156, 118)
+K15_JAC_TANGENT_OPS = (112, 150)
+K16_OPS = (12, 17)
+K16_JAC_OPS = (0, 0)
+K17_OPS = (14, 170)
+K17_JAC_OPS = (14, 294)
+K17C_OPS = (14, 136)
+K17C_JAC_OPS = (14, 226)
+K18_CBC_OPS = (12, 42)
+K18_CBC_JAC_OPS = (12, 67)
+K18_DDN_OPS = K13_OPS
+K18_DDN_JAC_OPS = K13_JAC_OPS
 
 
 def nbytes(*ts):
@@ -1270,6 +1432,15 @@ FACET_READS = {
                 ("dofmap_u", "coords"), (4, 2), ("coords",), 0),
     "backflow": (("phi_u", "normal", "dS"), ("dofmap_u",), (4, 4),
                  ("dofmap_u",), 2),
+    "weakp": (("phi_u", "normal", "dS"), (), (0, 0), (), 0),
+    "nitsche": (("phi_u", "dphi_u", "gdphi", "normal", "dS", "h"),
+                ("dofmap_u", "coords"), (4, 2), ("coords",), 0),
+    "nitsche_curl": (("phi_u", "dphi_u", "gdphi", "normal", "dS", "h"),
+                     ("dofmap_u", "coords"), (4, 2), ("coords",), 0),
+    "cbc": (("phi_u", "normal", "dS"), ("dofmap_u",), (4, 4), ("dofmap_u",),
+            2),
+    "ddn": (("phi_u", "normal", "dS"), ("dofmap_u",), (4, 4), ("dofmap_u",),
+            2),
 }
 
 
@@ -1329,13 +1500,30 @@ def backflow_state(torch, np, s, seed, dtype):
     return tuple(t.to(dtype).contiguous() for t in out)
 
 
-def variant_sites(torch, np, s, dtype):
-    """The sites of this slice's kernels at the solver's shapes, in
-    `dtype`: with the dfg_2d_1 solver (path E) K12 and K13 alone on the
-    outlet and K3 with both blocks in its launch; with the BDF2 solver
-    (path F) K14 alone, K7's implicit mode alone and K14 with it in its
-    launch; each fused site beside the launches it replaces. The state
-    has backflow on part of the outlet (backflow_state)."""
+# each facet term's label in the kernel phase, and its operations
+# (residual, Jacobian) per facet and per point
+TERM_SITE = {"viscous": ("K12 viscous", K12_OPS, K12_JAC_OPS),
+             "backflow": ("K13 backflow", K13_OPS, K13_JAC_OPS),
+             "natural": ("K7 implicit facet", K7_OPS, K7_JAC_OPS),
+             "weakp": ("K16 weak pressure", K16_OPS, K16_JAC_OPS),
+             "nitsche": ("K17 nitsche", K17_OPS, K17_JAC_OPS),
+             "nitsche_curl": ("K17c nitsche curl", K17C_OPS, K17C_JAC_OPS),
+             "cbc": ("K18 cbc", K18_CBC_OPS, K18_CBC_JAC_OPS),
+             "ddn": ("K18 ddn", K18_DDN_OPS, K18_DDN_JAC_OPS)}
+
+
+def variant_sites(torch, np, s, dtype, tag):
+    """The sites of the solver variants' kernels at the solver's shapes,
+    in `dtype`: each facet block's term alone (residual and Jacobian;
+    a term on two blocks, at each) and the element kernel with every
+    block in its launch beside the launches it replaces. `tag`: E (the
+    dfg_2d_1 solver: K12, K13, K3 with both), F (BDF2: K7's implicit
+    mode, K14 alone and with it), G (stabilized_schur_pressurebc: K16 and
+    K17's curl form on the inlet and the outlet, K15 alone and with the
+    four), H (stabilized_schur_pressure_backflow: K16, K17, K12 and K13,
+    K3 with the five), I (vascularbc_cbc or _ddn: K18, K15 with it). The
+    state has reverse flow on part of the outlet (backflow_state)."""
+    from cfdtpu_torch.forms import StabilizedNSFormCurlCurl
     from cfdtpu_torch.kernels import ns_cell_residual as k3
     from cfdtpu_torch.kernels.ns_facet import (FacetBlock, facet_call,
                                                facet_jac_plain, facet_plain)
@@ -1349,6 +1537,7 @@ def variant_sites(torch, np, s, dtype):
 
     f, prm = s.form, s.params()
     bdf2 = f.N_AUX == 2
+    curl = isinstance(f, StabilizedNSFormCurlCurl)
     if bdf2:
         s._bdf = (1.5, -2.0, 0.5)
         prm = s.params()
@@ -1359,23 +1548,18 @@ def variant_sites(torch, np, s, dtype):
     eps = float(np.finfo(str(dtype)[6:]).resolution)
     cell = (f.dofmap_u, f.dofmap_p, cast(f.cell_coords), cast(f.cell_h),
             tabs, prm["rho"], prm["mu"], prm["dt"], prm["f"], eps)
+    names = [b["name"] for b in f._facet_blocks]
     blocks = [FacetBlock(b["term"], b["dofmap_u32"], b["dofmap_p32"],
                          cast(b["coords"]),
                          {k: cast(v) for k, v in b["tabs"].items()},
                          b["term"].scalars(prm)) for b in f._facet_blocks]
-    tag = "E" if not bdf2 else "F"
-    nf, nqf = blocks[0].tabs["dS"].shape
-    facet_ops = {"viscous": (K12_OPS, K12_JAC_OPS),
-                 "backflow": (K13_OPS, K13_JAC_OPS),
-                 "natural": (K7_OPS, K7_JAC_OPS)}
     alone, f_bytes, f_flops, shared = [], [0, 0], [0, 0], [0, 0]
-    for b in blocks:
+    for name, b in zip(names, blocks):
         fargs = (u, up, p, *b.args())
         term = b.term
-        ops, jops = facet_ops[term.term]
+        nf, nqf = b.tabs["dS"].shape
+        label, ops, jops = TERM_SITE[term.term]
         kname = term.counter(False)
-        label = {"viscous": "K12 viscous", "backflow": "K13 backflow",
-                 "natural": "K7 implicit facet"}[term.term]
         if term.implicit and term.term == "natural":
             kname = K7_IMPLICIT
         (nb_r, g_r), (nb_j, g_j) = (
@@ -1386,7 +1570,8 @@ def variant_sites(torch, np, s, dtype):
         for jac, nm, nb_, fl_ in ((False, kname, nb_r, fl_r),
                                   (True, kname.replace("_p1", "_jac_p1"),
                                    nb_j, fl_j)):
-            add(nm, f"{label} {'jacobian' if jac else 'residual'}",
+            add(nm, f"{label} {'jacobian' if jac else 'residual'} {name} "
+                f"({tag})",
                 lambda jac=jac, b=b, fa=fargs: facet_call(
                     b.term, b.scalars, jac, *fa),
                 lambda jac=jac, b=b, fa=fargs: (
@@ -1396,36 +1581,54 @@ def variant_sites(torch, np, s, dtype):
         f_bytes = [f_bytes[0] + nb_r, f_bytes[1] + nb_j]
         f_flops = [f_flops[0] + fl_r, f_flops[1] + fl_j]
         shared = [shared[0] + g_r, shared[1] + g_j]
+    ops, jops = ((K15_OPS, K15_JAC_TANGENT_OPS) if curl
+                 else (K3_OPS, K3_JAC_TANGENT_OPS))
     if bdf2:
         args = (u, up, up2, p, *cell, (prm["bdf_a0"], prm["bdf_a1"],
                                        prm["bdf_a2"]))
         res, jac = k3.ns_cell_residual_bdf2_p1, k3.ns_cell_jacobian_bdf2_p1
         res_plain = k3.ns_cell_residual_bdf2_plain
         jac_plain = k3.ns_cell_jacobian_bdf2_plain
-        ru_e, rp_e = res(*args)
         cells = (u, up, p, *cell[:5])
+        ru_e, rp_e = res(*args)
         nb_res = k3_bytes(cells, (ru_e, rp_e)) + nbytes(up2)
         nb_jac = (k3_bytes(cells, ()) + nbytes(up2)
                   + ru_e.shape[0] * 81 * u.element_size())
-        add("ns_cell_residual_bdf2_p1", "K14 cell residual",
-            lambda: res(*args), lambda: res_plain(*args), nb_res,
-            k3_ops(f, K3_OPS))
-        add("ns_cell_jacobian_bdf2_p1", "K14 cell jacobian",
-            lambda: jac(*args), lambda: jac_plain(*args), nb_jac,
-            k3_ops(f, K3_OPS) + 3 * k3_ops(f, K3_JAC_TANGENT_OPS))
+        cell_sites = ("ns_cell_residual_bdf2_p1", "ns_cell_jacobian_bdf2_p1",
+                      "K14")
         fused = ("ns_cell_residual_bdf2_p1_facet",
                  "ns_cell_jacobian_bdf2_p1_facet", "K14+K7i")
     else:
         args = (u, up, p, *cell)
-        res, jac = k3.ns_cell_residual_p1, k3.ns_cell_jacobian_p1
-        res_plain, jac_plain = (k3.ns_cell_residual_plain,
-                                k3.ns_cell_jacobian_plain)
+        if curl:
+            res, jac = k3.ns_cell_residual_curl_p1, k3.ns_cell_jacobian_curl_p1
+            res_plain = k3.ns_cell_residual_curl_plain
+            jac_plain = k3.ns_cell_jacobian_curl_plain
+            key = "curl_p1"
+        else:
+            res, jac = k3.ns_cell_residual_p1, k3.ns_cell_jacobian_p1
+            res_plain = k3.ns_cell_residual_plain
+            jac_plain = k3.ns_cell_jacobian_plain
+            key = "p1"
         ru_e, rp_e = res(*args)
         nb_res = k3_bytes(args[:8], (ru_e, rp_e))
         nb_jac = (k3_bytes(args[:8], ())
                   + ru_e.shape[0] * 81 * u.element_size())
-        fused = ("ns_cell_residual_p1_facet", "ns_cell_jacobian_p1_facet",
-                 "K3+K12+K13")
+        cell_sites = (f"ns_cell_residual_{key}", f"ns_cell_jacobian_{key}",
+                      "K15")
+        fused = (f"ns_cell_residual_{key}_facet",
+                 f"ns_cell_jacobian_{key}_facet",
+                 {"E": "K3+K12+K13", "G": "K15+K16+K17c",
+                  "H": "K3+K16+K17+K12+K13"}.get(
+                      tag, f"K15+{TERM_SITE[blocks[0].term.term][0]}"))
+    if bdf2 or tag == "G":
+        # the cell body alone (K14, K15; K3's is path A's site)
+        add(cell_sites[0], f"{cell_sites[2]} cell residual",
+            lambda: res(*args), lambda: res_plain(*args), nb_res,
+            k3_ops(f, ops))
+        add(cell_sites[1], f"{cell_sites[2]} cell jacobian",
+            lambda: jac(*args), lambda: jac_plain(*args), nb_jac,
+            k3_ops(f, ops) + 3 * k3_ops(f, jops))
 
     def apart(jacobian):
         cells_out = (jac if jacobian else res)(*args)
@@ -1444,27 +1647,30 @@ def variant_sites(torch, np, s, dtype):
 
     add(fused[0], f"{fused[2]} residual",
         lambda: res(*args, facets=blocks), lambda: plain(False),
-        nb_res + f_bytes[0] - shared[0], k3_ops(f, K3_OPS) + f_flops[0],
+        nb_res + f_bytes[0] - shared[0], k3_ops(f, ops) + f_flops[0],
         pair=lambda: apart(False))
     add(fused[1], f"{fused[2]} jacobian",
         lambda: jac(*args, facets=blocks), lambda: plain(True),
         nb_jac + f_bytes[1] - shared[1],
-        k3_ops(f, K3_OPS) + 3 * k3_ops(f, K3_JAC_TANGENT_OPS) + f_flops[1],
+        k3_ops(f, ops) + 3 * k3_ops(f, jops) + f_flops[1],
         pair=lambda: apart(True))
-    log(f"[kernels {tag}] {dtype}: {len(blocks)} facet blocks of {nf} "
-        f"facets, {nqf} points a facet")
-    if not bdf2:
-        # the outlet facets under backflow at this state: K13 compares
-        # no zeros
-        tb = blocks[-1].tabs
-        upq = torch.einsum("fqb,fbi->fqi", tb["phi_u"],
-                           up[blocks[-1].dofmap_u.long()])
-        n_back = int((torch.einsum("fqi,fqi->fq", upq, tb["normal"]) < 0)
-                     .any(dim=1).sum())
-        log(f"[kernels E] {n_back} of the {nf} outlet facets under "
+    log(f"[kernels {tag}] {dtype}: {len(blocks)} facet blocks "
+        f"{[(n, b.term.term, b.tabs['dS'].shape[0])
+            for n, b in zip(names, blocks)]}, "
+        f"{blocks[0].tabs['dS'].shape[1]} points a facet")
+    if tag in ("E", "H", "I"):
+        # the outlet facets under reverse flow at this state: K13 and
+        # K18 compare no zeros
+        ob = blocks[-1]
+        upq = torch.einsum("fqb,fbi->fqi", ob.tabs["phi_u"],
+                           up[ob.dofmap_u.long()])
+        n_back = int((torch.einsum("fqi,fqi->fq", upq, ob.tabs["normal"])
+                      < 0).any(dim=1).sum())
+        nf = ob.tabs["dS"].shape[0]
+        log(f"[kernels {tag}] {n_back} of the {nf} outlet facets under "
             f"backflow (u_prev.n < 0 at a point)")
-        require(0 < n_back < nf, "no facet under backflow: K13 would "
-                                 "compare zeros")
+        require(0 < n_back < nf, "no facet under backflow: K13 and K18 "
+                                 "would compare zeros")
     return sites
 
 
@@ -1766,7 +1972,8 @@ def phase_one_launch_form(torch, np, sc, tag):
     u, up, up2, p = backflow_state(torch, np, s, 23, s.dtype)
     aux = (up, up2)[:f.N_AUX]
     prm = s.params()
-    key = "bdf2_p1" if f.N_AUX == 2 else "p1"
+    key = {"StabilizedNSFormBDF2": "bdf2_p1",
+           "StabilizedNSFormCurlCurl": "curl_p1"}.get(type(f).__name__, "p1")
     nblk = len(f._facet_blocks)
     want_res = {f"ns_cell_residual_{key}": 1,
                 f"ns_cell_residual_{key}_facet": 1, "ell_sum": 2 + nblk}
@@ -2123,7 +2330,8 @@ def run_steps(sc, out_dir, steps, on_step=None):
         st = s.step_stats
         rec.append((st["newton_iters"], st["ksp_iters"], st["ksp_max"],
                     now - last[0], st["converged"],
-                    getattr(s, "cd", None), getattr(s, "cl", None)))
+                    getattr(s, "cd", None), getattr(s, "cl", None),
+                    getattr(s, "p_c", None)))
         if on_step is not None:
             on_step(len(rec))
         last[0] = time.perf_counter()
@@ -2239,8 +2447,9 @@ def phase_slice(torch, np, sc, out_dir, tag, steps, required,
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     ndof = s.V.num_global_dofs + s.Q.num_global_dofs
-    for i, (n, k, kmax, w, _, cd, cl) in enumerate(rec, 1):
+    for i, (n, k, kmax, w, _, cd, cl, p_c) in enumerate(rec, 1):
         forces = "" if cd is None else f" c_D {cd:.10f} c_L {cl:.10f}"
+        forces += "" if p_c is None else f" p_c after the step {p_c!r}"
         log(f"[{tag}] step {i}: newton {n} ksp {k} (max per solve {kmax}) "
             f"wall {w:.4f} s{forces}")
     win = rec[max(steps - 4, 0):steps]
@@ -2326,7 +2535,14 @@ def functionals(sc):
     DFG1Benchmark; the traction c_D and c_L that the dfg_2d_1 solver
     keeps of its last step."""
     if not hasattr(sc, "compute_drag_lift"):
-        return {"c_D": sc.solver.cd, "c_L": sc.solver.cl}
+        s = sc.solver
+        if hasattr(s, "cd"):
+            return {"c_D": s.cd, "c_L": s.cl}
+        # pipe_cylinder_pressurebc: the outlet flux of u_sol and, under a
+        # resistance outlet, p_c
+        q = float(s.form.facet_flux(s.u_sol, s.form._facet_blocks[-1]
+                                    ["name"]))
+        return {"outlet_flux": q, "p_c": getattr(s, "p_c", None)}
     fd, fl = sc.compute_drag_lift()
     fdr, flr = sc.compute_drag_lift(method="reaction")
     return {"c_D": 500 * fd, "c_L": 500 * fl, "c_D_reaction": 500 * fdr,
@@ -2413,6 +2629,55 @@ def phase_parity_e(torch, np, tmp):
         f"relative differences {relf.tolist()}")
     require((relf <= 1e-9).all(), f"path E parity: c_D, c_L differ {relf}")
     out["c_D_c_L"] = relf.tolist()
+    return out
+
+
+def phase_parity_gh(torch, np, tmp):
+    """PARITY_GH in float64 on the card against the host's plain
+    versions at PARITY_GH_RES: equal Newton and KSP counts per step
+    (cfdtpu's, PARITY_GH_COUNTS), u, p and each step's p_c within 1e-9
+    relative."""
+    from cfdtpu_torch.scenarios.pipe_cylinder_pressurebc import (
+        PipeCylinderPressureBC)
+
+    out = {}
+    for tag, (solver, kw) in PARITY_GH.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            sc = PipeCylinderPressureBC(
+                solver, dt=DT, T=1.0, res_scale=PARITY_GH_RES,
+                dtype="float64", device=dev, stats_every=1,
+                output_every=100, **PIPE_KW, **kw)
+            t0 = time.perf_counter()
+            rec = run_steps(sc, os.path.join(
+                tmp, f"parity_{tag.replace(' ', '_')}_{dev}"),
+                            PARITY_GH_STEPS)
+            s = sc.solver
+            res[dev] = {"counts": [(r[0], r[1]) for r in rec],
+                        "u": s.u_sol.cpu().numpy(),
+                        "p": s.p_sol.cpu().numpy(),
+                        "p_c": np.array([r[7] or 0.0 for r in rec])}
+            log(f"[parity {tag}] {dev}: counts {res[dev]['counts']} p_c "
+                f"{res[dev]['p_c'].tolist()} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        a, b = res["cuda"], res["cpu"]
+        require(a["counts"] == b["counts"] == PARITY_GH_COUNTS[tag],
+                f"path {tag} parity: counts {a['counts']} (card), "
+                f"{b['counts']} (host), cfdtpu's {PARITY_GH_COUNTS[tag]}")
+        o = {"counts": a["counts"], "p_c_cuda": a["p_c"].tolist(),
+             "p_c_cpu": b["p_c"].tolist()}
+        for key in ("u", "p"):
+            rel = np.linalg.norm(a[key] - b[key]) / np.linalg.norm(b[key])
+            log(f"[parity {tag}] {key} relative difference {rel:.3e}")
+            require(rel <= 1e-9, f"path {tag} parity: {key} differs by "
+                                 f"{rel:.3e}")
+            o[key] = rel
+        dp = float(np.abs(a["p_c"] - b["p_c"]).max())
+        scale = float(np.abs(b["p_c"]).max())
+        require(dp <= 1e-9 * max(scale, 1e-300) or scale == 0 == dp,
+                f"path {tag} parity: p_c differs by {dp:.3e}")
+        o["p_c"] = dp
+        out[tag] = o
     return out
 
 
@@ -2523,6 +2788,8 @@ def phase_parity_and_cli(torch, np, tmp, lap):
             lap(f"parity {tag}")
         parity["path_e"] = phase_parity_e(torch, np, tmp)
         lap("parity path E")
+        parity["paths_gh"] = phase_parity_gh(torch, np, tmp)
+        lap("parity paths G and H")
         for run in clis:
             finish_cli(run)
         lap("CLI (the wait after the parity runs)")
@@ -2653,10 +2920,10 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f} s")
         rows_e, plains_e = phase_kernels(
             torch, np, sc_e, 1e-12, timed=True,
-            sites=variant_sites(torch, np, sc_e.solver, torch.float64))
+            sites=variant_sites(torch, np, sc_e.solver, torch.float64, "E"))
         phase_kernels(torch, np, sc_e, 1e-5, timed=False,
                       sites=variant_sites(torch, np, sc_e.solver,
-                                          torch.float32))
+                                          torch.float32, "E"))
         one_launch["path E"] = phase_one_launch_form(torch, np, sc_e, "E")
         phase_plain_times(rows_e, plains_e)
         rows.update(rows_e)
@@ -2675,10 +2942,10 @@ def main(argv=None):
             f"on cuda: {time.perf_counter() - t0:.1f} s")
         rows_f, plains_f = phase_kernels(
             torch, np, sc_f, 1e-5, timed=True,
-            sites=variant_sites(torch, np, sc_f.solver, torch.float32))
+            sites=variant_sites(torch, np, sc_f.solver, torch.float32, "F"))
         phase_kernels(torch, np, sc_f, 1e-12, timed=False,
                       sites=variant_sites(torch, np, sc_f.solver,
-                                          torch.float64))
+                                          torch.float64, "F"))
         one_launch["path F"] = phase_one_launch_form(torch, np, sc_f, "F")
         phase_plain_times(rows_f, plains_f)
         rows.update(rows_f)
@@ -2692,19 +2959,101 @@ def main(argv=None):
                 f"path F ended on coefficients {bdf}, not BDF2's")
         del sc_f
         lap("path F")
+        # paths G and H: pipe_cylinder_pressurebc under the weak-pressure
+        # solvers, float32 at 106,275 DOF (sites timed in float32, checked
+        # in float64 too)
+        from cfdtpu_torch.scenarios.pipe_cylinder_pressurebc import (
+            PipeCylinderPressureBC)
+
+        launches_gh, slices_gh = {}, {}
+        for tag, (solver, kw) in PATH_GH.items():
+            t0 = time.perf_counter()
+            sc_g = PipeCylinderPressureBC(
+                solver, dt=DT, T=1.0, res_scale=0.3, dtype="float32",
+                device="cuda", stats_every=4, output_every=100, **PIPE_KW,
+                **kw)
+            sg = sc_g.solver
+            log(f"[setup] path {tag}: res_scale 0.3 float32 {solver} "
+                f"({kw['pc_inner_method']}) on "
+                f"cuda: {time.perf_counter() - t0:.1f} s; facet blocks "
+                f"{[(b['name'], b['term'].term, len(b['dofmap_u']))
+                    for b in sg.form._facet_blocks]}"
+                f"; pressure pinned {sg.pin_pressure}")
+            require(not sg.pin_pressure and len(sg.bc_dofs_p) == 0,
+                    f"path {tag}: a pressure dof is pinned")
+            rows_g, plains_g = phase_kernels(
+                torch, np, sc_g, 1e-5, timed=True,
+                sites=variant_sites(torch, np, sg, torch.float32, tag))
+            phase_kernels(torch, np, sc_g, 1e-12, timed=False,
+                          sites=variant_sites(torch, np, sg, torch.float64,
+                                              tag))
+            one_launch[f"path {tag}"] = phase_one_launch_form(
+                torch, np, sc_g, tag)
+            phase_plain_times(rows_g, plains_g)
+            rows.update(rows_g)
+            del plains_g
+            launches_gh[tag], slices_gh[tag] = phase_slice(
+                torch, np, sc_g, os.path.join(tmp, f"slice_{tag}"),
+                f"path {tag}", PATH_GH_STEPS, PATH_GH_KERNELS[tag],
+                profile_steps=PATH_GH_PROFILE)
+            key = "curl_p1" if tag == "G" else "p1"
+            lg = launches_gh[tag]
+            # every residual and every Jacobian build one element launch
+            # with the blocks in it
+            for kind in ("residual", "jacobian"):
+                require(lg[f"ns_cell_{kind}_{key}"]
+                        == lg[f"ns_cell_{kind}_{key}_facet"] > 0,
+                        f"path {tag}: {kind} launches without the facet "
+                        f"blocks: {lg}")
+            del sc_g, sg
+            lap(f"path {tag}")
+        # path I: K18 under the curl-curl form on DFG 2D-1's channel
+        launches_i = {}
+        for mode, solver in PATH_I.items():
+            t0 = time.perf_counter()
+            sc_i = DFG1Benchmark(solver, dt=DT, T=1.0, res_scale=PATH_I_RES,
+                                 dtype="float32", device="cuda", v_max=0.3,
+                                 stats_every=1, output_every=100,
+                                 **SLICE_KW)
+            log(f"[setup] path I {mode}: res_scale {PATH_I_RES} float32 "
+                f"{solver} (amg_p) on cuda: "
+                f"{time.perf_counter() - t0:.1f} s")
+            rows_i, plains_i = phase_kernels(
+                torch, np, sc_i, 1e-5, timed=True,
+                sites=variant_sites(torch, np, sc_i.solver, torch.float32,
+                                    "I"))
+            phase_kernels(torch, np, sc_i, 1e-12, timed=False,
+                          sites=variant_sites(torch, np, sc_i.solver,
+                                              torch.float64, "I"))
+            phase_plain_times(rows_i, plains_i)
+            rows.update(rows_i)
+            del plains_i
+            got, _ = phase_slice(
+                torch, np, sc_i, os.path.join(tmp, f"slice_i_{mode}"),
+                f"path I {mode}", PATH_I_STEPS,
+                (*PATH_I_KERNELS, f"ns_facet_{mode}_p1_fused",
+                 f"ns_facet_{mode}_jac_p1_fused"))
+            for name, n in got.items():
+                launches_i[name] = launches_i.get(name, 0) + n
+            del sc_i
+            lap(f"path I {mode}")
         gm = phase_gather_micro()
         lap("path B")
         parity = phase_parity_and_cli(torch, np, tmp, lap)
 
     launches = {"A": launches_a, "B": gm["launches"], "C": launches_c,
-                "D": launches_d, "E": launches_e, "F": launches_f}
+                "D": launches_d, "E": launches_e, "F": launches_f,
+                "G": launches_gh["G"], "H": launches_gh["H"],
+                "I": launches_i}
     # each kernel's calls in the profiled window of its path (path D:
     # the three methods' windows)
     windows = {"A": slice_a["profile"]["kernels"],
                "B": slice_a["profile"]["kernels"],
                "C": slice_c["profile"]["kernels"], "D": {},
                "E": slice_e["profile"]["kernels"],
-               "F": slice_f["profile"]["kernels"]}
+               "F": slice_f["profile"]["kernels"],
+               "G": slices_gh["G"]["profile"]["kernels"],
+               "H": slices_gh["H"]["profile"]["kernels"], "I": {}}
     for res in slices_d.values():
         for name, kv in (res["profile"] or {"kernels": {}})["kernels"].items():
             acc = windows["D"].setdefault(name, {"calls": 0,
@@ -2747,6 +3096,7 @@ def main(argv=None):
                        "slice_amg_p": slice_p, "launches_amg_p": launches_p,
                        "slice_path_c": slice_c, "slices_path_d": slices_d,
                        "slice_path_e": slice_e, "slice_path_f": slice_f,
+                       "slices_paths_gh": slices_gh,
                        "graphs": graphs,
                        "launches": launches, "parity": parity,
                        "determinism": determinism, "gather_micro": gm,

@@ -22,6 +22,8 @@ from cfdtpu_torch.la.superell import SuperMaps
 from cfdtpu_torch.postprocess.forces import BoundaryForce
 from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
 from cfdtpu_torch.scenarios.dfg_2d_1 import DFG2D1Steady
+from cfdtpu_torch.scenarios.pipe_cylinder_pressurebc import (
+    PipeCylinderPressureBC)
 from cfdtpu_torch.scripts.gather_micro import patch_inputs
 from cfdtpu_torch.solvers.base import SolverBase
 from cfdtpu_torch.solvers.stabilized_schur import Solver
@@ -52,7 +54,7 @@ def test_resolve_device_default_is_the_card(no_card, monkeypatch):
 
 
 @pytest.mark.parametrize("cls", [SolverBase, Solver, DFG1Benchmark,
-                                 DFG2D1Steady])
+                                 DFG2D1Steady, PipeCylinderPressureBC])
 def test_constructor_device_defaults_to_none(cls):
     assert inspect.signature(cls.__init__).parameters["device"].default \
         is None
@@ -99,6 +101,48 @@ def test_new_solvers_without_device_raise(no_card, solver):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls(solver, dt=0.05, T=0.05, v_max=0.3, **size)
     assert kernels.counts() == {name: 0 for name in kernels.COUNTERS}
+
+
+@pytest.mark.parametrize("solver, kw", [
+    ("stabilized_schur_pressurebc", {}),
+    ("stabilized_schur_pressure_backflow", {"R_resistance": 1.0}),
+    ("stabilized_schur_velocity_vascular_backflow",
+     {"R_resistance": 1.0, "v_max": 0.3}),
+    ("stabilized_schur_vascularbc", {"R_resistance": 1.0}),
+    ("stabilized_schur_vascularbc_weak", {"R_resistance": 1.0}),
+    ("stabilized_schur_vascularbc_backflow", {}),
+    ("stabilized_schur_vascularbc_strong", {"R_resistance": 1.0}),
+    ("stabilized_schur_vascularbc_cbc", {"v_max": 0.3}),
+    ("stabilized_schur_vascularbc_ddn", {}),
+])
+def test_weak_pressure_solvers_without_device_raise(no_card, solver, kw):
+    """pipe_cylinder_pressurebc and the weak-pressure family take the
+    card by default: with none they raise before anything is built."""
+    kernels.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PipeCylinderPressureBC(solver, dt=0.05, T=0.05, res_scale=2.5,
+                               p_inlet=0.15, p_outlet=0.0, **kw)
+    assert kernels.counts() == {name: 0 for name in kernels.COUNTERS}
+
+
+def test_pressurebc_cli_without_device_exits_nonzero(tmp_path):
+    """`--simulation pipe_cylinder_pressurebc --solver
+    stabilized_schur_pressurebc` with no --device and no card exits
+    non-zero at construction."""
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "cfdtpu_torch", "simulate",
+           "--simulation", "pipe_cylinder_pressurebc", "--solver",
+           "stabilized_schur_pressurebc", "--T", "0.05", "--dt", "0.05",
+           "--res_scale", "2.5", "--p_inlet", "0.15", "--p_outlet", "0",
+           "--output_dir", str(out)]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0, res.stdout + res.stderr
+    assert "CUDA is not available" in res.stdout + res.stderr
+    assert "Solver converged" not in res.stdout
+    assert not out.exists()
 
 
 def test_cli_default_device_is_cuda():

@@ -1602,3 +1602,252 @@ def test_new_solvers_on_card_match_cpu(solver):
     for a, b in ((ua, ub), (pa, pb)):
         assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-9
     np.testing.assert_allclose(fa, fb, rtol=1e-9, atol=0)
+
+
+# ---------------------------------------------------------------------
+# K15 (the curl-curl cell body), K16 (weak pressure), K17 (Nitsche,
+# sigma and curl forms), K18 (CBC and directional do-nothing)
+# ---------------------------------------------------------------------
+PIPE_KW = dict(dt=0.05, T=1.0, res_scale=2.0, p_inlet=0.15, p_outlet=0.02,
+               dtype="float64", device="cuda")
+
+
+@pytest.fixture(scope="module")
+def sc_pbf():
+    """pipe_cylinder_pressurebc under stabilized_schur_pressure_backflow
+    (five blocks: weak pressure and Nitsche on the inlet; resistance
+    pressure, viscous traction and backflow on the outlet), res_scale
+    2.0, float64, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.scenarios.pipe_cylinder_pressurebc import (
+        PipeCylinderPressureBC)
+
+    sc_ = PipeCylinderPressureBC("stabilized_schur_pressure_backflow",
+                                 R_resistance=1.0, **PIPE_KW)
+    sc_.solver.p_c = 0.04
+    return sc_
+
+
+@pytest.fixture(scope="module")
+def sc_pbc():
+    """pipe_cylinder_pressurebc under stabilized_schur_pressurebc (the
+    curl-curl form, four blocks), res_scale 2.0, float64, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.scenarios.pipe_cylinder_pressurebc import (
+        PipeCylinderPressureBC)
+
+    return PipeCylinderPressureBC("stabilized_schur_pressurebc", **PIPE_KW)
+
+
+def _new_term(term):
+    from cfdtpu_torch.kernels.ns_facet import FacetTerm
+
+    if term == "weakp":
+        return FacetTerm("weakp", pressure_key="p_inlet")
+    if term.startswith("nitsche"):
+        return FacetTerm(term, beta_key="beta_nitsche")
+    return FacetTerm(term)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("kind", ["residual", "jacobian"])
+@pytest.mark.parametrize("side", ["nitsche_in", "backflow_out"])
+@pytest.mark.parametrize("term", ["weakp", "nitsche", "nitsche_curl", "cbc",
+                                  "ddn"])
+def test_k16_k18_match_plain_and_repeat(sc_pbf, term, side, kind, dt):
+    """K16, K17 (both forms) and K18 (both modes) alone on the inlet and
+    the outlet at a state with reverse flow on part of each: within the
+    tolerance of the plain versions, two calls bitwise equal, one launch
+    counted; the weak pressure's Jacobian zero."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.ns_facet import (facet_call, facet_jac_plain,
+                                               facet_plain)
+
+    dtype, tol = _dev_tol(dt)
+    s = sc_pbf.solver
+    prm = s.params()
+    u, up, _, p = _developed(s, dtype, seed=21)
+    blk = _facet_block(s.form, side, dtype, prm)
+    ft = _new_term(term)
+    sc_ = ft.scalars(prm)
+    jac = kind == "jacobian"
+    args = (u, up, p, *blk.args())
+    kernels.reset_counts()
+    got, again = (facet_call(ft, sc_, jac, *args),
+                  facet_call(ft, sc_, jac, *args))
+    ref = (facet_jac_plain if jac else facet_plain)(ft, sc_, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert kernels.counts()[ft.counter(jac)] == 2
+    if term == "weakp" and jac:
+        assert not got.any() and not ref.any()
+        return
+    assert float(ref.abs().max()) > 0
+    _close_tol(got, ref, tol)
+
+
+@pytest.mark.parametrize("kind", ["residual", "jacobian"])
+def test_ddn_is_k13_at_minus_half_on_card(sc_pbf, kind):
+    """K18's DDN mode and K13 with beta rho = 1/2: bit for bit."""
+    from cfdtpu_torch.kernels.ns_facet import FacetTerm, facet_call
+
+    s = sc_pbf.solver
+    prm = dict(s.params(), beta_half=0.5, rho=1.0)
+    u, up, _, p = _developed(s, torch.float64, seed=22)
+    blk = _facet_block(s.form, "backflow_out", torch.float64, prm)
+    jac = kind == "jacobian"
+    ddn, back = FacetTerm("ddn"), FacetTerm("backflow", beta_key="beta_half")
+    a = facet_call(ddn, ddn.scalars(prm), jac, u, up, p, *blk.args())
+    b = facet_call(back, back.scalars(prm), jac, u, up, p, *blk.args())
+    assert torch.equal(a, b) and float(a.abs().max()) > 0
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("facet", [False, True])
+@pytest.mark.parametrize("kind", ["residual", "jacobian"])
+def test_k15_matches_plain_and_repeats(sc_pbc, kind, facet, dt):
+    """K15 (the curl-curl cell body), alone and with the
+    stabilized_schur_pressurebc form's four blocks (K16 twice, K17's
+    curl form twice) in its launch: within the tolerance of the plain
+    versions, bitwise repeatable, with the blocks bitwise equal to K15,
+    K16 and K17 launched apart, one launch counted."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels import ns_cell_residual as k3
+    from cfdtpu_torch.kernels.ns_facet import facet_call
+
+    dtype, tol = _dev_tol(dt)
+    s = sc_pbc.solver
+    f, prm = s.form, s.params()
+    u, up, p = _state(s, 23)
+    u, up, p = (t.to(dtype) for t in (u, up, p))
+    up[: len(up) // 3] = 0  # cells at rest: tau's eps guard
+    _, (dmu, dmp, coords, h, tabs) = _cast_form(f, dtype)
+    cargs = (u, up, p, dmu, dmp, coords, h, tabs, prm["rho"], prm["mu"],
+             prm["dt"], prm["f"], float(np.finfo(str(dtype)[6:]).resolution))
+    blocks = ([_facet_block(f, b["name"], dtype, prm)
+               for b in f._facet_blocks] if facet else None)
+    jac = kind == "jacobian"
+    fn = k3.ns_cell_jacobian_curl_p1 if jac else k3.ns_cell_residual_curl_p1
+    kernels.reset_counts()
+    got, again = fn(*cargs, facets=blocks), fn(*cargs, facets=blocks)
+    c = kernels.counts()
+    assert c[f"ns_cell_{kind}_curl_p1"] == 2
+    assert c[f"ns_cell_{kind}_curl_p1_facet"] == (2 if facet else 0)
+    as_tuple = (lambda o: o if isinstance(o, tuple) else (o,))
+    ref = fn(*_on_cpu(cargs), facets=_blocks_on_cpu(blocks))
+    for g, r, x in zip(as_tuple(got), as_tuple(ref), as_tuple(again)):
+        assert torch.equal(g, x)
+        if float(r.abs().max()) > 0:
+            _close_tol(g.cpu(), r, tol)
+        else:
+            assert not g.any()
+    if facet:
+        apart = as_tuple(fn(*cargs)) + tuple(
+            facet_call(b.term, b.scalars, jac, u, up, p, *b.args())
+            for b in blocks)
+        assert len(apart) == len(as_tuple(got))
+        for g, a in zip(as_tuple(got), apart):
+            assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("kind", ["residual", "jacobian"])
+def test_element_launch_with_five_and_eight_blocks(sc_pbf, kind, dt):
+    """K3 with the pressure_backflow form's five blocks in its launch,
+    and with eight (three of them again): bitwise equal to the launches
+    apart, within the tolerance of the plain versions; nine refused."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels import ns_cell_residual as k3
+    from cfdtpu_torch.kernels.ns_facet import facet_call
+
+    dtype, tol = _dev_tol(dt)
+    s = sc_pbf.solver
+    f, prm = s.form, s.params()
+    u, up, _, p = _developed(s, dtype, seed=24)
+    _, (dmu, dmp, coords, h, tabs) = _cast_form(f, dtype)
+    cargs = (u, up, p, dmu, dmp, coords, h, tabs, prm["rho"], prm["mu"],
+             prm["dt"], prm["f"], float(np.finfo(str(dtype)[6:]).resolution))
+    five = [_facet_block(f, b["name"], dtype, prm) for b in f._facet_blocks]
+    assert [b.term.term for b in five] == ["weakp", "nitsche", "weakp",
+                                           "viscous", "backflow"]
+    jac = kind == "jacobian"
+    fn = k3.ns_cell_jacobian_p1 if jac else k3.ns_cell_residual_p1
+    as_tuple = (lambda o: o if isinstance(o, tuple) else (o,))
+    for blocks in (five, five + five[1:4]):
+        kernels.reset_counts()
+        got = fn(*cargs, facets=blocks)
+        assert kernels.counts()[f"ns_cell_{kind}_p1_facet"] == 1
+        apart = as_tuple(fn(*cargs)) + tuple(
+            facet_call(b.term, b.scalars, jac, u, up, p, *b.args())
+            for b in blocks)
+        ref = fn(*_on_cpu(cargs), facets=_blocks_on_cpu(blocks))
+        assert len(got) == len(apart) == len(ref)
+        for g, a, r in zip(got, apart, ref):
+            assert torch.equal(g, a)
+            if float(r.abs().max()) > 0:
+                _close_tol(g.cpu(), r, tol)
+    with pytest.raises(NotImplementedError, match="facet blocks"):
+        fn(*cargs, facets=five + five[:4])
+
+
+@pytest.mark.parametrize("solver", ["stabilized_schur_pressurebc",
+                                    "stabilized_schur_pressure_backflow"])
+def test_weak_pressure_forms_issue_one_element_launch(sc_pbc, sc_pbf,
+                                                      solver):
+    """form.residual launches the element kernel once with every block
+    in it and K2 twice for the cells and once per block; a Jacobian
+    build one launch (the wrappers' counts)."""
+    from cfdtpu_torch import kernels
+
+    scn = sc_pbc if solver.endswith("pressurebc") else sc_pbf
+    s = scn.solver
+    key = "curl_p1" if solver.endswith("pressurebc") else "p1"
+    u, up, _, p = _developed(s, s.dtype, seed=25)
+    prm = s.params()
+    nblocks = len(s.form._facet_blocks)
+    for name, fn, want in (
+            ("residual", lambda: s.form.residual(u, p, (up,), prm),
+             {f"ns_cell_residual_{key}": 1,
+              f"ns_cell_residual_{key}_facet": 1, "ell_sum": 2 + nblocks}),
+            ("jacobian", lambda: s.form.element_jacobians(u, p, (up,), prm),
+             {f"ns_cell_jacobian_{key}": 1,
+              f"ns_cell_jacobian_{key}_facet": 1})):
+        kernels.reset_counts()
+        fn()
+        got = {k: n for k, n in kernels.counts().items()
+               if n and not k.endswith("_fused")}
+        assert got == want, (name, got)
+
+
+@pytest.mark.parametrize("solver", ["stabilized_schur_pressurebc",
+                                    "stabilized_schur_pressure_backflow"])
+def test_weak_pressure_solvers_on_card_match_cpu(solver):
+    """Two float64 steps of pipe_cylinder_pressurebc through the kernels
+    equal the plain versions (CPU): counts, state within 1e-9 and (path
+    H) p_c."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.scenarios.pipe_cylinder_pressurebc import (
+        PipeCylinderPressureBC)
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        kw = dict(PIPE_KW, device=dev, p_outlet=0.0)
+        if solver.endswith("backflow"):
+            kw["R_resistance"] = 1.0
+        s = PipeCylinderPressureBC(solver, **kw).solver
+        rec = []
+        for _ in range(2):
+            s.solveStep()
+            rec.append((s.last_stats["newton_iters"],
+                        s.last_stats["ksp_iters"], getattr(s, "p_c", 0.0)))
+            s.u_prev, s.p_prev = s.u_sol, s.p_sol
+        out.append((rec, s.u_sol.cpu().numpy(), s.p_sol.cpu().numpy()))
+    (ca, ua, pa), (cb, ub, pb) = out
+    assert [c[:2] for c in ca] == [c[:2] for c in cb]
+    np.testing.assert_allclose([c[2] for c in ca], [c[2] for c in cb],
+                               rtol=1e-9, atol=0)
+    for a, b in ((ua, ub), (pa, pb)):
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-9

@@ -117,17 +117,34 @@ def test_amg_hierarchy_identical(pair):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A fresh interpreter builds the DFG slice with cfdtpu_torch alone:
-    neither jax nor cfdtpu may end up in sys.modules."""
+    """A fresh interpreter builds the DFG slice and the weak-pressure
+    scenario with cfdtpu_torch alone, and imports every solver of the
+    weak-pressure family: neither jax nor cfdtpu may end up in
+    sys.modules."""
     code = (
         "import sys\n"
         "from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark\n"
         "import cfdtpu_torch.__main__, cfdtpu_torch.simulation\n"
         "import cfdtpu_torch.io.state, cfdtpu_torch.la.ras\n"
         "import cfdtpu_torch.scripts.gather_micro\n"
+        "import importlib\n"
+        "for m in ('pressurebc', 'pressure_backflow',\n"
+        "          'velocity_vascular_backflow', 'vascularbc',\n"
+        "          'vascularbc_weak', 'vascularbc_backflow',\n"
+        "          'vascularbc_strong', 'vascularbc_cbc',\n"
+        "          'vascularbc_ddn'):\n"
+        "    importlib.import_module(\n"
+        "        'cfdtpu_torch.solvers.stabilized_schur_' + m)\n"
+        "from cfdtpu_torch.scenarios.pipe_cylinder_pressurebc import \\\n"
+        "    PipeCylinderPressureBC\n"
         "sc = DFG1Benchmark('stabilized_schur', dt=0.05, T=0.05,\n"
         "                   res_scale=2.5, device='cpu',\n"
         "                   pc_inner_method='rasamg_sup', pc_inner_u=0)\n"
+        "sc.solver.solveStep()\n"
+        "sc = PipeCylinderPressureBC(\n"
+        "    'stabilized_schur_pressure_backflow', dt=0.05, T=0.05,\n"
+        "    res_scale=2.5, p_inlet=0.15, p_outlet=0.0, R_resistance=1.0,\n"
+        "    device='cpu')\n"
         "sc.solver.solveStep()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'cfdtpu')]\n"
