@@ -4,10 +4,11 @@ The counterpart of cfdtpu/scenarios/base.py: abstract mesh/bcu/bcp
 properties, solver discovery by module name with kwarg filtering, the
 time loop writing VTU series and solver_stats.txt, the early-stop
 criterion (||u_sol - u_prev||_inf / ||u_sol||_inf) / dt < tol checked
-every 10 steps, norms.txt, and checkpoints in cfdtpu's .npz format.
-Single process: there is no rank-0 I/O guard. Not ported yet: the
-jax.profiler and --monitor hooks, and the exact-solution error log
-(no ported scenario has an exact solution).
+every 10 steps, norms.txt, and checkpoints in cfdtpu's .npz format,
+each save preceded by the pre_checkpoint hook (after the step
+callback). Single process: there is no rank-0 I/O guard. Not ported
+yet: the jax.profiler and --monitor hooks, and the exact-solution
+error log (taylor_green, not ported, is its only user).
 """
 
 from __future__ import annotations
@@ -226,7 +227,12 @@ class Scenario(ABC):
                 if afterStepCallback:
                     afterStepCallback(t)
 
+                # the checkpoint after the step callback and the
+                # pre_checkpoint hook: a per-step series recorder (the
+                # DFG 2D-2 forces) has seen step i, and flushed it, before
+                # the step-i checkpoint exists
                 if self.checkpoint_every and i % self.checkpoint_every == 0:
+                    self.pre_checkpoint()
                     self.save_checkpoint(
                         os.path.join(output_folder, "checkpoint.npz"), t, i
                     )
@@ -255,6 +261,7 @@ class Scenario(ABC):
                 w.close()
             stats_log.close()
         if self.checkpoint_every:
+            self.pre_checkpoint()
             self.save_checkpoint(
                 os.path.join(output_folder, "checkpoint.npz"), t, i
             )
@@ -272,6 +279,12 @@ class Scenario(ABC):
     # as cfdtpu's, so either package resumes from the other's checkpoint
     # (io/state.py)
     # ------------------------------------------------------------------
+    def pre_checkpoint(self) -> None:
+        """Called just before every save_checkpoint, after the step
+        callback. A scenario that keeps a per-step series on the card
+        (the DFG 2D-2 force recorder) sets it to its flush, so the series
+        on disk never trails the checkpoint it is resumed from."""
+
     def save_checkpoint(self, path: str, t: float, step: int) -> None:
         from ..io.state import CKPT_HISTORY
 

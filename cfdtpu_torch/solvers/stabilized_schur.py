@@ -479,18 +479,20 @@ class Solver(SolverBase):
     def solveStep(self) -> None:
         bc_u_vals, bc_p_vals = self._bc_values()
         u, p, r_u, r_p, stats = self._run_step(bc_u_vals, bc_p_vals)
+        if not stats["converged"] and not getattr(self, "_op_state_fresh",
+                                                  True):
+            # self-healing reuse: the K-stale operator/PC was too stale
+            # for this step. Rebuild at the current guess and retry once;
+            # only a fresh-state failure is divergence. Newton has read
+            # its flag on the host, so a step inside a stats_every window
+            # retries too (cfdtpu, whose flag stays on the device until
+            # the window check, raises there instead)
+            self._op_state = None
+            u, p, r_u, r_p, stats = self._run_step(bc_u_vals, bc_p_vals)
         if (self.step_count + 1) % self.stats_every == 0:
             win_conv = getattr(self, "_win_converged", None)
             self._win_converged = None
             converged = stats["converged"]
-            if not converged and not getattr(self, "_op_state_fresh", True):
-                # self-healing reuse: the K-stale operator/PC was too
-                # stale for this step. Rebuild at the current guess and
-                # retry once; only a fresh-state failure is divergence.
-                self._op_state = None
-                u, p, r_u, r_p, stats = self._run_step(bc_u_vals,
-                                                       bc_p_vals)
-                converged = stats["converged"]
             self.last_stats = dict(stats)
             # AND of the skipped steps' converged flags: an unconverged
             # step inside the window committed a bad state that the

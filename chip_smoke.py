@@ -210,6 +210,32 @@ Run from the root of a checkout. Phases, each raising on failure:
    `--simulation dfg_2d_1 --solver dfg_2d_1` at res 0.02 in float64,
    which must print its `DFG Metrics:` line every step.
 
+16. path J: validate_ghia's lid-driven cavity march
+   (stabilized_schur_bdf2, K14) at Re 100 (nx 64, 12,675 DOF) in
+   float32 and Re 400 (nx 96, 28,227 DOF) in float64 (in float32 its
+   Newton stalls near the steady state), up to its CASES steps: each step's
+   wall time, Newton and KSP counts, peak memory, and max|u - u_Ghia|
+   and its rms at Ghia's 17 points, the largest under GHIA_MAX_ERR
+   (0.055) at both.
+17. path K: DFG 2D-2 (PipeCylinder2D2Simulation, 78,348 DOF, 108
+   obstacle facets) with validate_dfg2d2's settings, 20 steps with a
+   checkpoint at the end, then resumed from it to 40: bdforces.txt
+   holds 40 finite rows, contiguous indices, strictly increasing times,
+   the first 20 unchanged by the resumed leg, and no force row reached
+   the host between two flushes; its rows are printed beside the JAX
+   package's TPU series on the same mesh and dt (not a gate).
+18. path L: StenosisSimulation at its defaults (30,789 DOF) under
+   stabilized_schur_pressurebc, float32, 3 steps: ffr.txt with an FFR
+   in (0, 1), u finite, mean u_x > 0; then
+   StenosisWithTree2DPressureSimulation at res 0.15 (72,219 DOF), dt
+   0.001 (at 0.005 its first step stalls), 2 steps: the reynolds VTU
+   written and its largest local Re printed.
+   Their float64 parity (13) at small sizes: J at nx 8, K at res_scale
+   3.0 (every force row), the stenosis at res 0.6 (the FFR), card
+   against host within 1e-9; and three more CLI runs (15):
+   lid_driven2D under stabilized_schur_bdf2 (benchmark_100.csv) and
+   the stenosis (ffr.txt) with and without --device.
+
 The second-to-last line is {"kernels": [...]} (per kernel at its
 headline site: launches on its path (A-I), max_abs_err, the cold ms,
 plain_ms and library_ms, bound_ms and bound_by, the warm ms, the
@@ -373,6 +399,51 @@ PATH_I_KERNELS = ("ell_sum", *CURL_KERNELS)
 # launches are K7's on path F, where every natural correction is at u,
 # and it is folded into K14's launch: (counter, folded into)
 K7_IMPLICIT = "ns_facet_natural_implicit_p1"
+# paths J, K and L: the 2D scenarios against their oracles at the widths
+# users run. J: validate_ghia's march (stabilized_schur_bdf2 at its
+# defaults, amg_p) at Re 100 (nx 64, 12,675 DOF) in float32 and Re 400
+# (nx 96, 28,227 DOF) in float64, up to CASES' steps, its largest
+# deviation from Ghia's Table I under GHIA_MAX_ERR, the bound the JAX
+# package holds itself to (tests/test_solver.py::test_ghia_re400_profile).
+# In float32 the Re 400 march stalls in Newton near the steady state
+# (under amg_p and under rasamg_sup: PERF.md, section 6)
+PATH_J = ((100, "float32"), (400, "float64"))
+GHIA_MAX_ERR = 0.055
+PATH_J_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "block_jacobi",
+                  "block_jacobi_inv", "krylov_cgs", "sup_spmv_prolong",
+                  "ns_cell_residual_bdf2_p1", "ns_cell_jacobian_bdf2_p1")
+# K: DFG 2D-2 (PipeCylinder2D2Simulation) at res_scale 0.35 (78,348 DOF)
+# with validate_dfg2d2's settings, PATH_K_LEG steps with a checkpoint at
+# the end, then resumed from it to twice that
+PATH_K_RES = 0.35
+PATH_K_DT = 0.0025
+PATH_K_LEG = 20
+PATH_K_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "ras_apply",
+                  "ns_cell_residual_p1_facet", "ns_cell_jacobian_p1_facet",
+                  "krylov_cgs", "krylov_lsq", "sup_spmv_prolong")
+# the JAX package's TPU series on the same mesh and dt, printed beside
+# the first rows (not a gate)
+PATH_K_TPU_SERIES = "validation_runs/results_dfg2d2_0.35/bdforces.txt"
+# L: StenosisSimulation at its defaults (res 0.15, 30,789 DOF, severe,
+# 75 and 10 mmHg) under stabilized_schur_pressurebc (amg_p), dt 0.005,
+# 3 steps; then StenosisWithTree2DPressureSimulation at res 0.15 (72,219
+# DOF), dt 0.001, 2 steps (at dt 0.005 the tree's first step from rest
+# stalls, every linear solve at ksp_max_it, in float32 and float64, at
+# res 0.15 and 0.3: PERF.md, section 6): (tag, class name, dt, steps)
+PATH_L = (("stenosis", "StenosisSimulation", 0.005, 3),
+          ("tree", "StenosisWithTree2DPressureSimulation", 0.001, 2))
+PATH_L_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "block_jacobi",
+                  "block_jacobi_inv", "krylov_cgs",
+                  "ns_cell_residual_curl_p1_facet",
+                  "ns_cell_jacobian_curl_p1_facet",
+                  "ns_facet_weakp_p1_fused", "ns_facet_nitsche_curl_p1_fused")
+# their float64 parity, card against host: J at nx 8, Re 100, 3 steps;
+# K at res_scale 3.0 (1,158 DOF), 2 steps; L's stenosis at res 0.6
+# (2,571 DOF; at res 1.0 the outlet is one facet between two wall nodes
+# and no flow starts), 2 steps
+PARITY_J = dict(re=100, nx=8, n_steps=3)
+PARITY_K_RES = 3.0
+PARITY_L_RES = 0.6
 COUNTER_OF = {K7_IMPLICIT: ("ns_facet_natural_p1",
                             "ns_cell_residual_bdf2_p1_facet"),
               "ns_facet_natural_implicit_jac_p1": (
@@ -578,7 +649,14 @@ PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
          "H": "stabilized_schur_pressure_backflow on "
               "pipe_cylinder_pressurebc (Scenario.solve, 106,275 DOF)",
          "I": "stabilized_schur_vascularbc_cbc and _ddn on DFG 2D-1 "
-              "(Scenario.solve, 106,275 DOF, amg_p)"}
+              "(Scenario.solve, 106,275 DOF, amg_p)",
+         "J": "validate_ghia's lid-driven cavity march "
+              "(stabilized_schur_bdf2, 12,675 and 28,227 DOF)",
+         "K": "PipeCylinder2D2Simulation (DFG 2D-2, 78,348 DOF) across a "
+              "checkpoint and resume",
+         "L": "StenosisSimulation (30,789 DOF) and "
+              "StenosisWithTree2DPressureSimulation under "
+              "stabilized_schur_pressurebc"}
 
 
 def log(*a):
@@ -2681,6 +2759,275 @@ def phase_parity_gh(torch, np, tmp):
     return out
 
 
+def launched(kernels, names, tag):
+    got = kernels.counts()
+    for name in names:
+        require(got[name] > 0, f"kernel {name} never launched on {tag}")
+    return {k: v for k, v in got.items() if v}
+
+
+def phase_path_j(torch, np):
+    """Path J: validate_ghia's solve_case on the card at PATH_J, each
+    step's wall time (the card idle at its end), Newton and KSP counts,
+    peak memory, and the deviation from Ghia's profile at the 17
+    published points, under GHIA_MAX_ERR."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.scripts.validate_ghia import CASES, solve_case
+
+    out, launches = {}, {}
+    for re, dtype in PATH_J:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        walls = []
+        last = [time.perf_counter()]
+
+        def on_step(i):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            walls.append(now - last[0])
+            last[0] = now
+
+        res = solve_case(re, quiet=False, device="cuda", dtype=dtype,
+                         on_step=on_step)
+        peak = torch.cuda.max_memory_allocated()
+        s = res["scenario"].solver
+        ndof = s.V.num_global_dofs + s.Q.num_global_dofs
+        for i, ((n, k), w) in enumerate(zip(res["counts"], walls), 1):
+            log(f"[path J Re {re}] step {i}: newton {n} ksp {k} wall "
+                f"{w:.4f} s")
+        log(f"[path J Re {re}] nx {res['nx']}, {ndof} DOF {dtype}: "
+            f"{res['steps']} of {CASES[re][2]} steps, "
+            f"{res['wall_s'] / res['steps']:.4f} s a step, Newton "
+            f"{sum(c[0] for c in res['counts'])} KSP "
+            f"{sum(c[1] for c in res['counts'])} in all; max|u - u_Ghia| "
+            f"{res['max_err']:.6f}, rms {res['rms_err']:.6f} at the 17 "
+            f"points; peak memory {peak / 2**20:.1f} MiB")
+        require(np.isfinite(res["u"]).all(), f"Re {re}: non-finite profile")
+        require(res["max_err"] < GHIA_MAX_ERR,
+                f"Re {re}: max|u - u_Ghia| {res['max_err']:.4f} is not "
+                f"under {GHIA_MAX_ERR}")
+        launches[re] = launched(kernels, PATH_J_KERNELS, f"path J Re {re}")
+        out[re] = {k: v for k, v in res.items() if k != "scenario"}
+        out[re].update(ndof=ndof, peak_bytes=peak, walls=walls,
+                       u=res["u"].tolist())
+        del res, s
+    return launches, out
+
+
+def phase_path_k(torch, np, tmp):
+    """Path K: DFG 2D-2 at PATH_K_RES, PATH_K_LEG steps with a
+    checkpoint at their end, then a second scenario resumed from it to
+    2 PATH_K_LEG. bdforces.txt must hold one finite row a step with
+    contiguous indices and strictly increasing times, the first leg's
+    rows unchanged; the recorder reads no force to the host before a
+    flush (each step callback sees the rows of the last flush only)."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.scenarios.pipe_cylinder import (
+        PipeCylinder2D2Simulation)
+    from cfdtpu_torch.scripts.validate_dfg2d2 import DFG2D2_KW
+
+    out_dir = os.path.join(tmp, "path_k")
+    ckpt = os.path.join(out_dir, "checkpoint.npz")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    legs = []
+    for leg in (1, 2):
+        t0 = time.perf_counter()
+        sc = PipeCylinder2D2Simulation(
+            "stabilized_schur", dt=PATH_K_DT,
+            T=(leg * PATH_K_LEG - 0.5) * PATH_K_DT, res_scale=PATH_K_RES,
+            device="cuda", output_every=10 ** 6,
+            resume_from=ckpt if leg == 2 else None,
+            **dict(DFG2D2_KW, checkpoint_every=PATH_K_LEG))
+        s = sc.solver
+        ndof = s.V.num_global_dofs + s.Q.num_global_dofs
+        setup = time.perf_counter() - t0
+        seen, stats = [], []
+
+        def after(t, sc=sc, seen=seen, stats=stats):
+            seen.append(len(sc._force_rows))
+            st = sc.solver.last_stats
+            if not st.get("skipped"):
+                stats.append((len(seen) + (leg - 1) * PATH_K_LEG,
+                              st["newton_iters"], st["ksp_iters"],
+                              st["converged"]))
+
+        t0 = time.perf_counter()
+        sc.solve(out_dir, afterStepCallback=after)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = np.loadtxt(os.path.join(out_dir, "bdforces.txt"), ndmin=2)
+        legs.append({"ndof": ndof, "setup_s": setup, "wall_s": wall,
+                     "stats": stats, "seen": seen, "rows": rows})
+        log(f"[path K leg {leg}] {ndof} DOF float32, obstacle facets "
+            f"{len(sc.mesh.tagged_facets(sc.obstacle_marker))}: set-up "
+            f"{setup:.1f} s, {len(seen)} steps in {wall:.2f} s "
+            f"({wall / len(seen):.4f} s a step, outputs and the "
+            f"checkpoint included); Newton/KSP at the fetched steps "
+            f"{[(i, n, k) for i, n, k, _ in stats]}")
+        require(all(c for *_, c in stats), f"path K leg {leg}: a step did "
+                                           f"not converge: {stats}")
+        before = (leg - 1) * PATH_K_LEG
+        require(seen == [before] * PATH_K_LEG,
+                f"path K leg {leg}: force rows reached the host before a "
+                f"flush: {seen}")
+        del sc, s
+    peak = torch.cuda.max_memory_allocated()
+    rows, first = legs[1]["rows"], legs[0]["rows"]
+    n = 2 * PATH_K_LEG
+    require(rows.shape == (n, 4), f"path K: bdforces.txt {rows.shape}")
+    require(list(rows[:, 0]) == list(range(n)),
+            f"path K: indices {rows[:, 0]}")
+    require(np.all(np.diff(rows[:, 1]) > 0), "path K: times not increasing")
+    require(np.isfinite(rows).all(), "path K: non-finite forces")
+    require(np.array_equal(rows[:PATH_K_LEG], first),
+            "path K: the resumed leg changed the first leg's rows")
+    launches = launched(kernels, PATH_K_KERNELS, "path K")
+    tpu = os.path.join(HERE, PATH_K_TPU_SERIES)
+    ref = np.loadtxt(tpu, ndmin=2)[:n] if os.path.exists(tpu) else None
+    for i in range(n):
+        beside = ("" if ref is None else
+                  f" | JAX package on TPU: c_D {ref[i, 2]:.8e} "
+                  f"c_L {ref[i, 3]:.8e}")
+        log(f"[path K] row {i}: t {rows[i, 1]:.6f} c_D {rows[i, 2]:.8e} "
+            f"c_L {rows[i, 3]:.8e}{beside}")
+    log(f"[path K] {n} rows across the resume, peak memory "
+        f"{peak / 2**20:.1f} MiB; launches {launches}")
+    for leg in legs:
+        leg["rows"] = leg["rows"].tolist()
+    return launches, {"legs": legs, "peak_bytes": peak,
+                      "tpu_rows": None if ref is None else ref.tolist()}
+
+
+def read_ffr(path):
+    with open(os.path.join(path, "ffr.txt")) as fh:
+        txt = fh.read()
+    require("FFR" in txt, f"ffr.txt without FFR: {txt}")
+    return float(txt.split("FFR = p_distal / p_proximal:")[1].split()[0])
+
+
+def phase_path_l(torch, np, tmp):
+    """Path L: the stenosis (FFR) and the stenosis with its 2D tree (the
+    local Reynolds field) on the card, float32, through phase_slice."""
+    from cfdtpu_torch.scenarios import stenosis
+    from cfdtpu_torch.scenarios import stenosis_with_tree_2d_pressure as tree
+
+    out = {}
+    launches = {}
+    for tag, name, dt, steps in PATH_L:
+        cls = getattr(stenosis if tag == "stenosis" else tree, name)
+        t0 = time.perf_counter()
+        sc = cls("stabilized_schur_pressurebc", dt=dt, T=1.0,
+                 device="cuda", output_every=100)
+        s = sc.solver
+        ft = sc.mesh.facet_tags
+        tags = {int(t): int((ft == t).sum()) for t in np.unique(ft)}
+        log(f"[setup] path L {tag}: res 0.15 float32, dt {dt}, on cuda: "
+            f"{time.perf_counter() - t0:.1f} s; facets by tag {tags}; "
+            f"pressure pinned {s.pin_pressure}")
+        require(not s.pin_pressure, f"path L {tag}: a pressure dof pinned")
+        d = os.path.join(tmp, f"path_l_{tag}")
+        launches[tag], res = phase_slice(torch, np, sc, d, f"path L {tag}",
+                                         steps, PATH_L_KERNELS)
+        u = s.u_sol.cpu().numpy()
+        res["ffr"] = read_ffr(d)
+        res["mean_u_x"] = float(u[:, 0].mean())
+        if tag == "stenosis":
+            # tests/test_hemodynamic.py's checks, and an FFR in (0, 1)
+            require(res["mean_u_x"] > 0, f"path L: mean u_x "
+                                         f"{res['mean_u_x']} <= 0")
+            require(0 < res["ffr"] < 1, f"path L: FFR {res['ffr']}")
+        else:
+            require(os.path.exists(os.path.join(d, "reynolds_000000.vtu")),
+                    "path L: the reynolds VTU was not written")
+            res["max_local_re"] = float(sc.reynolds.max())
+            require(np.isfinite(sc.reynolds).all(), "non-finite Reynolds")
+        log(f"[path L {tag}] FFR {res['ffr']!r}, mean u_x "
+            f"{res['mean_u_x']:.6f} mm/s"
+            + (f", max local Re {res['max_local_re']:.4f}"
+               if tag == "tree" else ""))
+        out[tag] = res
+        del sc, s
+    return launches, out
+
+
+def phase_parity_jkl(torch, np, tmp):
+    """Paths J, K and L's float64 card runs against the host's plain
+    versions: equal Newton and KSP counts a step, u and p (J: and the
+    Ghia deviation; K: every force row; L: the FFR) within 1e-9
+    relative."""
+    from cfdtpu_torch.scenarios.pipe_cylinder import (
+        PipeCylinder2D2Simulation)
+    from cfdtpu_torch.scenarios.stenosis import StenosisSimulation
+    from cfdtpu_torch.scripts.validate_dfg2d2 import DFG2D2_KW
+    from cfdtpu_torch.scripts.validate_ghia import solve_case
+
+    def run_j(dev):
+        r = solve_case(quiet=True, device=dev, dtype="float64", **PARITY_J)
+        s = r["scenario"].solver
+        return {"counts": r["counts"], "u": s.u_sol.cpu().numpy(),
+                "p": s.p_sol.cpu().numpy(), "f": np.array([r["max_err"]])}
+
+    def run_k(dev):
+        sc = PipeCylinder2D2Simulation(
+            "stabilized_schur", dt=PATH_K_DT, T=1.0, res_scale=PARITY_K_RES,
+            dtype="float64", device=dev, output_every=100,
+            **dict(DFG2D2_KW, checkpoint_every=0, stats_every=1))
+        d = os.path.join(tmp, f"parity_k_{dev}")
+        rec = run_steps(sc, d, 2)
+        s = sc.solver
+        # the recorder's rows at full precision (bdforces.txt keeps 9
+        # digits)
+        return {"counts": [(r[0], r[1]) for r in rec],
+                "u": s.u_sol.cpu().numpy(), "p": s.p_sol.cpu().numpy(),
+                "f": np.asarray(sc._force_rows)[:, 2:].ravel()}
+
+    def run_l(dev):
+        sc = StenosisSimulation("stabilized_schur_pressurebc",
+                                dt=PATH_L[0][2], T=1.0, res=PARITY_L_RES,
+                                dtype="float64", device=dev,
+                                output_every=100)
+        d = os.path.join(tmp, f"parity_l_{dev}")
+        rec = run_steps(sc, d, 2)
+        s = sc.solver
+        return {"counts": [(r[0], r[1]) for r in rec],
+                "u": s.u_sol.cpu().numpy(), "p": s.p_sol.cpu().numpy(),
+                "f": np.array([sc._compute_ffr(d)])}
+
+    out = {}
+    for tag, fn in (("J", run_j), ("K", run_k), ("L", run_l)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = fn(dev)
+            log(f"[parity {tag}] {dev}: counts {res[dev]['counts']} "
+                f"functionals {res[dev]['f'].tolist()!r} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        a, b = res["cuda"], res["cpu"]
+        require(a["counts"] == b["counts"],
+                f"path {tag} parity: counts {a['counts']} (card), "
+                f"{b['counts']} (host)")
+        o = {"counts": a["counts"], "f_cuda": a["f"].tolist(),
+             "f_cpu": b["f"].tolist()}
+        for key in ("u", "p"):
+            rel = np.linalg.norm(a[key] - b[key]) / np.linalg.norm(b[key])
+            log(f"[parity {tag}] {key} relative difference {rel:.3e}")
+            require(rel <= 1e-9, f"path {tag} parity: {key} differs by "
+                                 f"{rel:.3e}")
+            o[key] = rel
+        relf = float((np.abs(a["f"] - b["f"]) / np.abs(b["f"])).max())
+        log(f"[parity {tag}] functionals relative difference {relf:.3e}")
+        require(relf <= 1e-9, f"path {tag} parity: functionals differ by "
+                              f"{relf:.3e}")
+        o["f"] = relf
+        out[tag] = o
+    return out
+
+
 def phase_gather_micro():
     """Path B: the gather_micro entry point, as a user runs it."""
     cmd = [sys.executable, "-m", "cfdtpu_torch.scripts.gather_micro",
@@ -2708,24 +3055,27 @@ def phase_gather_micro():
 
 def start_cli(tmp, name, flags=(), device="cuda", simulation="dfg_1",
               solver="stabilized_schur", size=("--res_scale", "1.0"),
-              want=None):
-    """Start the CLI as a user runs it, its output to files; device None
-    leaves out --device, and the run must then take the card by
-    default. `want`: a line the run must print every step (dfg_2d_1's
-    `DFG Metrics:`). finish_cli waits for it and checks it."""
+              want=None, times=("0.1", "0.05"), files=()):
+    """Start the CLI as a user runs it (T and dt `times`: two steps),
+    its output to files; device None leaves out --device, and the run
+    must then take the card by default. `want`: a line the run must
+    print every step (dfg_2d_1's `DFG Metrics:`); `files`: what the run
+    directory must hold beside the common outputs. finish_cli waits for
+    it and checks it."""
     out = os.path.join(tmp, f"cli_{name}")
     os.makedirs(out, exist_ok=True)
     dev = [] if device is None else ["--device", device]
     cmd = [sys.executable, "-m", "cfdtpu_torch", "simulate",
            "--simulation", simulation, "--solver", solver,
-           "--T", "0.1", "--dt", "0.05", *size,
+           "--T", times[0], "--dt", times[1], *size,
            *dev, "--output_dir", out, *flags]
     env = dict(os.environ, PYTHONPATH=HERE)
     logs = [open(os.path.join(out, k), "w+") for k in ("stdout", "stderr")]
     proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=logs[0],
                             stderr=logs[1], text=True)
     return dict(name=name, proc=proc, logs=logs, out=out,
-                simulation=simulation, want=want, t0=time.perf_counter())
+                simulation=simulation, want=want, files=files,
+                t0=time.perf_counter())
 
 
 def finish_cli(run, timeout=600):
@@ -2748,9 +3098,10 @@ def finish_cli(run, timeout=600):
             f"CLI {name} exited {proc.returncode}:\n{tail}")
     runs = glob.glob(os.path.join(run["out"], run["simulation"], "*"))
     require(len(runs) == 1, f"CLI run directory missing: {runs}")
-    for fname in ("simulation_params.txt", "norms.txt", "v.pvd"):
+    for fname in ("simulation_params.txt", "norms.txt", "v.pvd",
+                  *run["files"]):
         require(os.path.exists(os.path.join(runs[0], fname)),
-                f"CLI did not write {fname}")
+                f"CLI {name} did not write {fname}")
     require("'device': 'cuda'" in stdout,
             f"CLI {name} did not run on the card:\n{tail}")
     want = run["want"]
@@ -2762,15 +3113,25 @@ def finish_cli(run, timeout=600):
         + " | ".join(ln.strip() for ln in stdout.splitlines()
                      if ln.strip().startswith(("Solver converged", "Drag",
                                                "Lift", "Pressure",
-                                               "DFG Metrics"))))
+                                               "DFG Metrics", "FFR ="))))
 
 
 def phase_parity_and_cli(torch, np, tmp, lap):
-    """The parity runs (phase_parity, phase_parity_e) with the four CLI
-    runs going at the same time, each a process of its own on the card:
-    the default inner method, the rasamg_sup flags with and without
-    --device, and dfg_2d_1 at PARITY_E_RES in float64. Every CLI process
-    is waited for (killed first if a parity run failed)."""
+    """The parity runs (phase_parity, phase_parity_e, phase_parity_gh,
+    phase_parity_jkl) with the seven CLI runs going at the same time,
+    each a process of its own on the card: the default inner method, the
+    rasamg_sup flags with and without --device, dfg_2d_1 at
+    PARITY_E_RES in float64, lid_driven2D under stabilized_schur_bdf2
+    (benchmark_100.csv), and the stenosis under
+    stabilized_schur_pressurebc (ffr.txt) with and without --device.
+    Every CLI process is waited for (killed first if a parity run
+    failed)."""
+    lid = dict(simulation="lid_driven2D", solver="stabilized_schur_bdf2",
+               size=("--nx", "32", "--mu", "0.01"), times=("1.0", "0.5"),
+               files=("benchmark_100.csv",))
+    sten = dict(simulation="stenosis", solver="stabilized_schur_pressurebc",
+                size=("--res", "0.3"), times=("0.01", "0.005"),
+                files=("ffr.txt",))
     clis = [start_cli(tmp, "amg_p"),
             start_cli(tmp, "rasamg_sup", RASAMG_FLAGS),
             start_cli(tmp, "rasamg_sup_default_device", RASAMG_FLAGS,
@@ -2778,7 +3139,10 @@ def phase_parity_and_cli(torch, np, tmp, lap):
             start_cli(tmp, "dfg_2d_1", simulation="dfg_2d_1",
                       solver="dfg_2d_1",
                       size=("--res", str(PARITY_E_RES), "--dtype",
-                            "float64"), want="DFG Metrics:")]
+                            "float64"), want="DFG Metrics:"),
+            start_cli(tmp, "lid_driven2D", **lid),
+            start_cli(tmp, "stenosis", **sten),
+            start_cli(tmp, "stenosis_default_device", device=None, **sten)]
     parity = {}
     try:
         for tag, kw in (("rasamg_sup", RASAMG_KW), ("amg_p", SLICE_KW),
@@ -2790,6 +3154,8 @@ def phase_parity_and_cli(torch, np, tmp, lap):
         lap("parity path E")
         parity["paths_gh"] = phase_parity_gh(torch, np, tmp)
         lap("parity paths G and H")
+        parity["paths_jkl"] = phase_parity_jkl(torch, np, tmp)
+        lap("parity paths J, K and L")
         for run in clis:
             finish_cli(run)
         lap("CLI (the wait after the parity runs)")
@@ -3037,6 +3403,13 @@ def main(argv=None):
                 launches_i[name] = launches_i.get(name, 0) + n
             del sc_i
             lap(f"path I {mode}")
+        # paths J, K and L: the 2D scenarios against their oracles
+        launches_j, path_j = phase_path_j(torch, np)
+        lap("path J")
+        launches_k, path_k = phase_path_k(torch, np, tmp)
+        lap("path K")
+        launches_l, path_l = phase_path_l(torch, np, tmp)
+        lap("path L")
         gm = phase_gather_micro()
         lap("path B")
         parity = phase_parity_and_cli(torch, np, tmp, lap)
@@ -3097,6 +3470,10 @@ def main(argv=None):
                        "slice_path_c": slice_c, "slices_path_d": slices_d,
                        "slice_path_e": slice_e, "slice_path_f": slice_f,
                        "slices_paths_gh": slices_gh,
+                       "path_j": path_j, "path_k": path_k,
+                       "path_l": path_l,
+                       "launches_jkl": {"J": launches_j, "K": launches_k,
+                                        "L": launches_l},
                        "graphs": graphs,
                        "launches": launches, "parity": parity,
                        "determinism": determinism, "gather_micro": gm,

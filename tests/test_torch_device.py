@@ -200,3 +200,68 @@ def test_dfg2d1_cli_without_device_exits_nonzero(tmp_path):
     assert "CUDA is not available" in res.stdout + res.stderr
     assert "DFG Metrics" not in res.stdout
     assert not out.exists()
+
+
+# the 2D scenarios: (module, class, constructor arguments of a tiny run)
+SCENARIOS_2D = [
+    ("lid_driven2D", "LidDriven2DSimulation", dict(nx=4, mu=0.01)),
+    ("unit_square", "UnitSquareSimulation", dict(nx=4)),
+    ("unit_square_pipe", "UnitSquarePipeSimulation",
+     dict(nx=8, ny=2, p_inlet=1.0, p_outlet=0.0)),
+    ("pipe_cylinder", "PipeCylinderSimulation", dict(res_scale=3.0)),
+    ("pipe_cylinder", "PipeCylinder2D2Simulation", dict(res_scale=3.0)),
+    ("pipe_cylinder_2d2", "PipeCylinder2D2", dict(res_scale=3.0)),
+    ("stenosis", "StenosisSimulation", dict(res=1.0)),
+    ("stenosis_pressure", "StenosisPressureSimulation",
+     dict(res=1.0, R_resistance=1.0)),
+    ("stenosis_pressure_structured", "StenosisPressureStructuredSimulation",
+     dict(res=1.0, R_resistance=1.0)),
+    ("stenosis_mesh_variable", "StenosisMeshVariableSimulation",
+     dict(res=1.0, n_rad=3)),
+    ("stenosis_with_tree_2d", "StenosisWithTree2DSimulation",
+     dict(res=1.0)),
+    ("stenosis_with_tree_2d_pressure", "StenosisWithTree2DPressureSimulation",
+     dict(res=1.0)),
+]
+
+
+def _scenario_class(module, name):
+    import importlib
+
+    return getattr(importlib.import_module(
+        f"cfdtpu_torch.scenarios.{module}"), name)
+
+
+@pytest.mark.parametrize("module, name, kw", SCENARIOS_2D)
+def test_2d_scenarios_without_device_raise(no_card, module, name, kw):
+    """The 2D scenarios take the card by default (`device` defaults to
+    None, in the class or the base it passes it to): with none they
+    raise before any kernel is launched."""
+    cls = _scenario_class(module, name)
+    owner = next(c for c in cls.__mro__
+                 if "device" in inspect.signature(c.__init__).parameters)
+    assert inspect.signature(owner.__init__).parameters["device"].default \
+        is None
+    solver = ("stabilized_schur_pressure_backflow" if "R_resistance" in kw
+              else "stabilized_schur_pressurebc"
+              if module.startswith("stenosis") else "stabilized_schur")
+    kernels.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cls(solver, dt=0.005, T=0.005, **kw)
+    assert kernels.counts() == {name: 0 for name in kernels.COUNTERS}
+
+
+def test_validation_scripts_default_to_the_card(no_card, tmp_path,
+                                                monkeypatch):
+    """validate_ghia and validate_dfg2d2 run on the card unless told
+    otherwise: with none they raise, and write no results directory."""
+    from cfdtpu_torch.scripts import validate_dfg2d2, validate_ghia
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        validate_ghia.run(100, nx=4, n_steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        validate_ghia.main(["100"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        validate_dfg2d2.main(["3.0", "0.01", "0.01"])
+    assert os.listdir(tmp_path) == []

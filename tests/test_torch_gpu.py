@@ -1851,3 +1851,106 @@ def test_weak_pressure_solvers_on_card_match_cpu(solver):
                                rtol=1e-9, atol=0)
     for a, b in ((ua, ub), (pa, pb)):
         assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-9
+
+
+def _launched(*names):
+    from cfdtpu_torch import kernels
+
+    got = kernels.counts()
+    missing = [n for n in names if not got[n]]
+    assert not missing, (missing, got)
+
+
+def test_ghia_path_j_on_card_matches_cpu():
+    """Path J small: validate_ghia's march at Re 100, nx 8, 3 steps,
+    float64, through the kernels (K14 among them) and the plain
+    versions: equal counts, Ghia deviation and centerline within 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.scripts.validate_ghia import solve_case
+
+    kernels.reset_counts()
+    a = solve_case(100, nx=8, n_steps=3, quiet=True, device="cuda",
+                   dtype="float64")
+    _launched("ns_cell_residual_bdf2_p1", "ns_cell_jacobian_bdf2_p1",
+              "sup_spmv", "ell_sum")
+    b = solve_case(100, nx=8, n_steps=3, quiet=True, device="cpu",
+                   dtype="float64")
+    assert a["counts"] == b["counts"]
+    assert abs(a["max_err"] - b["max_err"]) <= 1e-9 * b["max_err"]
+    np.testing.assert_allclose(a["u"], b["u"], rtol=1e-9,
+                               atol=1e-9 * np.abs(b["u"]).max())
+
+
+def test_dfg2d2_path_k_on_card_matches_cpu(tmp_path):
+    """Path K small: PipeCylinder2D2Simulation at res_scale 3.0, two
+    float64 steps under the rasamg_sup settings: the force rows within
+    1e-9 of the plain versions', read once, at the end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.scenarios.pipe_cylinder import (
+        PipeCylinder2D2Simulation)
+
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_counts()
+        sc = PipeCylinder2D2Simulation(
+            "stabilized_schur", dt=0.0025, T=0.004, res_scale=3.0,
+            dtype="float64", device=dev, pc_inner_method="rasamg_sup",
+            pc_inner_u=0, pc_inner_p=3, pc_ras_size=32)
+        sc.solve(str(tmp_path / dev))
+        if dev == "cuda":
+            # no ras_apply: at 386 nodes the velocity hierarchy is its
+            # coarsest level alone, solved directly
+            _launched("sup_spmv", "ell_sum", "ns_cell_residual_p1",
+                      "krylov_cgs")
+        rows[dev] = np.loadtxt(tmp_path / dev / "bdforces.txt", ndmin=2)
+    a, b = rows["cuda"], rows["cpu"]
+    assert a.shape == b.shape == (2, 4)
+    np.testing.assert_array_equal(a[:, :2], b[:, :2])
+    for col in (2, 3):
+        assert np.abs(a[:, col] - b[:, col]).max() \
+            <= 1e-9 * np.abs(b[:, col]).max()
+
+
+def test_stenosis_path_l_on_card_matches_cpu(tmp_path):
+    """Path L small: the stenosis at res 0.6, two float64 steps under
+    stabilized_schur_pressurebc (K15 with K16 and K17 in its launch),
+    card against host: counts, state and FFR within 1e-9; the tree
+    scenario at res 1.0, one step, its Reynolds field within 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.scenarios.stenosis import StenosisSimulation
+    from cfdtpu_torch.scenarios.stenosis_with_tree_2d_pressure import (
+        StenosisWithTree2DPressureSimulation)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_counts()
+        sc = StenosisSimulation("stabilized_schur_pressurebc", dt=0.005,
+                                T=0.0075, res=0.6, dtype="float64",
+                                device=dev, output_every=10)
+        counts = []
+        sc.solve(str(tmp_path / f"st_{dev}"), afterStepCallback=lambda t: (
+            counts.append((sc.solver.last_stats["newton_iters"],
+                           sc.solver.last_stats["ksp_iters"]))))
+        if dev == "cuda":
+            _launched("ns_cell_residual_curl_p1_facet",
+                      "ns_cell_jacobian_curl_p1_facet", "block_jacobi",
+                      "ns_facet_weakp_p1_fused",
+                      "ns_facet_nitsche_curl_p1_fused")
+        ffr = sc._compute_ffr(str(tmp_path / f"st_{dev}"))
+        tree = StenosisWithTree2DPressureSimulation(
+            "stabilized_schur_pressurebc", dt=0.005, T=0.0025, res=1.0,
+            dtype="float64", device=dev, output_every=10)
+        tree.solve(str(tmp_path / f"tree_{dev}"))
+        out[dev] = (counts, sc.solver.u_sol.cpu().numpy(),
+                    sc.solver.p_sol.cpu().numpy(), ffr, tree.reynolds)
+    (ca, ua, pa, fa, ra), (cb, ub, pb, fb, rb) = out["cuda"], out["cpu"]
+    assert ca == cb and len(ca) == 2
+    assert 0 < fa < 1 and abs(fa - fb) <= 1e-9 * fb
+    for a, b in ((ua, ub), (pa, pb), (ra, rb)):
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-9

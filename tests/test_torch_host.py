@@ -118,9 +118,11 @@ def test_amg_hierarchy_identical(pair):
 
 def test_port_never_imports_jax(tmp_path):
     """A fresh interpreter builds the DFG slice and the weak-pressure
-    scenario with cfdtpu_torch alone, and imports every solver of the
-    weak-pressure family: neither jax nor cfdtpu may end up in
-    sys.modules."""
+    scenario with cfdtpu_torch alone, imports every solver of the
+    weak-pressure family, every 2D scenario, the geometry and
+    validation modules and both validation scripts, and runs a step of
+    the cavity and of the stenosis: neither jax nor cfdtpu may end up
+    in sys.modules."""
     code = (
         "import sys\n"
         "from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark\n"
@@ -137,6 +139,25 @@ def test_port_never_imports_jax(tmp_path):
         "        'cfdtpu_torch.solvers.stabilized_schur_' + m)\n"
         "from cfdtpu_torch.scenarios.pipe_cylinder_pressurebc import \\\n"
         "    PipeCylinderPressureBC\n"
+        "for m in ('validation', 'validation.ghia', 'validation.dfg',\n"
+        "          'geom.stenosis2d', 'geom.tree', 'geom.tree.tree_2d',\n"
+        "          'geom.tree_mesh2d', 'scenarios.lid_driven2D',\n"
+        "          'scenarios.unit_square', 'scenarios.unit_square_pipe',\n"
+        "          'scenarios.pipe_cylinder', 'scenarios.pipe_cylinder_2d2',\n"
+        "          'scenarios.stenosis', 'scenarios.stenosis_pressure',\n"
+        "          'scenarios.stenosis_pressure_structured',\n"
+        "          'scenarios.stenosis_mesh_variable',\n"
+        "          'scenarios.stenosis_with_tree_2d',\n"
+        "          'scenarios.stenosis_with_tree_2d_pressure',\n"
+        "          'scripts.validate_ghia', 'scripts.validate_dfg2d2'):\n"
+        "    importlib.import_module('cfdtpu_torch.' + m)\n"
+        "from cfdtpu_torch.scripts.validate_ghia import solve_case\n"
+        "assert solve_case(100, nx=4, n_steps=1, device='cpu')['steps'] == 1\n"
+        "from cfdtpu_torch.validation.dfg import featflow_reference_stats\n"
+        "featflow_reference_stats(2)\n"
+        "from cfdtpu_torch.scenarios.stenosis import StenosisSimulation\n"
+        "StenosisSimulation('stabilized_schur_pressurebc', dt=0.005,\n"
+        "                   T=0.005, res=1.0, device='cpu').solver.solveStep()\n"
         "sc = DFG1Benchmark('stabilized_schur', dt=0.05, T=0.05,\n"
         "                   res_scale=2.5, device='cpu',\n"
         "                   pc_inner_method='rasamg_sup', pc_inner_u=0)\n"
