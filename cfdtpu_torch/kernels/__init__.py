@@ -51,7 +51,8 @@ K18 ns_facet_cbc_p1    the convective outlet and the directional
 
 Every wrapper takes its plain PyTorch version for CPU tensors and
 launches its kernel for CUDA tensors (or raises); each call of a
-wrapper that launches adds one to its counter, `COUNTERS[name].n`. A
+wrapper that launches adds one to its counter, `COUNTERS[name].n` (a
+counter of cfdtpu_torch.utils.trace, always on). A
 fused variant or option also counts under its own name:
 `sup_spmv_prolong` (K1 with the coarse-grid correction), `sup_spmv_cheby`
 (K1's cheby mode), `krylov_cgs_scaled` (K9's scaled normalisation),
@@ -74,41 +75,6 @@ read from torch.profiler's trace.
 
 from __future__ import annotations
 
-
-class LaunchCounter:
-    """Plain integer count of a kernel's launches."""
-
-    __slots__ = ("name", "n")
-
-    def __init__(self, name: str):
-        self.name = name
-        self.n = 0
-
-
-COUNTERS = {
-    name: LaunchCounter(name)
-    for name in ("sup_spmv", "sup_spmv_prolong", "ell_sum",
-                 "ns_cell_residual_p1", "ns_cell_residual_p1_facet",
-                 "ns_cell_jacobian_p1", "ns_cell_jacobian_p1_facet",
-                 "selfp_triple", "patch_spmv", "ras_apply",
-                 "amg_prolong", "krylov_cgs", "krylov_lsq",
-                 "sup_spmv_cheby", "cheby_update", "krylov_cgs_scaled",
-                 "block_jacobi", "block_jacobi_inv", "amg_gcr2",
-                 "ns_cell_residual_bdf2_p1", "ns_cell_residual_bdf2_p1_facet",
-                 "ns_cell_jacobian_bdf2_p1", "ns_cell_jacobian_bdf2_p1_facet",
-                 "ns_cell_residual_curl_p1", "ns_cell_residual_curl_p1_facet",
-                 "ns_cell_jacobian_curl_p1", "ns_cell_jacobian_curl_p1_facet",
-                 *(f"ns_facet_{term}{jac}_p1{fused}"
-                   for term in ("natural", "viscous", "backflow", "weakp",
-                                "nitsche", "nitsche_curl", "cbc", "ddn")
-                   for jac in ("", "_jac") for fused in ("", "_fused")))
-}
-
-
-def reset_counts() -> None:
-    for c in COUNTERS.values():
-        c.n = 0
-
-
-def counts() -> dict[str, int]:
-    return {name: c.n for name, c in COUNTERS.items()}
+# the counters are the trace module's (utils/trace.py), re-exported here
+from ..utils.trace import COUNTERS, counts, reset_counts  # noqa: F401
+from ..utils.trace import Counter as LaunchCounter  # noqa: F401

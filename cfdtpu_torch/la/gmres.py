@@ -27,12 +27,13 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import LaunchCounter
 from ..kernels.krylov import Givens, krylov_cgs, krylov_lsq, krylov_lsq_tri
+from ..utils.trace import count, counter, span
 
 # fgmres's lookahead iterations that were queued and then discarded (the
-# one after an iteration that converged), summed over every solve
-DISCARDED = LaunchCounter("fgmres_discarded")
+# one after an iteration that converged), summed over every solve: the
+# trace module's counter ksp_discarded
+DISCARDED = counter("ksp_discarded")
 
 
 def _identity_precond(v):
@@ -95,12 +96,13 @@ class _StatReads:
             self.ready[k % 2].record()
 
     def wait(self, k: int) -> tuple[float, bool]:
-        if self.cuda:
-            self.ready[k % 2].synchronize()
-            row = self.host[k % 2]
-        else:
-            row = self.stat[k]
-        res, go = row.tolist()
+        with span("ksp.wait"):
+            if self.cuda:
+                self.ready[k % 2].synchronize()
+                row = self.host[k % 2]
+            else:
+                row = self.stat[k]
+            res, go = row.tolist()
         return res, go != 0.0
 
 
@@ -140,8 +142,9 @@ def fgmres(
         return torch.sqrt(torch.dot(v, v))
 
     # host read: ||b|| and the initial residual, once per solve
-    bnorm, r0 = (float(v) for v in
-                 torch.stack([_norm(b), _norm(b - matvec(x0))]).cpu())
+    norms = torch.stack([_norm(b), _norm(b - matvec(x0))])
+    with span("ksp.wait"):
+        bnorm, r0 = (float(v) for v in norms.cpu())
     tol = max(rtol * bnorm, atol)
 
     V = torch.empty((m + 1, n), dtype=dt, device=dev)
@@ -165,6 +168,7 @@ def fgmres(
     def cycle(x, done):
         """One restart cycle after `done` iterations; returns (x_new,
         resnorm, inner_iters, discarded)."""
+        count("ksp_cycles")
         r = b - matvec(x)
         # V[0] = r / max(||r||, tiny), g = ||r|| e1
         krylov_cgs(V, r, -1, hr, False, giv)
@@ -197,5 +201,6 @@ def fgmres(
         iters += j
         discarded += wasted
     DISCARDED.n += discarded
+    count("ksp_iters", iters)
     return x, {"iters": iters, "resnorm": res, "converged": res <= tol,
                "discarded": discarded}

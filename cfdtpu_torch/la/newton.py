@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.trace import count, span
 from .gmres import fgmres
 
 
@@ -49,8 +50,9 @@ class NewtonParams:
 
 def _norms(*vs):
     """Host read of several vector 2-norms in one transfer."""
-    return [float(v) for v in
-            torch.stack([torch.linalg.vector_norm(v) for v in vs]).cpu()]
+    with span("norms"):
+        return [float(v) for v in
+                torch.stack([torch.linalg.vector_norm(v) for v in vs]).cpu()]
 
 
 def newton_solve(
@@ -81,7 +83,8 @@ def newton_solve(
         )
     p = params
 
-    f = F(x0)
+    with span("residual"):
+        f = F(x0)
     (fnorm,) = _norms(f)
     f0norm = fnorm
     ftol = max(p.atol, p.rtol * f0norm)
@@ -108,24 +111,27 @@ def newton_solve(
             if M_lagged is not None:
                 M = M_lagged
         ksp_rtol = eta if p.ew else p.ksp_rtol
-        dx, info = fgmres(
-            matvec, -f, precond=M, restart=p.ksp_restart,
-            maxiter=p.ksp_maxiter, rtol=ksp_rtol, atol=p.ksp_atol,
-        )
+        with span("ksp"):
+            dx, info = fgmres(
+                matvec, -f, precond=M, restart=p.ksp_restart,
+                maxiter=p.ksp_maxiter, rtol=ksp_rtol, atol=p.ksp_atol,
+            )
         if project is not None:
             dx = project(dx)
 
         # backtracking line search on ||F||
         lam = 1.0
         x_new = x + dx
-        fnew = F(x_new)
+        with span("residual"):
+            fnew = F(x_new)
         nnew, dxnorm, xnorm = _norms(fnew, dx, x_new)
         tries = 0
         while (not nnew <= (1.0 - p.ls_alpha * lam) * fnorm
                and tries < p.ls_max_halvings):
             lam *= 0.5
             x_new = x + lam * dx
-            fnew = F(x_new)
+            with span("residual"):
+                fnew = F(x_new)
             nnew, xnorm = _norms(fnew, x_new)
             tries += 1
         ls_failed = nnew > (1.0 - p.ls_alpha * lam) * fnorm
@@ -143,6 +149,8 @@ def newton_solve(
 
         x, f, fnorm = x_new, fnew, nnew
         it += 1
+        count("newton_iters")
+        count("ls_trials", tries)
         ksp_total += info["iters"]
         ksp_max = max(ksp_max, info["iters"])
         lsfail += int(ls_failed)

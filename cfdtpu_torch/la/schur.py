@@ -61,6 +61,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.block_jacobi import block_jacobi
+from ..utils.trace import count, span
 from .chebyshev import chebyshev_fixed, cheby_scale, estimate_lambda_max
 from .gmres import gmres_fixed
 
@@ -230,24 +231,28 @@ class CapturedPrecond:
         self.static_out = None
 
     def capture(self, v) -> None:
-        dev = v.device
-        self.static_in = v.clone()
-        graph = torch.cuda.CUDAGraph()
-        ctx = torch.cuda.graph(graph)
-        side = ctx.capture_stream
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.eager(self.static_in)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        with ctx:
-            self.static_out = self.eager(self.static_in)
-        self.graph = graph
+        count("pc_captures")
+        with span("pc.capture"):
+            dev = v.device
+            self.static_in = v.clone()
+            graph = torch.cuda.CUDAGraph()
+            ctx = torch.cuda.graph(graph)
+            side = ctx.capture_stream
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.eager(self.static_in)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with ctx:
+                self.static_out = self.eager(self.static_in)
+            self.graph = graph
 
     def __call__(self, v):
         if self.graph is None:
             self.capture(v)
-        self.static_in.copy_(v)
-        self.graph.replay()
+        count("pc_replays")
+        with span("pc.apply"):
+            self.static_in.copy_(v)
+            self.graph.replay()
         return self.static_out
 
 

@@ -25,6 +25,7 @@ import torch
 
 from ..mesh import Mesh
 from ..spaces import BoundaryCondition
+from ..utils import trace
 from ..solvers.base import SolverBase
 
 
@@ -206,23 +207,29 @@ class Scenario(ABC):
 
         try:
             while t < T:
-                _t0 = time.perf_counter()
-                solver.solveStep()
-                _wall = time.perf_counter() - _t0
-                i += 1
-                t += self.dt
-                st = getattr(solver, "last_stats", {})
-                if not st.get("skipped"):
-                    stats_log.write(
-                        f"{i} {t:.6f} {_wall:.4f} "
-                        f"{st.get('newton_iters', 0)} "
-                        f"{st.get('ksp_iters', 0)} "
-                        f"{st.get('fnorm', float('nan'))}\n"
-                    )
+                # tracing for this iteration: on under enable() or while a
+                # torch.profiler records (utils/trace.py)
+                trace.begin_step(i + 1)
+                with trace.span("step"):
+                    with trace.span("solve"):
+                        _t0 = time.perf_counter()
+                        solver.solveStep()
+                        _wall = time.perf_counter() - _t0
+                    i += 1
+                    t += self.dt
+                    st = getattr(solver, "last_stats", {})
+                    if not st.get("skipped"):
+                        stats_log.write(
+                            f"{i} {t:.6f} {_wall:.4f} "
+                            f"{st.get('newton_iters', 0)} "
+                            f"{st.get('ksp_iters', 0)} "
+                            f"{st.get('fnorm', float('nan'))}\n"
+                        )
 
-                if i % self.output_every == 0:
-                    solver.assemble_wss()
-                    write_all(t)
+                    if i % self.output_every == 0:
+                        with trace.span("output"):
+                            solver.assemble_wss()
+                            write_all(t)
 
                 if afterStepCallback:
                     afterStepCallback(t)
@@ -232,17 +239,20 @@ class Scenario(ABC):
                 # DFG 2D-2 forces) has seen step i, and flushed it, before
                 # the step-i checkpoint exists
                 if self.checkpoint_every and i % self.checkpoint_every == 0:
-                    self.pre_checkpoint()
-                    self.save_checkpoint(
-                        os.path.join(output_folder, "checkpoint.npz"), t, i
-                    )
+                    with trace.span("checkpoint"):
+                        self.pre_checkpoint()
+                        self.save_checkpoint(
+                            os.path.join(output_folder, "checkpoint.npz"),
+                            t, i)
 
                 if (i + 1) % 10 == 0:
-                    # one fused host read of both norms
-                    u_sol_norm, u_diff_norm = (float(x) for x in torch.stack([
-                        torch.abs(solver.u_sol).max(),
-                        torch.abs(solver.u_sol - solver.u_prev).max(),
-                    ]).cpu())
+                    with trace.span("early_stop"):
+                        # one fused host read of both norms
+                        u_sol_norm, u_diff_norm = (
+                            float(x) for x in torch.stack([
+                                torch.abs(solver.u_sol).max(),
+                                torch.abs(solver.u_sol - solver.u_prev).max(),
+                            ]).cpu())
                     rel_diff = (u_diff_norm / max(u_sol_norm, 1e-12)
                                 ) / self.dt
                     if rel_diff < self.early_stop_tolerance:
@@ -257,6 +267,7 @@ class Scenario(ABC):
                 solver.u_prev = solver.u_sol
                 solver.p_prev = solver.p_sol
         finally:
+            trace.end_loop()
             for w in writers.values():
                 w.close()
             stats_log.close()

@@ -45,6 +45,7 @@ from ..la.schur import (_AMG_P_METHODS, _check_method, build_schur_state,
 from ..mesh import Mesh
 from ..spaces.dirichlet import combine_bcs, gather_values
 from ..utils.dtypes import default_tolerances
+from ..utils.trace import count, span
 from .base import SolverBase
 
 
@@ -336,10 +337,13 @@ class Solver(SolverBase):
 
         def build_op_state(u, p, aux, prm):
             """Element Jacobians -> node-BSR values -> PC numeric state."""
-            A_cells, A_blocks = form.element_jacobians(u, p, aux, prm)
-            vals = nodebsr.assemble(A_cells, A_blocks)
-            pc_state = build_schur_state(nodebsr, vals, bc_mask_u, pc_pin,
-                                         **pc_kw)
+            with span("jacobian"):
+                A_cells, A_blocks = form.element_jacobians(u, p, aux, prm)
+            with span("assemble"):
+                vals = nodebsr.assemble(A_cells, A_blocks)
+            with span("pc_setup"):
+                pc_state = build_schur_state(nodebsr, vals, bc_mask_u,
+                                             pc_pin, **pc_kw)
             return {"vals": vals, "pc": pc_state}
 
         def solve(F, x0, params, make_operator):
@@ -359,8 +363,12 @@ class Solver(SolverBase):
 
             def make_operator(x):
                 u, p = unravel(x)
-                A_cells, A_blocks = form.element_jacobians(u, p, aux, prm)
-                vals = nodebsr.assemble(A_cells, A_blocks)
+                with span("build"):
+                    with span("jacobian"):
+                        A_cells, A_blocks = form.element_jacobians(
+                            u, p, aux, prm)
+                    with span("assemble"):
+                        vals = nodebsr.assemble(A_cells, A_blocks)
                 built = {}
 
                 def precond(v):
@@ -369,8 +377,9 @@ class Solver(SolverBase):
                     # is never built (what dead-code elimination does
                     # for the jitted cfdtpu step)
                     if "M" not in built:
-                        st = build_schur_state(nodebsr, vals, bc_mask_u,
-                                               pc_pin, **pc_kw)
+                        with span("pc_setup"):
+                            st = build_schur_state(nodebsr, vals, bc_mask_u,
+                                                   pc_pin, **pc_kw)
                         built["M"] = make_schur_precond_from_state(
                             nodebsr, st, bc_mask_u, pc_pin, **pc_kw)
                     return built["M"](v)
@@ -443,9 +452,14 @@ class Solver(SolverBase):
                 or getattr(self, "_rebuild_hint", False)
             ):
                 self._rebuild_hint = False
-                self._op_state = self._build_op_state(
-                    u_guess, p_guess, self._aux(), prm
-                )
+                with span("build"):
+                    state = self._build_op_state(
+                        u_guess, p_guess, self._aux(), prm
+                    )
+                # the old state, its CUDA graphs and their memory pools
+                # go here, after the new state is built
+                with span("release"):
+                    self._op_state = state
                 self._op_state_dt = dt_now
                 self._op_state_fresh = True
             return self._reuse_step(
@@ -476,9 +490,32 @@ class Solver(SolverBase):
         if len(hist) > 8:
             hist.pop(0)
 
+    def outer_operator(self):
+        """(apply, n): y = apply(x), the outer Jacobian's matvec on the
+        carried operator (pc_lag_steps > 1) as the last build left it,
+        without the Dirichlet row mask, and n the length of x; None where
+        the solver carries no operator."""
+        state = self._op_state
+        if state is None:
+            return None
+        nodebsr, vals = self._nodebsr, state["vals"]
+        return ((lambda x: nodebsr.apply_element_matrices(vals, (), x)),
+                nodebsr.n_nodes * nodebsr.bs)
+
+    def _step_stats(self, stats: dict, retries: int) -> dict:
+        """The step's Newton stats with rebuilt (the operator and the PC
+        were built anew in the step: always without pc_lag_steps) and
+        retried, counted in the trace module's rebuilds and retries."""
+        rebuilt = bool(getattr(self, "_op_state_fresh", True))
+        count("rebuilds", int(rebuilt))
+        count("retries", retries)
+        return dict(stats, rebuilt=rebuilt, retried=retries > 0)
+
     def solveStep(self) -> None:
-        bc_u_vals, bc_p_vals = self._bc_values()
+        with span("bc"):
+            bc_u_vals, bc_p_vals = self._bc_values()
         u, p, r_u, r_p, stats = self._run_step(bc_u_vals, bc_p_vals)
+        retries = 0
         if not stats["converged"] and not getattr(self, "_op_state_fresh",
                                                   True):
             # self-healing reuse: the K-stale operator/PC was too stale
@@ -487,8 +524,11 @@ class Solver(SolverBase):
             # its flag on the host, so a step inside a stats_every window
             # retries too (cfdtpu, whose flag stays on the device until
             # the window check, raises there instead)
-            self._op_state = None
-            u, p, r_u, r_p, stats = self._run_step(bc_u_vals, bc_p_vals)
+            retries = 1
+            with span("retry"):
+                self._op_state = None
+                u, p, r_u, r_p, stats = self._run_step(bc_u_vals,
+                                                       bc_p_vals)
         if (self.step_count + 1) % self.stats_every == 0:
             win_conv = getattr(self, "_win_converged", None)
             self._win_converged = None
@@ -526,8 +566,9 @@ class Solver(SolverBase):
             self._win_converged = flag if acc is None else (acc and flag)
             self.last_stats = {"skipped": True}
         # counts of every step, checked or not (host numbers already)
-        self.step_stats = dict(stats)
+        self.step_stats = self._step_stats(stats, retries)
         self.u_sol, self.p_sol = u, p
         self.u_residual, self.p_residual = r_u, r_p
-        self._post_step()
+        with span("post_step"):
+            self._post_step()
         self.step_count += 1

@@ -23,7 +23,7 @@ class Solver(BaseSolver):
             u, p, r_u, r_p, stats = self._run_step(bc_u_vals, bc_p_vals)
             if stats["converged"]:
                 self.last_stats = dict(stats)
-                self.step_stats = dict(stats)
+                self.step_stats = self._step_stats(stats, attempt)
                 self.u_sol, self.p_sol = u, p
                 self.u_residual, self.p_residual = r_u, r_p
                 print(
