@@ -135,13 +135,17 @@ class NodeBSR:
                          (sup.ns, sup.Kg, gbs, gbs))
         return {"coo": vals, "sup": vals_sup}
 
+    def uu_block_jacobi_inv(self, vals, bc_mask_u):
+        """Exact inverses of the (dim x dim) diagonal velocity blocks,
+        (n_nodes, dim, dim), BC rows identity: one K10 launch."""
+        return block_jacobi_inv(vals["coo"], self._diag_pos, bc_mask_u,
+                                self.dim)
+
     def uu_block_jacobi(self, vals, bc_mask_u):
-        """Exact inverse of the (dim x dim) diagonal velocity blocks — a
-        node-block Jacobi PC for the A_uu inner sweeps. BC rows become
-        identity. The inverses are one K10 launch here, each apply one
-        more."""
-        inv = block_jacobi_inv(vals["coo"], self._diag_pos, bc_mask_u,
-                               self.dim)
+        """A node-block Jacobi PC for the A_uu inner sweeps from the
+        inverses of uu_block_jacobi_inv; each apply is one more K10
+        launch."""
+        inv = self.uu_block_jacobi_inv(vals, bc_mask_u)
         return lambda v: block_jacobi(inv, v)
 
     # -- form-operator API (vals passed where the form takes A_cells) -----

@@ -51,9 +51,14 @@ Auu is K1's cheby mode (with the Dirichlet rows as its identity rows),
 and on S, two launches, the elementwise cheby_update after them.
 
 On CUDA one application is one CUDA graph (CapturedPrecond), cfdtpu's
-jitted preconditioner: captured once per built state, at its first
-call, and replayed for every later call. On the CPU the same closure
-runs eagerly.
+jitted preconditioner: captured at its first call and replayed for
+every later call. On the CPU the same closure runs eagerly. A solver
+keeps its applications in a PrecondSlot for its whole life, as cfdtpu
+jits the application once and passes each new state in: the closure
+reads only the tensors of the state it was made from, the vectors made
+from them (_precond_vectors) and the static masks, so every later build
+is copied into those tensors in place and the same closure, and the
+same graph, applies it.
 """
 
 from __future__ import annotations
@@ -95,12 +100,19 @@ def _p_rows(bc_mask_p, v_p) -> dict:
                                          "mask_value": v_p}
 
 
-def _sub_ops(form, A, bc_mask_u, bc_mask_p, pin_pressure, inv_d_u):
+def _scale_u(bc_mask_u, inv_d_u):
+    """diag(Auu)^-1 with the Dirichlet rows zeroed: cfdtpu's
+    inv_d_u * where(bc_mask_u, 0, w) as K1's input scale."""
+    return torch.where(bc_mask_u, 0.0, inv_d_u)
+
+
+def _sub_ops(form, A, bc_mask_u, bc_mask_p, pin_pressure, inv_d_u=None,
+             scale_u=None):
     """The four sub-block actions and the SELFP Schur action S; each
-    operator apply is one K1 launch (Apu takes K1's epilogue options)."""
-    # diag(Auu)^-1 with the Dirichlet rows zeroed: cfdtpu's
-    # inv_d_u * where(bc_mask_u, 0, w) as K1's input scale
-    scale_u = torch.where(bc_mask_u, 0.0, inv_d_u)
+    operator apply is one K1 launch (Apu takes K1's epilogue options).
+    scale_u (_scale_u) is made from inv_d_u where it is not given."""
+    if scale_u is None:
+        scale_u = _scale_u(bc_mask_u, inv_d_u)
 
     def Auu(v, **epi):  # where(bc_mask_u, v, Auu v)
         if epi.get("mode") == "cheby":  # the mask: identity rows
@@ -218,6 +230,9 @@ class CapturedPrecond:
     capture stream, one for the process: cuBLAS keeps a workspace for
     each stream it runs on (the coarsest solves), so a new stream for
     every capture would leave one more workspace allocated each time.
+    The graph reads the tensors `eager` closes over where they lie, so
+    values copied into them in place (PrecondSlot's refit) reach the
+    next replay.
 
     That output is the graph's own memory: it stays valid until the next
     call of this object, which overwrites it. fgmres stores it in Z[j]
@@ -256,6 +271,71 @@ class CapturedPrecond:
         return self.static_out
 
 
+def _structure(tree, leaves: list):
+    """The structure of a state tree (dicts by sorted key, lists, tuples,
+    tensors as (shape, dtype, device), other leaves as they are), its
+    tensors appended to `leaves` in the same order."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return tuple(tree.shape), tree.dtype, tree.device
+    if isinstance(tree, dict):
+        return dict, tuple((k, _structure(tree[k], leaves))
+                           for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree), tuple(_structure(t, leaves) for t in tree)
+    return tree
+
+
+class PrecondSlot:
+    """A solver's preconditioner applications, one for each set of
+    closure arguments, each made once and refitted in place at every
+    later build.
+
+    load(form, state, ...) -> (apply, held), held the state that apply
+    reads. The first load under a set of arguments takes the state, and
+    the vectors made from it (_precond_vectors), as the slot's own, makes
+    the closure and, on CUDA, wraps it in a CapturedPrecond (captured at
+    its first call: pc_captures). A later load whose state and vectors
+    have the same tree, with every tensor of the same shape, dtype and
+    device, copies them into the held tensors (copy_ on the current
+    stream, so the next replay reads them: pc_refits, span pc.refit) and
+    returns the same application; the new state is then dropped back to
+    the caching allocator. No graph is captured, no memory pool made and
+    the allocator is not emptied. A load whose tree differs makes and
+    captures afresh."""
+
+    def __init__(self):
+        self._held = {}  # key -> (structure, leaves, state, apply)
+
+    def load(self, form, state, bc_mask_u, pin_pressure: bool,
+             m_u: int = 8, m_p: int = 10, full: bool = True,
+             bc_mask_p=None, inner_method: str = "gmres",
+             ras_opts: tuple[int, int] = (16, 4)):
+        _check_method(inner_method)
+        ras_opts = tuple(ras_opts)
+        key = (pin_pressure, m_u, m_p, full, inner_method, ras_opts,
+               bc_mask_u.data_ptr(),
+               None if bc_mask_p is None else bc_mask_p.data_ptr())
+        tree = (state, _precond_vectors(form, state, bc_mask_u,
+                                        inner_method))
+        leaves = []
+        structure = _structure(tree, leaves)
+        held = self._held.get(key)
+        if held is not None and held[0] == structure:
+            count("pc_refits")
+            with span("pc.refit"):
+                for dst, src in zip(held[1], leaves):
+                    dst.copy_(src)
+            return held[3], held[2]
+        apply = _precond_closure(form, *tree, bc_mask_u, pin_pressure, m_u,
+                                 m_p, full, bc_mask_p, inner_method,
+                                 ras_opts)
+        if state["A"]["sup"].device.type == "cuda":
+            apply = CapturedPrecond(apply)
+        self._held[key] = (structure, leaves, state, apply)
+        return apply, state
+
+
 def make_schur_precond_from_state(form, state, bc_mask_u,
                                   pin_pressure: bool, m_u: int = 8,
                                   m_p: int = 10, full: bool = True,
@@ -265,21 +345,13 @@ def make_schur_precond_from_state(form, state, bc_mask_u,
     """v -> M v approximating J^-1 v from a prebuilt numeric state.
     Closure construction only: the state can be reused across steps.
 
-    On CUDA the application is a CapturedPrecond kept in the state (one
-    per set of arguments), so a state carried across steps (pc_lag_steps)
-    is captured once, whichever call of this function comes first."""
-    _check_method(inner_method)
-    args = (form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
-            bc_mask_p, inner_method, tuple(ras_opts))
-    if state["A"]["sup"].device.type != "cuda":
-        return _precond_closure(*args)
-    key = (pin_pressure, m_u, m_p, full, inner_method, tuple(ras_opts),
-           bc_mask_u.data_ptr(),
-           None if bc_mask_p is None else bc_mask_p.data_ptr())
-    graphs = state.setdefault("graphs", {})
-    if key not in graphs:
-        graphs[key] = CapturedPrecond(_precond_closure(*args))
-    return graphs[key]
+    On CUDA the application is a new CapturedPrecond, captured at its
+    first call; a solver keeps its applications in a PrecondSlot."""
+    return PrecondSlot().load(form, state, bc_mask_u, pin_pressure,
+                              m_u=m_u, m_p=m_p, full=full,
+                              bc_mask_p=bc_mask_p,
+                              inner_method=inner_method,
+                              ras_opts=ras_opts)[0]
 
 
 def make_schur_precond(form, A, bc_mask_u, pin_pressure: bool,
@@ -295,16 +367,36 @@ def make_schur_precond(form, A, bc_mask_u, pin_pressure: bool,
                                          pin_pressure, **kw)
 
 
-def _precond_closure(form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
-                     bc_mask_p, inner_method, ras_opts):
-    """The eager application of make_schur_precond_from_state. Its
-    vectors (1 / d, the Chebyshev scales, the block Jacobi inverses) are
-    made here, once, before any capture."""
+def _precond_vectors(form, state, bc_mask_u, inner_method):
+    """The vectors an application reads beside the state, made from it
+    at each build: diag(Auu)^-1 zeroed at the Dirichlet rows (_scale_u),
+    the node-block Jacobi inverses (K10) where they are the velocity
+    sweeps' preconditioner, and the Chebyshev scales w_u and w_p."""
+    inv_d_u = 1.0 / state["d_u"]
+    vec = {"scale_u": _scale_u(bc_mask_u, inv_d_u)}
+    if ("ras_inv" not in state and "uu_built" not in state
+            and inner_method != "chebyshev"):
+        # exact (dim x dim) node-block Jacobi: stronger than the scalar
+        # diagonal once convection couples the velocity components
+        vec["uu_bj_inv"] = form.uu_block_jacobi_inv(state["A"], bc_mask_u)
+    if inner_method == "chebyshev":
+        vec["w_u"] = cheby_scale(inv_d_u, state["lam_u"], CHEB_FRAC)
+    if inner_method in ("chebyshev", "chebyshev_p"):
+        vec["w_p"] = cheby_scale(1.0 / state["d_p"], state["lam_p"],
+                                 CHEB_FRAC)
+    return vec
+
+
+def _precond_closure(form, state, vec, bc_mask_u, pin_pressure, m_u, m_p,
+                     full, bc_mask_p, inner_method, ras_opts):
+    """The eager application of a PrecondSlot. It reads the tensors of
+    `state` and `vec` (_precond_vectors) and the static masks, and makes
+    no vector of its own from them, so values copied into those tensors
+    reach its next call (and its graph's next replay)."""
     n_u_flat = form.n_u_flat
     A = state["A"]
-    inv_d_u = 1.0 / state["d_u"]
     Auu, Aup, Apu, App, S = _sub_ops(form, A, bc_mask_u, bc_mask_p,
-                                     pin_pressure, inv_d_u)
+                                     pin_pressure, scale_u=vec["scale_u"])
 
     uu_vcycle = None
     if "uu_built" in state:
@@ -322,17 +414,18 @@ def _precond_closure(form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
             return ras.apply(ras_inv, r)
     elif uu_vcycle is not None:
         Mu = uu_vcycle
-    elif inner_method != "chebyshev":
-        # exact (dim x dim) node-block Jacobi: stronger than the scalar
-        # diagonal once convection couples the velocity components
-        Mu = form.uu_block_jacobi(A, bc_mask_u)
+    elif "uu_bj_inv" in vec:
+        uu_bj_inv = vec["uu_bj_inv"]
+
+        def Mu(r):
+            return block_jacobi(uu_bj_inv, r)
 
     if m_u == 0 and uu_vcycle is not None:
         # preonly u-stage (PETSc's fieldsplit_u preonly): one V-cycle,
         # no Krylov wrap; the outer FGMRES corrects the error
         solve_Auu = uu_vcycle
     elif inner_method == "chebyshev":
-        w_u = cheby_scale(inv_d_u, state["lam_u"], CHEB_FRAC)
+        w_u = vec["w_u"]
 
         def step_u(x, b, scale, dprev, a, c, d_out):
             return Auu(x, mode="cheby", b=b, scale=scale,
@@ -363,7 +456,7 @@ def _precond_closure(form, state, bc_mask_u, pin_pressure, m_u, m_p, full,
             return block_jacobi(d_p, v, True)
 
     if inner_method in ("chebyshev", "chebyshev_p"):
-        w_p = cheby_scale(1.0 / state["d_p"], state["lam_p"], CHEB_FRAC)
+        w_p = vec["w_p"]
 
         def S_solve(r):
             return chebyshev_fixed(S, r, w_p, m_p, CHEB_FRAC)

@@ -23,10 +23,11 @@ Variant hooks for subclasses, as in cfdtpu:
 cfdtpu jit-compiles each step (with const-args wrappers for its remote
 TPU compiler); here the step runs eagerly and the hot operations are
 the CUDA kernels of cfdtpu_torch/kernels, except the preconditioner
-application, which on the card is one CUDA graph per built state
-(la/schur.py): under pc_lag_steps the graph lives in the carried
-op_state, and the lazily built per-iteration preconditioner is captured
-at its first use.
+application, which on the card is one CUDA graph (la/schur.py). The
+solver keeps it in one PrecondSlot for its whole life: the first build
+makes and captures it, and every later build, under pc_lag_steps or of
+the lazily built per-iteration preconditioner, is refitted into the
+tensors it reads.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ import torch
 from ..forms import StabilizedNSForm
 from ..la import NewtonParams, newton_solve
 from ..la.nodebsr import NodeBSR
-from ..la.schur import (_AMG_P_METHODS, _check_method, build_schur_state,
-                        make_schur_precond_from_state)
+from ..la.schur import (_AMG_P_METHODS, PrecondSlot, _check_method,
+                        build_schur_state)
 from ..mesh import Mesh
 from ..spaces.dirichlet import combine_bcs, gather_values
 from ..utils.dtypes import default_tolerances
@@ -305,6 +306,9 @@ class Solver(SolverBase):
             full=self.pc_schur_fact == "full", bc_mask_p=bc_mask_p,
             inner_method=method, ras_opts=ras_opts,
         )
+        # held apart from _op_state: a dt change and the retry's dropped
+        # state rebuild into it too
+        slot = PrecondSlot()
 
         def project(dx):
             du, dp = unravel(dx)
@@ -336,7 +340,9 @@ class Solver(SolverBase):
             return matvec
 
         def build_op_state(u, p, aux, prm):
-            """Element Jacobians -> node-BSR values -> PC numeric state."""
+            """Element Jacobians -> node-BSR values -> PC numeric state,
+            loaded into the solver's slot: the state returned is the
+            slot's, and a previous one is refitted in place."""
             with span("jacobian"):
                 A_cells, A_blocks = form.element_jacobians(u, p, aux, prm)
             with span("assemble"):
@@ -344,7 +350,9 @@ class Solver(SolverBase):
             with span("pc_setup"):
                 pc_state = build_schur_state(nodebsr, vals, bc_mask_u,
                                              pc_pin, **pc_kw)
-            return {"vals": vals, "pc": pc_state}
+            M, pc_state = slot.load(nodebsr, pc_state, bc_mask_u, pc_pin,
+                                    **pc_kw)
+            return {"vals": pc_state["A"], "pc": pc_state, "M": M}
 
         def solve(F, x0, params, make_operator):
             if pin_pressure:
@@ -380,8 +388,8 @@ class Solver(SolverBase):
                         with span("pc_setup"):
                             st = build_schur_state(nodebsr, vals, bc_mask_u,
                                                    pc_pin, **pc_kw)
-                        built["M"] = make_schur_precond_from_state(
-                            nodebsr, st, bc_mask_u, pc_pin, **pc_kw)
+                        built["M"] = slot.load(nodebsr, st, bc_mask_u,
+                                               pc_pin, **pc_kw)[0]
                     return built["M"](v)
 
                 return make_matvec(vals), precond
@@ -397,8 +405,7 @@ class Solver(SolverBase):
             """Newton over a fresh residual with the carried operator
             and preconditioner state (chord Newton)."""
             matvec = make_matvec(op_state["vals"])
-            precond = make_schur_precond_from_state(
-                nodebsr, op_state["pc"], bc_mask_u, pc_pin, **pc_kw)
+            precond = op_state["M"]
             return solve(make_F(aux, bc_u_vals, bc_p_vals, prm),
                          ravel(u_guess, p_guess), reuse_params,
                          lambda x: (matvec, precond))
@@ -456,8 +463,8 @@ class Solver(SolverBase):
                     state = self._build_op_state(
                         u_guess, p_guess, self._aux(), prm
                     )
-                # the old state, its CUDA graphs and their memory pools
-                # go here, after the new state is built
+                # the old state goes here, after the new one is built
+                # (the slot's tensors, refitted in place, are both's)
                 with span("release"):
                     self._op_state = state
                 self._op_state_dt = dt_now

@@ -41,6 +41,9 @@ the time step:
                    (la/gmres.py DISCARDED)
     pc_captures    preconditioner applications captured as CUDA graphs
     pc_replays     replays of those graphs
+    pc_refits      builds copied in place into the tensors of a held
+                   preconditioner application (la/schur.py PrecondSlot,
+                   span pc.refit) instead of a new one made
     cuda_malloc    the caching allocator's cudaMalloc calls in traced
     cuda_free      steps, and its cudaFree calls: num_device_alloc and
                    num_device_free of torch.cuda.memory_stats, read at the

@@ -2374,14 +2374,16 @@ def phase_determinism(torch, np, sc, trials=5):
 
 
 def phase_replay_after_rebuild(torch, np, sc, tag):
-    """After a slice: the graph of the solver's last pc_lag rebuild (kept
-    in its carried op_state), replayed against the eager application of
-    its closure, bitwise."""
+    """After a slice: the solver's one graph (its PrecondSlot's, refitted
+    at every pc_lag rebuild and carried in its op_state), replayed on the
+    last rebuild's values against the eager application of its closure,
+    bitwise."""
+    from cfdtpu_torch.la.schur import CapturedPrecond
+
     s = sc.solver
-    graphs = s._op_state["pc"]["graphs"]
-    require(len(graphs) == 1, f"{tag}: {len(graphs)} graphs in the state")
-    same, finite = replay_vs_eager(torch, np, s,
-                                   next(iter(graphs.values())), 14)
+    pc = s._op_state["M"]
+    require(isinstance(pc, CapturedPrecond), f"{tag}: no captured graph")
+    same, finite = replay_vs_eager(torch, np, s, pc, 14)
     log(f"[determinism] {tag}: the graph of the last pc_lag rebuild, "
         f"replay bitwise equal to eager: {same}")
     require(same and finite, f"{tag}: replay after a rebuild differs from "

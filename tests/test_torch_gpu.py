@@ -955,19 +955,13 @@ def test_fgmres_on_card_matches_cpu(restart):
     assert cg["krylov_lsq"] == cycles
 
 
-@pytest.mark.parametrize("method", ["amg_p", "rasamg_sup"])
-def test_graph_replay_matches_eager(sc, method):
-    """One preconditioner application as a CUDA graph: captured at the
-    first call, cached in the state (a second closure of the same state
-    is the same graph), and every replay bitwise equal to the eager
-    application of the same closure on the same input."""
-    from cfdtpu_torch.la.schur import (CapturedPrecond, build_schur_state,
-                                       make_schur_precond_from_state)
+def _pc_case(s, method):
+    """The node-BSR operator of the sc fixture, its masks, the slices'
+    arguments of `method`, and state(seed): a preconditioner state at a
+    seeded random velocity."""
+    from cfdtpu_torch.la.schur import build_schur_state
 
-    s = sc.solver
     nb = s._nodebsr
-    u, up, p = _state(s, seed=6)
-    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
     n_uf = nb.n_u_flat
     mask = torch.zeros(n_uf + nb.n_nodes, dtype=torch.bool, device="cuda")
     for d0 in range(2):
@@ -976,17 +970,80 @@ def test_graph_replay_matches_eager(sc, method):
     kw = dict(m_u=0 if method == "rasamg_sup" else 6,
               m_p=5 if method == "rasamg_sup" else 10,
               bc_mask_p=mask[n_uf:], inner_method=method, ras_opts=(32, 4))
-    state = build_schur_state(nb, vals, mask[:n_uf], False, **kw)
-    pc = make_schur_precond_from_state(nb, state, mask[:n_uf], False, **kw)
+
+    def state(seed):
+        u, up, p = _state(s, seed=seed)
+        vals = nb.assemble(*s.form.element_jacobians(u, p, (up,),
+                                                     s.params()))
+        return build_schur_state(nb, vals, mask[:n_uf], False, **kw)
+
+    return nb, mask[:n_uf], kw, state
+
+
+@pytest.mark.parametrize("method", ["amg_p", "rasamg_sup"])
+def test_graph_replay_matches_eager(sc, method):
+    """One preconditioner application as a CUDA graph: captured at the
+    first call, held in a PrecondSlot (the same state loaded again hands
+    back the same graph), and every replay bitwise equal to the eager
+    application of the same closure on the same input."""
+    from cfdtpu_torch.la.schur import (CapturedPrecond, PrecondSlot,
+                                       make_schur_precond_from_state)
+
+    s = sc.solver
+    nb, mask_u, kw, build = _pc_case(s, method)
+    state = build(6)
+    pc = make_schur_precond_from_state(nb, state, mask_u, False, **kw)
     assert isinstance(pc, CapturedPrecond)
-    assert make_schur_precond_from_state(nb, state, mask[:n_uf], False,
-                                         **kw) is pc
+    slot = PrecondSlot()
+    held = slot.load(nb, state, mask_u, False, **kw)[0]
+    assert slot.load(nb, state, mask_u, False, **kw)[0] is held
     rng = np.random.default_rng(7)
     for _ in range(2):
-        v = s.tensor(rng.standard_normal(n_uf + nb.n_nodes))
+        v = s.tensor(rng.standard_normal(mask_u.numel() + nb.n_nodes))
         got = pc(v).clone()
         assert torch.equal(got, pc.eager(v))
         assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("method", ["amg_p", "rasamg_sup"])
+def test_graph_refit_matches_a_fresh_closure(sc, method):
+    """One graph, refitted in place: after 3 refits its replay is bitwise
+    equal to the eager application of a closure freshly made of the
+    newest state, with one capture and three pc_refits. Past the first
+    refit, whose build is the first to free a state to the caching
+    allocator, the refits make it retry no allocation and add no
+    segment."""
+    from cfdtpu_torch.la.schur import (CapturedPrecond, PrecondSlot,
+                                       make_schur_precond_from_state)
+    from cfdtpu_torch.utils.trace import counter
+
+    s = sc.solver
+    nb, mask_u, kw, build = _pc_case(s, method)
+    v = s.tensor(np.random.default_rng(8).standard_normal(
+        mask_u.numel() + nb.n_nodes))
+    captures, refits = counter("pc_captures").n, counter("pc_refits").n
+    slot = PrecondSlot()
+    pc = slot.load(nb, build(20), mask_u, False, **kw)[0]
+    assert isinstance(pc, CapturedPrecond)
+    first = pc(v).clone()
+    mem, newest = [], None
+    for seed in (21, 22, 23):
+        # the previous state goes before the next build, as the solver's
+        # transient state does
+        del newest
+        newest = build(seed)
+        assert slot.load(nb, newest, mask_u, False, **kw)[0] is pc
+        pc(v)
+        torch.cuda.synchronize()
+        st = torch.cuda.memory_stats()
+        mem.append((st["num_alloc_retries"], st["segment.all.current"]))
+    assert counter("pc_captures").n == captures + 1
+    assert counter("pc_refits").n == refits + 3
+    assert mem[0] == mem[-1], mem
+    fresh = make_schur_precond_from_state(nb, newest, mask_u, False, **kw)
+    got = pc(v).clone()
+    assert torch.equal(got, fresh.eager(v))
+    assert torch.isfinite(got).all() and not torch.equal(got, first)
 
 
 # -- the AMG cycle family and the non-AMG inner methods --------------------

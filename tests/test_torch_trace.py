@@ -204,7 +204,7 @@ def test_spans_nest_in_steps(runs):
     for name in ("bc", "build", "release", "residual", "norms", "ksp",
                  "post_step"):
         assert parents[name] == {"solve"}, name
-    for name in ("jacobian", "assemble", "pc_setup"):
+    for name in ("jacobian", "assemble", "pc_setup", "pc.refit"):
         assert parents[name] == {"build"}, name
     assert parents["ksp.wait"] == {"ksp"}
     # the CPU has no CUDA graph and no allocator counts
@@ -301,10 +301,14 @@ def test_card_pc_capture_and_apply(card_run):
         for k, n in d.items():
             total[k] = total.get(k, 0) + n
     captures = [s for s in spans if s.name == "pc.capture"]
+    refits = [s for s in spans if s.name == "pc.refit"]
     applies = [s for s in spans if s.name == "pc.apply"]
-    # one graph a built state, captured at its first application
-    assert len(captures) == total["pc_captures"] == total["rebuilds"] == 2
+    # one graph for the solver's life, captured at its first application;
+    # every later rebuild is refitted into it
+    assert len(captures) == total["pc_captures"] == 1
     assert {by_id[s.parent].name for s in captures} == {"ksp"}
+    assert len(refits) == total["pc_refits"] == total["rebuilds"] - 1 == 1
+    assert {by_id[s.parent].name for s in refits} == {"build"}
     # one replay an FGMRES iteration queued, the discarded ones too
     assert len(applies) == total["pc_replays"] == (
         total["ksp_iters"] + total["ksp_discarded"])
