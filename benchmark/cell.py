@@ -9,7 +9,9 @@ configuration's file (BENCHMARK.json `configs`) holds the scenario
 class, its keywords and the solver's, the geometry, and the names of
 its mesh generator (benchmark/meshes/<generator>.py) and of its problem
 (benchmark/problems/<problem>.py: boundary data, start state,
-reference). A new configuration or cell is new files of these kinds.
+reference). A cell file may also carry `solver_kw`, solver settings of
+its own over the configuration's. A new configuration or cell is new
+files of these kinds.
 
 The window drives the scenario's own time loop (Scenario.solve). The
 step callback marks the window's start once the warm-up steps are done
@@ -88,9 +90,19 @@ def _module(kind: str, name: str):
     return importlib.import_module(f"benchmark.{kind}.{name}")
 
 
+# (width of points, vertices of a cell) -> the program's cell type
+CELL_TYPES = {(2, 3): "triangle", (3, 4): "tetrahedron"}
+
+
 def make_mesh(config: dict) -> dict:
     """The configuration's mesh, from the generator that its
-    `mesh.generator` names (benchmark/meshes)."""
+    `mesh.generator` names (benchmark/meshes). A generator returns numpy
+    arrays of P1 simplices in d = 2 or 3 dimensions: points (n, d) in
+    the configuration's dtype, cells (nc, d + 1), facets (nf, d) the
+    boundary facets with outward orientation, facet_cells (nf,) the cell
+    of each, facet_local_index (nf,) its local facet there, facet_tags
+    (nf,) the boundary markers. The points are in the order the program
+    keeps (build_scenario refuses a mesh it renumbers)."""
     return _module("meshes", config["mesh"]["generator"]).make(
         config, cache_dir=os.path.join(CACHE_DIR, "mesh"))
 
@@ -123,13 +135,30 @@ def judged_step(cell, seed) -> int:
     return int(lo + rng.integers(hi - lo + 1))
 
 
+def cell_type(mesh) -> str:
+    """The program's cell type of a benchmark mesh, from the widths of
+    its points and its cells."""
+    widths = (np.shape(mesh["points"])[-1], np.shape(mesh["cells"])[-1])
+    if widths not in CELL_TYPES:
+        raise CellError(f"a mesh of points of width {widths[0]} and cells "
+                        f"of {widths[1]} vertices is no triangle or "
+                        f"tetrahedron mesh")
+    return CELL_TYPES[widths]
+
+
+def solver_kw(config, cell) -> dict:
+    """The solver settings of a cell: the configuration's `solver_kw`
+    updated by the cell's own."""
+    return {**config["solver_kw"], **cell.get("solver_kw", {})}
+
+
 def build_scenario(config, cell, mesh, checkpoint, device):
     """The configuration's scenario on the benchmark's mesh, resumed
     from `checkpoint` (the program's own resume path)."""
     from cfdtpu_torch.mesh import Mesh
 
     pm = Mesh(points=mesh["points"], cells=mesh["cells"],
-              cell_type="triangle", facets=mesh["facets"],
+              cell_type=cell_type(mesh), facets=mesh["facets"],
               facet_cells=mesh["facet_cells"],
               facet_local_index=mesh["facet_local_index"],
               facet_tags=mesh["facet_tags"].copy(),
@@ -142,7 +171,7 @@ def build_scenario(config, cell, mesh, checkpoint, device):
     scenario = type(f"Bench{base.__name__}", (base,),
                     {"mesh": property(lambda self: pm)})
     kw = dict(config["scenario_kw"])
-    kw.update(config["solver_kw"])
+    kw.update(solver_kw(config, cell))
     kw.update(early_stop_tolerance=cell["early_stop_tolerance"],
               output_every=cell["output_every"], resume_from=checkpoint)
     return scenario(config["solver"], dt=cell["dt"], T=1e9,

@@ -5,9 +5,13 @@ many times back to back under torch.profiler; the time is the union of
 the device activities' intervals in that trace (the kernels' own time,
 whatever the host's launch pace), a launch's share of it. The bound
 counts the bytes that the node-block sparsity itself needs
-(benchmark/peaks.py: spmv_bytes, from the benchmark's mesh), whatever
-layout the program stores, at the card's HBM bandwidth; the share is
-bound / time, in %.
+(benchmark/peaks.py: spmv_bytes, from the benchmark's mesh, with blocks
+of d + 1 unknowns a node in d dimensions), whatever layout the program
+stores, at the card's HBM bandwidth; the share is bound / time, in %.
+Where the solver carries no operator between steps (pc_lag_steps 1
+builds one in each Newton iteration and keeps none), the operator is
+the Jacobian that the program builds at the window's last state: the
+same sparsity and the same work.
 """
 
 WARMUP = 10
@@ -15,16 +19,31 @@ LAUNCHES = 200
 
 
 def outer_operator(solver):
-    """y = A x of the solver's outer Jacobian as the window left it, and
-    the length of x; None where the solver holds no operator. The one
-    place the benchmark reaches into the solver for this metric."""
+    """y = A x of the solver's outer Jacobian as the window left it (or,
+    where the solver carries none, as the program builds it at the
+    window's last state), and the length of x; None where the solver
+    has no node-block operator. The one place the benchmark reaches into
+    the solver for this metric."""
     state = getattr(solver, "_op_state", None)
     nodebsr = getattr(solver, "_nodebsr", None)
-    if state is None or nodebsr is None:
+    if nodebsr is None:
         return None
-    vals = state["vals"]
+    if state is None:
+        vals = nodebsr.assemble(*solver.form.element_jacobians(
+            solver.u_sol, solver.p_sol, solver._aux(), solver.params()))
+    else:
+        vals = state["vals"]
     n = nodebsr.n_nodes * nodebsr.bs
     return (lambda x: nodebsr.apply_element_matrices(vals, (), x)), n
+
+
+def node_block_bytes(mesh, itemsize: int) -> int:
+    """The bound's bytes on a benchmark mesh: blocks of d + 1 unknowns a
+    node, d the width of its points."""
+    from benchmark.peaks import spmv_bytes
+
+    return spmv_bytes(mesh["cells"], len(mesh["points"]),
+                      mesh["points"].shape[1] + 1, itemsize)
 
 
 def read(ctx):
@@ -33,7 +52,7 @@ def read(ctx):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from benchmark.peaks import HBM_BYTES_PER_S, spmv_bytes
+    from benchmark.peaks import HBM_BYTES_PER_S
     from benchmark.tracewin import busy_time
 
     if ctx.device.type != "cuda" or ctx.solver is None:
@@ -58,6 +77,6 @@ def read(ctx):
     if not iv:
         return None
     seconds = busy_time(iv) / 1e6 / LAUNCHES
-    item = np.dtype(ctx.config["dtype"]).itemsize
-    nbytes = spmv_bytes(ctx.mesh["cells"], len(ctx.mesh["points"]), 3, item)
+    nbytes = node_block_bytes(ctx.mesh,
+                              np.dtype(ctx.config["dtype"]).itemsize)
     return 100.0 * nbytes / HBM_BYTES_PER_S / seconds

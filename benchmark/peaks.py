@@ -24,8 +24,10 @@ def node_block_pairs(cells: np.ndarray, n_nodes: int) -> int:
 
 def spmv_bytes(cells, n_nodes: int, block: int, itemsize: int) -> int:
     """Bytes the node-block sparsity of y = A x needs: each nonzero
-    block's values (block x block) and one int32 column index, one int32
-    row pointer a node (and the last), x read once and y written once."""
+    block's values (block x block: d + 1 unknowns a node, the velocity's
+    d and the pressure, so 3 x 3 on triangles and 4 x 4 on tetrahedra)
+    and one int32 column index, one int32 row pointer a node (and the
+    last), x read once and y written once."""
     nb = node_block_pairs(cells, n_nodes)
     n = n_nodes * block
     return (nb * (block * block * itemsize + 4) + 4 * (n_nodes + 1)

@@ -202,7 +202,8 @@ def execute(workload, seed, seconds, trace, device="cuda",
             result["device"]["window_s"] = tr["wall_s"]
     if tr is not None:
         result["breakdown"] = breakdown(tr)
-    info.update(record, steps_per_s=steps_per_s, error=error)
+    info.update(record, steps_per_s=steps_per_s, error=error,
+                solver_kw=cellmod.solver_kw(config, cell))
     return result, chk, info
 
 

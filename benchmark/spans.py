@@ -32,6 +32,12 @@ class Traced:
         return sum(s.t1_ns - s.t0_ns for s in self.spans
                    if s.name in names) / 1e6
 
+    def outside_ms(self, names: tuple[str, ...], of: str) -> float:
+        """Host ms in the spans of these names that lie inside no span
+        called `of` (at any depth)."""
+        return sum(s.t1_ns - s.t0_ns for s in self.spans
+                   if s.name in names and not self._inside(s, of)) / 1e6
+
     def self_ms(self, name: str, less: tuple[str, ...]) -> float:
         """Host ms in the spans called `name`, less the time of the spans
         called one of `less` that lie inside them (at any depth)."""

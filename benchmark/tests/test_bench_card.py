@@ -9,7 +9,7 @@ import pytest
 
 from benchmark.cell import ROOT
 
-CELLS = ["dfg2d1_developed", "dfg2d2_transient"]
+CELLS = ["dfg2d1_developed", "dfg2d2_transient", "dfg2d1_rebuild"]
 
 
 def run_cell(workload, trace, seconds=4):

@@ -11,7 +11,7 @@ from benchmark import control, judge, run
 
 SMALL = {"mesh": {"res_scale": 2.0}}
 SHORT = {"warmup_steps": 2}
-CELLS = ["dfg2d1_developed", "dfg2d2_transient"]
+CELLS = ["dfg2d1_developed", "dfg2d2_transient", "dfg2d1_rebuild"]
 SEED = 2 ** 31 + 11
 
 

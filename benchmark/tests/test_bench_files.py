@@ -2,6 +2,8 @@
 contract: names, units, lengths, bounds, one file for each
 configuration, cell and metric."""
 
+import importlib
+import inspect
 import json
 import os
 import re
@@ -72,6 +74,17 @@ def test_configs():
                                                f"{name}.py"))
 
 
+def solver_parameters(config_name) -> set:
+    """The named parameters of a configuration's solver class."""
+    b = bench()
+    c = next(c for c in b["configs"] if c["name"] == config_name)
+    with open(os.path.join(ROOT, c["file"])) as f:
+        solver = json.load(f)["solver"]
+    cls = importlib.import_module(f"cfdtpu_torch.solvers.{solver}").Solver
+    return {k for k, p in inspect.signature(cls.__init__).parameters.items()
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)}
+
+
 def test_workloads():
     b = bench()
     pairs = set()
@@ -91,6 +104,13 @@ def test_workloads():
         lo, hi = cell["judged_steps"]
         assert 1 <= lo <= hi
         assert all(v > 0 for v in cell["limits"].values())
+        if "solver_kw" in cell:
+            # a cell's own solver settings name parameters of its
+            # configuration's solver, which would otherwise drop them
+            # into its **kwargs unread
+            assert isinstance(cell["solver_kw"], dict)
+            assert set(cell["solver_kw"]) <= solver_parameters(
+                w["config"])
     assert sum(w["chips"] == 4 for w in b["workloads"]) <= max(
         1, len(b["workloads"]) // 4)
 

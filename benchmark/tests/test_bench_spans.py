@@ -67,6 +67,42 @@ def test_readers_arithmetic(records):
     assert got["device_allocs_per_step"] == pytest.approx(12 / 2)
 
 
+def step_path():
+    """One step of the solver's step path (pc_lag_steps 1): the Jacobian
+    built twice, the PC set up and refitted at its first application,
+    inside ksp."""
+    spans = [
+        span(2, "step", None, 5, 0, 100),
+        span(3, "build", 2, 5, 1, 4), span(4, "jacobian", 3, 5, 1, 3),
+        span(5, "build", 2, 5, 4, 7),
+        span(6, "ksp", 2, 5, 10, 60),
+        span(7, "pc_setup", 6, 5, 11, 23),
+        span(8, "pc.refit", 6, 5, 23, 24),
+        span(9, "pc.apply", 6, 5, 24, 25),
+        span(10, "ksp.wait", 6, 5, 30, 32),
+    ]
+    return {"spans": spans, "steps": {5: {"rebuilds": 1, "pc_refits": 1,
+                                          "ksp_iters": 10}}}
+
+
+def test_readers_on_the_step_path(records):
+    records.update(step_path())
+    # two builds (3 + 3 ms), pc_setup 12 and pc.refit 1 outside them
+    assert load_reader("build_ms_per_rebuild")(ctx(1)) == pytest.approx(19.0)
+    # ksp 50 ms less the set-up, the refit and the wait, over 10
+    assert load_reader("ksp_host_ms_per_ksp")(ctx(1)) == pytest.approx(3.5)
+    # inside build they count once, and ksp keeps its own time
+    rec = step_path()
+    rec["spans"][4:8] = [span(7, "pc_setup", 5, 5, 4, 6),
+                         span(8, "pc.refit", 5, 5, 6, 7),
+                         span(6, "ksp", 2, 5, 10, 60),
+                         span(9, "pc.apply", 6, 5, 24, 25)]
+    records.clear()
+    records.update(rec)
+    assert load_reader("build_ms_per_rebuild")(ctx(1)) == pytest.approx(6.0)
+    assert load_reader("ksp_host_ms_per_ksp")(ctx(1)) == pytest.approx(4.8)
+
+
 def test_step_count_guard(records):
     records.update(two_steps())
     for n in (0, 1, 3):
