@@ -41,8 +41,8 @@
 //   given, each output row's lane also stores xhat[pos] (BlockAMG's
 //   finest level, where the RAS smoother adds to it). Instantiated with
 //   SCALE or without, never with MASK, in 16-byte chunks only, at w = 1
-//   (the SELFP AMG) and 2 (BlockAMG in 2D), 8 nodes a supernode: the
-//   cycles' levels; the host refuses the rest.
+//   (the SELFP AMG), 2 (BlockAMG in 2D) and 3 (BlockAMG in 3D), 8 nodes
+//   a supernode: the cycles' levels; the host refuses the rest.
 // - ADD (a runtime pointer, modes 2 and 3, no MASK): out += add[pos]
 //   after the mode, one more rounding: the W-cycle's x1 + x2
 //   (cfdtpu/la/amg.py:503-510, 675-690) in the epilogue of the second
@@ -229,7 +229,9 @@ __device__ __forceinline__ NodeOf<VEC> node_of(int c0) {
 // and no guards: its aggregate ids are contiguous (one vector load
 // beside the x chunk; agg 16-byte aligned, g a multiple of VEC: the
 // host checks), and at w = 2 each node's two coarse values are one 8- or
-// 16-byte load (xc aligned to a node: the host checks). The sum is K8's
+// 16-byte load (xc aligned to a node: the host checks). At w = 3 a
+// chunk's values straddle nodes, and each takes its own aggregate id
+// and coarse value, as the guarded path does. The sum is K8's
 // expression, base + xc[...], in one statement, so the compiler forms it
 // as it does in K8 (sc*x + xc contracts to one fma).
 template <typename T, int VEC, bool SCALE, int PW>
@@ -238,7 +240,8 @@ __device__ __forceinline__ Chunk<T, VEC> load_xhat(const Args<T>& p,
                                                    const NodeOf<VEC>& q) {
   using V2 = typename std::conditional<sizeof(T) == 4, float2,
                                        double2>::type;
-  static_assert(VEC > 1 && VEC % PW == 0, "whole nodes a chunk");
+  static_assert(VEC > 1 && (PW == 3 || VEC % PW == 0),
+                "whole nodes a chunk at w 1 and 2");
   constexpr int G = 8;  // nodes a supernode column block (the host checks)
   const int64_t m = p.m0;
   const int* ag = p.pagg + (int64_t)col * G;
@@ -247,7 +250,11 @@ __device__ __forceinline__ Chunk<T, VEC> load_xhat(const Args<T>& p,
     xv = load_chunk<T, VEC, false>(p.x0 + i);
     if constexpr (SCALE) sv = load_chunk<T, VEC, false>(p.sc + i);
     const int* src = ag + q.nd[0];
-    if constexpr (PW == 1) {
+    if constexpr (PW == 3) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        cv.v[e] = __ldg(p.pxc + __ldg(ag + q.nd[e]) * PW + q.cp[e]);
+    } else if constexpr (PW == 1) {
       int a[VEC];
       if constexpr (VEC == 4) {
         const int4 v = __ldg(reinterpret_cast<const int4*>(src));
@@ -554,6 +561,10 @@ int prolong_w(const Args<T>& a, int pw, int rpl, cudaStream_t st) {
     return rpl == 2 ? launch_prolong<T, 2, SCALE, 2>(a, st)
                     : launch_prolong<T, 1, SCALE, 2>(a, st);
   }
+  if (pw == 3) {
+    return rpl == 2 ? launch_prolong<T, 2, SCALE, 3>(a, st)
+                    : launch_prolong<T, 1, SCALE, 3>(a, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -626,7 +637,7 @@ int run(const void* A, int64_t sA0, int64_t sA1, int64_t sA2,
   a.lg = lg;
   a.n_lanes = (int)(((int64_t)ns * (R / rpl)) << lg);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (pxc != nullptr) {  // instantiated: 16-byte chunks, no mask, w 1 or 2
+  if (pxc != nullptr) {  // instantiated: 16-byte chunks, no mask, w 1-3
     if (vec != 16 / (int)sizeof(T) || mask != nullptr ||
         (rpl != 1 && rpl != 2)) {
       return (int)cudaErrorInvalidValue;
@@ -661,12 +672,14 @@ extern "C" int cfd_sup_spmv(
     return (int)cudaErrorInvalidValue;
   }
   // the prolongation: one x only, of whole nodes, square, out = x's
-  // rows, 8 nodes a supernode at w 1 or 2, agg and xc aligned
+  // rows, 8 nodes a supernode at w 1, 2 or 3, agg and xc aligned (xc to
+  // a node at w 2)
   if (pxc != nullptr &&
-      (C != w0 || m1 != 0 || (pw != 1 && pw != 2) || C != 8 * pw ||
+      (C != w0 || m1 != 0 || pw < 1 || pw > 3 || C != 8 * pw ||
        m0 % pw || R != C || R0 != R || n1 != 0 || n0 != m0 || mode == 0 ||
        pagg == nullptr || reinterpret_cast<uintptr_t>(pagg) % 16 ||
-       reinterpret_cast<uintptr_t>(pxc) % (pw * (is_f64 ? 8 : 4)))) {
+       reinterpret_cast<uintptr_t>(pxc) %
+           ((pw == 2 ? 2 : 1) * (is_f64 ? 8 : 4)))) {
     return (int)cudaErrorInvalidValue;
   }
   if (xhat != nullptr && pxc == nullptr) return (int)cudaErrorInvalidValue;

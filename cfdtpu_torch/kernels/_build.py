@@ -55,6 +55,12 @@ SIGNATURES = {
     # each), outputs, jacobian, is_f64, stream
     "cfd_ns_element_p1": [P, I64, I64, P, I32, P, P, I32, P, P, P, P, P,
                           I32, I32, P],
+    # cell pointers (9: u, u_prev, p, dofmap, coords, h, phi, dphi, qw),
+    # nc, nq, scalars (7: rho, mu, dt, f0, f1, f2, eps), out0, out1, facet
+    # blocks nfb, their pointers (10 each), sizes, options, scalars,
+    # outputs, jacobian, is_f64, stream
+    "cfd_ns_element_tet": [P, I64, I64, P, P, P, I32, P, P, P, P, P, I32,
+                           I32, P],
     # term, implicit, u, uprev, p, dofmap_u, dofmap_p, coords, phi_u,
     # dphi_u, phi_p, gdphi, normal, dS, h, nf, nq, c, c2, jacobian, out,
     # is_f64, stream

@@ -19,9 +19,13 @@ element_jacobians takes it. On the card one CUDA cell body serves all
 six: on plain numbers for the residuals, on forward-mode dual numbers
 for the Jacobians, instantiated for each form.
 
-The CUDA kernels cover P1 triangles only (dim 2, degree 1: velocity,
-pressure and geometry share one basis, and V and Q share the dofmap).
-For any other form a CUDA tensor raises; there is no fallback.
+The CUDA kernels cover P1 triangles (dim 2, degree 1: velocity,
+pressure and geometry share one basis, and V and Q share the dofmap)
+and, for K3 alone, P1 tetrahedra (csrc/ns_cell_tet.cu: the same
+Crank-Nicolson-midpoint body in 3D, with K7 on triangular facets in its
+launch; its launches also count as `ns_cell_residual_p1_tet` and
+`ns_cell_jacobian_p1_tet`). For any other form a CUDA tensor raises;
+there is no fallback.
 
 Every entry point takes the form's facet blocks, `facets`, a sequence
 of kernels/ns_facet.FacetBlock (at most MAX_FACET_BLOCKS): their
@@ -57,8 +61,9 @@ class CellTabs:
     """Reference-cell tabulations at the quadrature points (tensors on
     the form's device) plus `affine`: True when the basis gradients are
     the same at every point (a simplex with a P1 geometry), and `p1`:
-    True when the CUDA kernels apply, which take the cell's geometry
-    once, not once per point, and so need `affine` too."""
+    True when the CUDA kernels apply (P1 triangles or tetrahedra), which
+    take the cell's geometry once, not once per point, and so need
+    `affine` too."""
 
     qw: torch.Tensor        # (nq,)
     phi_u: torch.Tensor     # (nq, nbu)
@@ -79,7 +84,7 @@ class CellTabs:
                      for a in (dphi_u, dphi_p, gdphi))
         p1 = bool(
             affine and same_dofmap and d2phi_u is None
-            and np.shape(dphi_u)[1:] == (3, 2)
+            and np.shape(dphi_u)[1:] in ((3, 2), (4, 3))
             and np.array_equal(phi_u, phi_p)
             and np.array_equal(dphi_u, dphi_p)
             and np.array_equal(dphi_u, gdphi)
@@ -91,6 +96,11 @@ class CellTabs:
 
         return CellTabs(t(qw), t(phi_u), t(dphi_u), t(d2phi_u), t(phi_p),
                         t(dphi_p), t(gdphi), p1, affine)
+
+    @property
+    def tet(self) -> bool:
+        """P1 tetrahedra: the kernels of csrc/ns_cell_tet.cu."""
+        return self.p1 and tuple(self.dphi_u.shape[1:]) == (4, 3)
 
 
 def ns_cell_kernel(u_e, p_e, uprev_e, coords_e, h_e, tabs: CellTabs, rho,
@@ -375,10 +385,13 @@ def _check_args(name, u, hist, p, dofmap_u, dofmap_p, coords, h, tabs):
         return False
     if not tabs.p1:
         raise NotImplementedError(
-            f"{name} covers affine P1 triangles with a shared "
-            "velocity/pressure basis and dofmap only"
+            f"{name} covers affine P1 triangles and tetrahedra with a "
+            "shared velocity/pressure basis and dofmap only"
         )
     nc = dofmap_u.shape[0]
+    if tabs.tet:
+        return _check_tet(name, u, hist, p, dofmap_u, coords, h, tabs,
+                          named_hist)
     require(tuple(u.shape[1:]) == (2,)
             and all(tuple(t.shape) == u.shape for t in hist),
             f"{name}: u and its history must be (n, 2)")
@@ -399,6 +412,27 @@ def _check_args(name, u, hist, p, dofmap_u, dofmap_p, coords, h, tabs):
     return True
 
 
+def _check_tet(name, u, hist, p, dofmap_u, coords, h, tabs, named_hist):
+    """The tetrahedral kernel's shapes: Crank-Nicolson only (K3), read
+    by scalar loads (no alignment asked)."""
+    nc = dofmap_u.shape[0]
+    require(len(hist) == 1, f"{name}: the tetrahedral kernel is K3's "
+            "Crank-Nicolson midpoint body")
+    require(tuple(u.shape[1:]) == (3,) and tuple(hist[0].shape) == u.shape,
+            f"{name}: u and u_prev must be (n, 3)")
+    require(tuple(dofmap_u.shape) == (nc, 4), "dofmap must be (nc, 4)")
+    require(tuple(coords.shape) == (nc, 4, 3) and tuple(h.shape) == (nc,),
+            f"{name}: coords (nc, 4, 3), h (nc,)")
+    require(tabs.qw.shape[0] <= MAX_POINTS,
+            f"{name}: at most {MAX_POINTS} quadrature points")
+    for key, t in [("u", u)] + named_hist + [
+            ("p", p), ("coords", coords), ("h", h), ("phi", tabs.phi_u),
+            ("dphi", tabs.dphi_u), ("qw", tabs.qw)]:
+        require(t.is_contiguous(), f"{name}: {key} must be contiguous")
+        check_float(key, t, u.dtype)
+    return True
+
+
 def _blocks(facets):
     """The facet blocks of a call, at most MAX_FACET_BLOCKS."""
     blocks = list(facets or ())
@@ -415,6 +449,27 @@ def _ptrs(ctype, values):
     return (ctype * max(len(values), 1))(*values)
 
 
+def _facet_args(blocks, fouts):
+    """The facet blocks as the C entry points take them: their pointers
+    (10 a block), sizes (nf, nq), options (term, implicit), scalars (c,
+    c2) and outputs."""
+    import ctypes
+
+    return (
+        _ptrs(ctypes.c_void_p, [
+            t.data_ptr() for b in blocks
+            for t in (b.dofmap_u, b.dofmap_p, b.coords,
+                      *(b.tabs[k] for k in FACET_TABS))]),
+        _ptrs(ctypes.c_int64, [n for b in blocks
+                               for n in b.tabs["dS"].shape]),
+        _ptrs(ctypes.c_int, [v for b in blocks
+                             for v in (TERM_CODE[b.term.term],
+                                       int(b.term.implicit))]),
+        _ptrs(ctypes.c_double, [c for b in blocks
+                                for c in b.term.coefs(b.scalars)]),
+        _ptrs(ctypes.c_void_p, [t.data_ptr() for t in fouts]))
+
+
 def _element(name, form, jacobian, u, hist, p, dofmap_u, dofmap_p, coords,
              h, tabs, rho, mu, dt, f, eps, a, blocks):
     """One element-kernel call of cell body `form` (FORM_*): the cells and
@@ -425,6 +480,13 @@ def _element(name, form, jacobian, u, hist, p, dofmap_u, dofmap_p, coords,
     cuda = _check_args(name, *args[:8])
     for b in blocks:
         cuda = check_facet_args(name, u, hist[0], p, *b.args()) and cuda
+    if cuda and tabs.tet:
+        if form != FORM_MID:
+            raise NotImplementedError(
+                f"{name}: on tetrahedra the CUDA kernel is K3's "
+                "Crank-Nicolson midpoint body only")
+        return _element_tet(name, jacobian, u, hist[0], p, dofmap_u, coords,
+                            h, tabs, rho, mu, dt, f, eps, blocks)
     if not cuda:
         plain = _jacobian_plain if jacobian else _residual_plain
         fplain = facet_jac_plain if jacobian else facet_plain
@@ -455,18 +517,7 @@ def _element(name, form, jacobian, u, hist, p, dofmap_u, dofmap_p, coords,
     sc = _ptrs(ctypes.c_double, [float(rho), float(mu), float(dt), f0, f1,
                                  float(eps), float(a0), float(a1),
                                  float(a2)])
-    fptr = _ptrs(ctypes.c_void_p, [
-        t.data_ptr() for b in blocks
-        for t in (b.dofmap_u, b.dofmap_p, b.coords,
-                  *(b.tabs[k] for k in FACET_TABS))])
-    fsize = _ptrs(ctypes.c_int64, [n for b in blocks
-                                   for n in b.tabs["dS"].shape])
-    fopt = _ptrs(ctypes.c_int, [v for b in blocks
-                                for v in (TERM_CODE[b.term.term],
-                                          int(b.term.implicit))])
-    fc = _ptrs(ctypes.c_double, [c for b in blocks
-                                 for c in b.term.coefs(b.scalars)])
-    fo = _ptrs(ctypes.c_void_p, [t.data_ptr() for t in fouts])
+    fptr, fsize, fopt, fc, fo = _facet_args(blocks, fouts)
     with torch.cuda.device(dev):
         rc = library().cfd_ns_element_p1(
             cp, nc, tabs.qw.shape[0], sc, form,
@@ -474,6 +525,52 @@ def _element(name, form, jacobian, u, hist, p, dofmap_u, dofmap_p, coords,
             len(blocks), fptr, fsize, fopt, fc, fo, int(jacobian),
             is_f64(u), stream_handle(u))
     COUNTERS[name].n += 1
+    if blocks:
+        COUNTERS[name + "_facet"].n += 1
+    for b in blocks:
+        COUNTERS[b.term.counter(jacobian, fused=True)].n += 1
+    check(rc, name)
+    return outs + tuple(fouts)
+
+
+def _element_tet(name, jacobian, u, uprev, p, dofmap_u, coords, h, tabs,
+                 rho, mu, dt, f, eps, blocks):
+    """One launch of the tetrahedral element kernel (csrc/ns_cell_tet.cu):
+    the cells and every facet block (K7 only)."""
+    import ctypes
+
+    from ._build import check, library
+
+    for b in blocks:
+        if b.term.term != "natural":
+            raise NotImplementedError(
+                f"{name}: on tetrahedra the element kernel's launch carries "
+                f"the natural correction (K7) only, not {b.term.term!r}")
+    nc = dofmap_u.shape[0]
+    dev, dt_ = u.device, u.dtype
+    if jacobian:
+        outs = (torch.empty((nc, 16, 16), dtype=dt_, device=dev),)
+    else:
+        outs = (torch.empty((nc, 4, 3), dtype=dt_, device=dev),
+                torch.empty((nc, 4), dtype=dt_, device=dev))
+    fouts = [torch.empty((b.dofmap_u.shape[0],)
+                         + ((16, 16) if jacobian else (4, 3)),
+                         dtype=dt_, device=dev) for b in blocks]
+    cp = _ptrs(ctypes.c_void_p, [
+        t.data_ptr() for t in (u, uprev, p, dofmap_u, coords, h,
+                               tabs.phi_u, tabs.dphi_u, tabs.qw)])
+    f0, f1, f2 = (float(v) for v in f)
+    sc = _ptrs(ctypes.c_double, [float(rho), float(mu), float(dt), f0, f1,
+                                 f2, float(eps)])
+    fptr, fsize, fopt, fc, fo = _facet_args(blocks, fouts)
+    with torch.cuda.device(dev):
+        rc = library().cfd_ns_element_tet(
+            cp, nc, tabs.qw.shape[0], sc, outs[0].data_ptr(),
+            outs[1].data_ptr() if len(outs) > 1 else None, len(blocks),
+            fptr, fsize, fopt, fc, fo, int(jacobian), is_f64(u),
+            stream_handle(u))
+    COUNTERS[name].n += 1
+    COUNTERS[name + "_tet"].n += 1
     if blocks:
         COUNTERS[name + "_facet"].n += 1
     for b in blocks:

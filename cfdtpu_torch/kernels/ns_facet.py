@@ -24,8 +24,11 @@ versions are torch.func.vmap (and jacfwd) of the port's per-facet
 kernels in forms/facet_terms.py, which serve CPU tensors.
 
 The CUDA kernels cover P1 triangles (three velocity and three pressure
-dofs on the cell behind each facet, dim 2). For any other block a CUDA
-tensor raises; there is no fallback.
+dofs on the cell behind each facet, dim 2); on P1 tetrahedra K7 runs in
+the tetrahedral element kernel's launch (csrc/ns_cell_tet.cu: triangular
+facets, 3D normals, blocks of (nf, 4) maps and (nf, nq, 4, 3) tables)
+and never alone. For any other block a CUDA tensor raises; there is no
+fallback.
 
 A facet block is passed as its tensors: `dofmap_u`, `dofmap_p` (nf, 3)
 int32, `coords` (nf, 3, 2) and `tabs`, the dict of per-facet
@@ -199,23 +202,27 @@ def check_args(name, u, uprev, p, dofmap_u, dofmap_p, coords, tabs):
         return False
     nf = dofmap_u.shape[0]
     nq = tabs["dS"].shape[1]
-    shapes = {"phi_u": (nf, nq, 3), "dphi_u": (nf, nq, 3, 2),
-              "phi_p": (nf, nq, 3), "gdphi": (nf, nq, 3, 2),
-              "normal": (nf, nq, 2), "dS": (nf, nq), "h": (nf,)}
-    p1 = (tuple(dofmap_u.shape) == (nf, 3)
-          and tuple(dofmap_p.shape) == (nf, 3)
-          and tuple(coords.shape) == (nf, 3, 2) and u.dim() == 2
-          and u.shape[1] == 2
+    # the cells behind the facets: triangles (d 2) or tetrahedra (d 3)
+    d = u.shape[1] if u.dim() == 2 else 0
+    nv = d + 1
+    shapes = {"phi_u": (nf, nq, nv), "dphi_u": (nf, nq, nv, d),
+              "phi_p": (nf, nq, nv), "gdphi": (nf, nq, nv, d),
+              "normal": (nf, nq, d), "dS": (nf, nq), "h": (nf,)}
+    p1 = (d in (2, 3) and tuple(dofmap_u.shape) == (nf, nv)
+          and tuple(dofmap_p.shape) == (nf, nv)
+          and tuple(coords.shape) == (nf, nv, d)
           and all(tuple(tabs[k].shape) == v for k, v in shapes.items()))
     if not p1:
         raise NotImplementedError(
-            f"{name} covers P1 triangles (3 velocity and 3 pressure dofs "
-            "a cell, dim 2) only"
+            f"{name} covers the facets of P1 triangles and tetrahedra (d + "
+            "1 velocity and pressure dofs a cell, dim d = 2 or 3) only"
         )
     require(tuple(uprev.shape) == tuple(u.shape) and p.dim() == 1,
             f"{name}: uprev as u, p (n,)")
     for key, t in [("u", u)] + floats:
         require(t.is_contiguous(), f"{name}: {key} must be contiguous")
+    if d == 3:  # read by scalar loads (csrc/ns_cell_tet.cu)
+        return True
     for key, t in (("u", u), ("uprev", uprev), ("coords", coords)):
         # read as 2-vectors (8 or 16 bytes)
         require(t.data_ptr() % (2 * t.element_size()) == 0,
@@ -232,6 +239,10 @@ def facet_call(term: FacetTerm, scalars: dict, jacobian: bool, u, uprev,
     if not check_args(name, *args):
         plain = facet_jac_plain if jacobian else facet_plain
         return plain(term, scalars, *args)
+    if u.shape[1] != 2:
+        raise NotImplementedError(
+            f"{name} alone covers triangles' edges; on tetrahedra the "
+            "natural correction runs in the element kernel's launch")
     from ._build import check, library
 
     nf, nq = tabs["dS"].shape

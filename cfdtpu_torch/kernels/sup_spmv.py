@@ -36,7 +36,7 @@ and options around the modes:
         gather and in mode "jacobi"'s x alike; xhat_out (n_out), if
         given, receives xhat. Modes "residual" and "jacobi" on a square
         level (x and the output of one length, one flat x) of 8 nodes a
-        supernode at w = 1 or 2, with scale or without, never with mask:
+        supernode at w = 1, 2 or 3, with scale or without, never with mask:
         the combinations the V-cycles use, the ones the kernel is built
         for; the rest raise ValueError.
     add (n_out; modes jacobi and cheby, no mask): returned + add, one
@@ -302,9 +302,9 @@ def _check(A, cols, x, n_out, mode, b, d, x_split, y_split, scale, mask,
                 "without, and no mask")
         check_float("xc", xc, A.dtype)
         check_index("agg", agg)
-        require(w in (1, 2) and C == 8 * w and agg.dim() == 1
+        require(w in (1, 2, 3) and C == 8 * w and agg.dim() == 1
                 and agg.shape[0] * w == x.shape[0],
-                f"sup_spmv: prolong is built for widths 1 and 2 with 8 "
+                f"sup_spmv: prolong is built for widths 1 to 3 with 8 "
                 f"nodes a supernode; width {w} does not fit C={C} and x "
                 f"({x.shape[0]},) with agg ({agg.shape[0]},)")
         require(xc.dim() == 1 and xc.is_contiguous()

@@ -103,6 +103,7 @@ COUNTERS = {
     for name in ("sup_spmv", "sup_spmv_prolong", "ell_sum",
                  "ns_cell_residual_p1", "ns_cell_residual_p1_facet",
                  "ns_cell_jacobian_p1", "ns_cell_jacobian_p1_facet",
+                 "ns_cell_residual_p1_tet", "ns_cell_jacobian_p1_tet",
                  "selfp_triple", "patch_spmv", "ras_apply",
                  "amg_prolong", "krylov_cgs", "krylov_lsq",
                  "sup_spmv_cheby", "cheby_update", "krylov_cgs_scaled",

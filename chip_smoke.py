@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of cfdtpu_torch on one CUDA card (an NVIDIA H100).
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--path-m-only]
 
-Run from the root of a checkout. Phases, each raising on failure:
+Run from the root of a checkout. Phases, each raising on failure
+(--path-m-only: 1, 2 and 19 alone):
 
 1. the card: nvidia-smi name and power limit, torch and CUDA versions;
    no CUDA is an error.
@@ -235,9 +236,25 @@ Run from the root of a checkout. Phases, each raising on failure:
    against host within 1e-9; and three more CLI runs (15):
    lid_driven2D under stabilized_schur_bdf2 (benchmark_100.csv) and
    the stenosis (ffr.txt) with and without --device.
+19. path M: DFG 3D-1Z on P1 tetrahedra (DFG3DBenchmark at res_scale 0.6
+   in 22 layers: 1,367,718 cells, 59,442 boundary facets, 972,072 DOF,
+   float32, the benchmark cell's amg_p settings): the tetrahedral K3
+   with K7 in its launch (ns_cell_*_tet_facet_kernel; residual and
+   Jacobian) against the plain cell kernel (PATH_M_CHUNK cells a call)
+   and the plain facet kernel, and K1 on the 16 x 16 supernode blocks
+   (the outer operator and its velocity view, with and without the row
+   mask), within 1e-5 and bitwise on repeat, timed as in 3 (the
+   tetrahedral body's bound is its bytes alone: its operations are not
+   counted); the same in float64 at res_scale 2.0 in 4 layers within
+   1e-12, untimed; form.residual and form.element_jacobians one element
+   launch each (phase_one_launch_form); then PATH_M_STEPS steps of
+   Scenario.solve from rest with the counters reset just before and one
+   under torch.profiler, as path A's checks: every element launch
+   tetrahedral (`ns_cell_*_p1_tet`) with the natural block in it, K7
+   never alone, c_D, c_L and dp after the last step printed.
 
 The second-to-last line is {"kernels": [...]} (per kernel at its
-headline site: launches on its path (A-I), max_abs_err, the cold ms,
+headline site: launches on its path (A-I, M), max_abs_err, the cold ms,
 plain_ms and library_ms, bound_ms and bound_by, the warm ms, the
 device time alone, and its calls and device ms in the profiled window;
 a folded kernel's launches are its own, 0 on its path, and
@@ -437,6 +454,30 @@ PATH_L_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "block_jacobi",
                   "ns_cell_residual_curl_p1_facet",
                   "ns_cell_jacobian_curl_p1_facet",
                   "ns_facet_weakp_p1_fused", "ns_facet_nitsche_curl_p1_fused")
+# path M: DFG 3D-1Z on P1 tetrahedra (scenarios/dfg_3d.py) at the
+# benchmark cell's size and settings (res_scale 0.6 in 22 layers:
+# 243,018 nodes, 1,367,718 cells, 972,072 DOF; float32; amg_p, for
+# rasamg_sup's block-AMG V-cycle stalls on the 3D velocity block), its
+# float64 check at res_scale 2.0 in 4 layers (4,924 nodes); the plain
+# versions run PATH_M_CHUNK cells a call (vmap(jacfwd) over all 1.37
+# million cells at once would hold ~15 GB a float32 intermediate)
+PATH_M = dict(res_scale=0.6, layers=22)
+PATH_M_F64 = dict(res_scale=2.0, layers=4)
+PATH_M_KW = dict(pc_inner_method="amg_p", pc_inner_u=6, pc_inner_p=5,
+                 pc_ras_size=32, snes_lag_jacobian=True, pc_lag_steps=4,
+                 ksp_restart=20)
+PATH_M_STEPS = 4
+PATH_M_PROFILE = 1
+PATH_M_CHUNK = 65536
+PATH_M_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "block_jacobi",
+                  "block_jacobi_inv", "krylov_cgs", "krylov_lsq",
+                  *ELEMENT_KERNELS, "ns_cell_residual_p1_tet",
+                  "ns_cell_jacobian_p1_tet", "ns_facet_natural_p1_fused",
+                  "ns_facet_natural_jac_p1_fused")
+# counters whose device kernels go by another name: the tetrahedral
+# element kernels (csrc/ns_cell_tet.cu, ns_cell_*_tet[_facet]_kernel)
+DEVICE_NAME = {"ns_cell_residual_p1_tet": "ns_cell_residual_tet",
+               "ns_cell_jacobian_p1_tet": "ns_cell_jacobian_tet"}
 # their float64 parity, card against host: J at nx 8, Re 100, 3 steps;
 # K at res_scale 3.0 (1,158 DOF), 2 steps; L's stenosis at res 0.6
 # (2,571 DOF; at res 1.0 the outlet is one facet between two wall nodes
@@ -494,6 +535,7 @@ SUBSET_COUNTERS = ("sup_spmv_prolong", "sup_spmv_cheby", "krylov_cgs_scaled",
                    "ns_cell_jacobian_bdf2_p1_facet",
                    "ns_cell_residual_curl_p1_facet",
                    "ns_cell_jacobian_curl_p1_facet",
+                   "ns_cell_residual_p1_tet", "ns_cell_jacobian_p1_tet",
                    *(f"ns_facet_{t}{j}_p1_fused"
                      for t in ("natural", "viscous", "backflow", "weakp",
                                "nitsche", "nitsche_curl", "cbc", "ddn")
@@ -633,6 +675,12 @@ SOURCES = {
     "ns_facet_ddn_jac_p1": ("cfdtpu_torch/csrc/ns_facet.cu",
                             "cfdtpu/forms/navier_stokes.py:369",
                             "K18 ddn jacobian ddn_out (I)", "I"),
+    "ns_cell_residual_p1_tet": ("cfdtpu_torch/csrc/ns_cell_tet.cu",
+                                "cfdtpu/forms/navier_stokes.py:190",
+                                "K3+K7 tet residual", "M"),
+    "ns_cell_jacobian_p1_tet": ("cfdtpu_torch/csrc/ns_cell_tet.cu",
+                                "cfdtpu/forms/navier_stokes.py:384",
+                                "K3+K7 tet jacobian", "M"),
 }
 PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
          "B": "python -m cfdtpu_torch.scripts.gather_micro",
@@ -656,7 +704,9 @@ PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
               "checkpoint and resume",
          "L": "StenosisSimulation (30,789 DOF) and "
               "StenosisWithTree2DPressureSimulation under "
-              "stabilized_schur_pressurebc"}
+              "stabilized_schur_pressurebc",
+         "M": "DFG3DBenchmark, DFG 3D-1Z on P1 tetrahedra (Scenario.solve, "
+              "972,072 DOF, amg_p)"}
 
 
 def log(*a):
@@ -751,6 +801,35 @@ def bc_mask_u(torch, np, s):
     return torch.as_tensor(m, device=s.device)
 
 
+def k1_yardstick(torch, A, cols):
+    """K1's yardstick: torch.sparse_bsr_tensor(...) @ x over the same
+    blocks (the padded slots point at one extra zero block column),
+    or, for the views with blocks that are not square and for 1 x 1
+    blocks, which BSR products refuse, torch.sparse_csr_tensor(...) @
+    x over the same entries."""
+    ns, Kg, R, C = A.shape
+
+    def lib():
+        dev = A.device
+        xd = torch.ones((ns + 1) * C, dtype=A.dtype, device=dev)
+        if R == C > 1:
+            mat = torch.sparse_bsr_tensor(
+                torch.arange(0, ns * Kg + 1, Kg, device=dev),
+                cols.reshape(-1).long(),
+                A.reshape(ns * Kg, R, C).contiguous(),
+                size=(ns * R, (ns + 1) * C))
+        else:
+            ccol = (cols.long()[:, None, :, None] * C
+                    + torch.arange(C, device=dev)).expand(ns, R, Kg, C)
+            mat = torch.sparse_csr_tensor(
+                torch.arange(0, ns * R * Kg * C + 1, Kg * C, device=dev),
+                ccol.reshape(-1),
+                A.permute(0, 2, 1, 3).reshape(-1).contiguous(),
+                size=(ns * R, (ns + 1) * C))
+        return lambda: mat @ xd
+    return lib
+
+
 def kernel_sites(torch, np, sc, seed=0):
     """One dict per kernel call site at the shapes the two paths give
     each kernel: name, label, kern and plain (the kernel's wrapper and
@@ -819,32 +898,7 @@ def kernel_sites(torch, np, sc, seed=0):
                           pair=pair))
 
     def k1_library(A, cols):
-        """K1's yardstick: torch.sparse_bsr_tensor(...) @ x over the same
-        blocks (the padded slots point at one extra zero block column),
-        or, for the views with blocks that are not square and for 1 x 1
-        blocks, which BSR products refuse, torch.sparse_csr_tensor(...) @
-        x over the same entries."""
-        ns, Kg, R, C = A.shape
-
-        def lib():
-            dev = A.device
-            xd = torch.ones((ns + 1) * C, dtype=A.dtype, device=dev)
-            if R == C > 1:
-                mat = torch.sparse_bsr_tensor(
-                    torch.arange(0, ns * Kg + 1, Kg, device=dev),
-                    cols.reshape(-1).long(),
-                    A.reshape(ns * Kg, R, C).contiguous(),
-                    size=(ns * R, (ns + 1) * C))
-            else:
-                ccol = (cols.long()[:, None, :, None] * C
-                        + torch.arange(C, device=dev)).expand(ns, R, Kg, C)
-                mat = torch.sparse_csr_tensor(
-                    torch.arange(0, ns * R * Kg * C + 1, Kg * C, device=dev),
-                    ccol.reshape(-1),
-                    A.permute(0, 2, 1, 3).reshape(-1).contiguous(),
-                    size=(ns * R, (ns + 1) * C))
-            return lambda: mat @ xd
-        return lib
+        return k1_yardstick(torch, A, cols)
 
     def k1(label, A, cols, x, n_out, **kw):
         """A K1 site: kernel and plain version on the same flat operands,
@@ -1752,6 +1806,173 @@ def variant_sites(torch, np, s, dtype, tag):
     return sites
 
 
+def tet_state(torch, np, s, seed, dtype):
+    """A developed-looking state on the DFG 3D channel: the inflow
+    profile 16 U_m y z (H - y)(H - z) / H^4 everywhere plus noise, for u
+    and u_prev, p small; made with numpy from `seed`, in `dtype`."""
+    from cfdtpu_torch.geom.dfg3d import H
+
+    y, z = s.V.dof_coords[:, 1], s.V.dof_coords[:, 2]
+    rng = np.random.default_rng(seed)
+    prof = np.zeros((len(y), 3))
+    prof[:, 0] = 16 * 0.45 * y * z * (H - y) * (H - z) / H ** 4
+    n_u, n_p = s.V.num_dofs, s.Q.num_dofs
+    out = [s.tensor(prof + 0.02 * rng.standard_normal((n_u, 3)))
+           for _ in range(2)]
+    out.append(s.tensor(0.1 * rng.standard_normal(n_p)))
+    return tuple(t.to(dtype).contiguous() for t in out)
+
+
+def tet_sites(torch, np, s, dtype):
+    """The sites of path M, the tetrahedral path, in `dtype`: K3+K7 on
+    tetrahedra (csrc/ns_cell_tet.cu; residual and Jacobian, the
+    natural-correction block in the launch; K7 has no launch of its own
+    on tetrahedra) against the plain cell kernel, PATH_M_CHUNK cells a
+    call, then the plain facet kernel; and K1 on the 3D operator's 16 x
+    16 supernode blocks (the outer operator and its 12 x 12 velocity
+    view, each with and without its row mask). Bytes: k3_bytes with
+    every output, plus the facet block's maps, coordinates and tables
+    (FACET_READS' natural term); the tetrahedral body's operations are
+    not counted, so its bound is that of its bytes."""
+    from cfdtpu_torch.kernels.ns_cell_residual import (
+        ns_cell_jacobian_p1, ns_cell_jacobian_plain, ns_cell_residual_p1,
+        ns_cell_residual_plain)
+    from cfdtpu_torch.kernels.ns_facet import facet_jac_plain, facet_plain
+    from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+
+    f, nb = s.form, s._nodebsr
+    u, up, p = tet_state(torch, np, s, 31, dtype)
+    prm = s.params()
+    blocks = [f._kernel_block(b, prm) for b in f._facet_blocks]
+    require(f.tabs.tet and len(blocks) == 1
+            and blocks[0].term.term == "natural",
+            f"path M: the form is not the tetrahedral one with one natural "
+            f"block: {[b.term.term for b in blocks]}")
+    args = (u, up, p, f.dofmap_u, f.dofmap_p, f.cell_coords, f.cell_h,
+            f.tabs, prm["rho"], prm["mu"], prm["dt"], prm["f"], f.eps)
+    nc = f.dofmap_u.shape[0]
+
+    def chunks(plain):
+        """plain(*args) over PATH_M_CHUNK cells a call, concatenated."""
+        parts = []
+        for i in range(0, nc, PATH_M_CHUNK):
+            j = slice(i, i + PATH_M_CHUNK)
+            out = plain(*args[:3], args[3][j], args[4][j], args[5][j],
+                        args[6][j], *args[7:])
+            parts.append(out if isinstance(out, tuple) else (out,))
+        return tuple(torch.cat(ts) for ts in zip(*parts))
+
+    def facets(plain):
+        return tuple(plain(b.term, b.scalars, u, up, p, *b.args())
+                     for b in blocks)
+
+    b0 = blocks[0]
+    tables, arrays, _, jarrays, _ = FACET_READS["natural"]
+    have = {"dofmap_u": b0.dofmap_u, "dofmap_p": b0.dofmap_p,
+            "coords": b0.coords}
+    ftab = nbytes(*(b0.tabs[k] for k in tables))
+    sites = []
+    res = ns_cell_residual_p1(*args, facets=blocks)
+    jac = ns_cell_jacobian_p1(*args, facets=blocks)
+    for label, kern, plain, fplain, outs, reads in (
+            ("K3+K7 tet residual", ns_cell_residual_p1,
+             ns_cell_residual_plain, facet_plain, res, arrays),
+            ("K3+K7 tet jacobian", ns_cell_jacobian_p1,
+             ns_cell_jacobian_plain, facet_jac_plain, jac, jarrays)):
+        sites.append(dict(
+            name=kern.__name__ + "_tet", label=label,
+            kern=lambda k=kern: k(*args, facets=blocks),
+            plain=lambda pl=plain, fp=fplain: chunks(pl) + facets(fp),
+            bytes=(k3_bytes(args[:8], outs)
+                   + nbytes(*(have[a] for a in reads)) + ftab),
+            flops=0, lib=None, reset=None, pair=None))
+    del res, jac
+    vals = nb.assemble(*f.element_jacobians(u, p, (up,), prm))
+    S, cols = vals["sup"], nb._sup.sup_cols
+    gd = nb.g * nb.dim
+    n_u, n_p = nb.n_u_flat, nb.n_nodes
+    require((nb.g, nb.dim, gd) == (4, 3, 12) and tuple(S.shape[2:]) == (16, 16),
+            f"path M: supernode blocks {tuple(S.shape)}, g {nb.g}, d "
+            f"{nb.dim}: not 16 x 16 over 4 x 4 node blocks")
+    rng = np.random.default_rng(37)
+    v = torch.as_tensor(rng.standard_normal(n_u + n_p), dtype=dtype,
+                        device=s.device)
+    vu = v[:n_u]
+    mask_u = torch.as_tensor(rng.random(n_u) < 0.05, device=s.device)
+    mask = torch.cat([mask_u, torch.zeros(n_p, dtype=torch.bool,
+                                          device=s.device)])
+    for label, A, x, n_out, kw in (
+            ("K1 3D outer", S, v, n_u + n_p,
+             dict(x_split=(n_u, gd), y_split=(n_u, gd))),
+            ("K1 3D outer + mask", S, v, n_u + n_p,
+             dict(x_split=(n_u, gd), y_split=(n_u, gd), mask=mask,
+                  mask_value=v)),
+            ("K1 3D uu", S[:, :, :gd, :gd], vu, n_u, {}),
+            ("K1 3D uu + mask (Auu)", S[:, :, :gd, :gd], vu, n_u,
+             dict(mask=mask_u, mask_value=vu))):
+        ns_, Kg, R, C = A.shape
+        sites.append(dict(
+            name="sup_spmv", label=label,
+            kern=lambda a=(A, cols, x, n_out, kw): sup_spmv(*a[:4], **a[4]),
+            plain=lambda a=(A, cols, x, n_out, kw): sup_spmv_plain(*a[:4],
+                                                                   **a[4]),
+            bytes=k1_bytes(A, x, n_out, kw), flops=2 * ns_ * Kg * R * C,
+            lib=k1_yardstick(torch, A, cols), reset=None, pair=None))
+    log(f"[kernels M] {nc} cells, {b0.dofmap_u.shape[0]} boundary facets, "
+        f"{n_u + n_p} DOF, supernode blocks {tuple(S.shape)} ({dtype})")
+    return sites
+
+
+def phase_path_m(torch, np, tmp):
+    """Path M, DFG 3D-1Z on P1 tetrahedra: its kernel sites (tet_sites)
+    timed in float32 at the cell's size and checked in float64 at
+    PATH_M_F64, its form's device kernels (one element launch a
+    residual and a Jacobian build), then PATH_M_STEPS steps of
+    Scenario.solve from rest with the counters reset just before and
+    PATH_M_PROFILE under torch.profiler: every element launch
+    tetrahedral with the natural block in it, K7 never alone; c_D, c_L
+    and dp after the last step (not a gate: from rest, far from the
+    steady state)."""
+    from cfdtpu_torch.scenarios.dfg_3d import DFG3DBenchmark
+
+    def scenario(dtype, size):
+        t0 = time.perf_counter()
+        sc = DFG3DBenchmark("stabilized_schur", dt=DT, T=1.0, dtype=dtype,
+                            device="cuda", stats_every=4, output_every=100,
+                            **size, **PATH_M_KW)
+        log(f"[setup] path M: {size} {dtype} amg_p on cuda: "
+            f"{time.perf_counter() - t0:.1f} s")
+        return sc
+
+    sc = scenario("float32", PATH_M)
+    s = sc.solver
+    require(s.V.num_global_dofs + s.Q.num_global_dofs == 972072,
+            f"path M: {s.V.num_global_dofs + s.Q.num_global_dofs} DOF, "
+            "not 972,072")
+    rows, plains = phase_kernels(
+        torch, np, sc, 1e-5, timed=True,
+        sites=tet_sites(torch, np, s, torch.float32))
+    one_launch = phase_one_launch_form(torch, np, sc, "M")
+    phase_plain_times(rows, plains)
+    del plains
+    sc64 = scenario("float64", PATH_M_F64)
+    phase_kernels(torch, np, sc64, 1e-12, timed=False,
+                  sites=tet_sites(torch, np, sc64.solver, torch.float64))
+    del sc64
+    launches, res = phase_slice(
+        torch, np, sc, os.path.join(tmp, "slice_m"), "path M", PATH_M_STEPS,
+        PATH_M_KERNELS, profile_steps=PATH_M_PROFILE)
+    for kind in ("residual", "jacobian"):
+        name = f"ns_cell_{kind}_p1"
+        jac = "_jac" if kind == "jacobian" else ""
+        require(launches[name] == launches[name + "_tet"]
+                == launches[name + "_facet"]
+                == launches[f"ns_facet_natural{jac}_p1_fused"] > 0,
+                f"path M: {kind} launches not all tetrahedral with the "
+                f"natural block in them: {launches}")
+    return rows, one_launch, launches, res
+
+
 def phase_kernels(torch, np, sc, tol, timed, sites=None):
     """Compare every kernel site with its plain version, and with a
     second call of itself (bitwise). With `timed`, time the kernel and
@@ -2047,16 +2268,25 @@ def phase_one_launch_form(torch, np, sc, tag):
 
     s = sc.solver
     f = s.form
-    u, up, up2, p = backflow_state(torch, np, s, 23, s.dtype)
+    tet = f.tabs.tet
+    if tet:  # path M: the tetrahedral kernels, named ns_cell_*_tet_*
+        u, up, p = tet_state(torch, np, s, 23, s.dtype)
+        up2 = up
+    else:
+        u, up, up2, p = backflow_state(torch, np, s, 23, s.dtype)
     aux = (up, up2)[:f.N_AUX]
     prm = s.params()
     key = {"StabilizedNSFormBDF2": "bdf2_p1",
            "StabilizedNSFormCurlCurl": "curl_p1"}.get(type(f).__name__, "p1")
+    dkey = "tet" if tet else key
     nblk = len(f._facet_blocks)
     want_res = {f"ns_cell_residual_{key}": 1,
                 f"ns_cell_residual_{key}_facet": 1, "ell_sum": 2 + nblk}
     want_jac = {f"ns_cell_jacobian_{key}": 1,
                 f"ns_cell_jacobian_{key}_facet": 1}
+    if tet:
+        want_res["ns_cell_residual_p1_tet"] = 1
+        want_jac["ns_cell_jacobian_p1_tet"] = 1
     counted = {}
     for name, fn, want in (
             ("residual", lambda: f.residual(u, p, aux, prm), want_res),
@@ -2090,7 +2320,7 @@ def phase_one_launch_form(torch, np, sc, tag):
         f"the fullest of {tries_res} traces {res}; "
         f"form.element_jacobians: {counted['element_jacobians']}, "
         f"{len(jac)} of 1 in {tries_jac} {jac}")
-    kinds = (f"ns_cell_residual_{key}_facet_kernel", "ell_sum_kernel",
+    kinds = (f"ns_cell_residual_{dkey}_facet_kernel", "ell_sum_kernel",
              "CUDAFunctor_add")
     require(len(res) <= n_res
             and all(any(k in n for k in kinds) for n in res),
@@ -2100,7 +2330,7 @@ def phase_one_launch_form(torch, np, sc, tag):
             f"{tag}: no trace of form.residual held its element kernel "
             f"once: {res}")
     require(len(jac) == 1
-            and f"ns_cell_jacobian_{key}_facet_kernel" in jac[0],
+            and f"ns_cell_jacobian_{dkey}_facet_kernel" in jac[0],
             f"{tag}: form.element_jacobians' traces hold {jac}, not its "
             "element kernel once")
     return {"residual": res, "element_jacobians": jac, "facet_blocks": nblk,
@@ -2425,8 +2655,8 @@ def run_steps(sc, out_dir, steps, on_step=None):
 class StepProfile:
     """torch.profiler over the steps after `start` (from on_step(start)
     to on_step(stop)): each port kernel's calls and device time (matched
-    by the names in COUNTERS that its name holds: a fused variant's
-    calls count under its kernel too), the other device activities'
+    by the names in COUNTERS, or their DEVICE_NAME, that its name holds:
+    a fused variant's calls count under its kernel too), the other device activities'
     (the largest by name), the host's kernel and graph launches,
     cudaMemcpyAsync calls and waits (utils/cudatime.host_calls), FGMRES's
     discarded lookahead iterations, and the share of the window's wall
@@ -2471,7 +2701,8 @@ class StepProfile:
         for a, b, n in dev:
             # every counter whose name the kernel's holds: a fused
             # variant counts under its kernel's name and its own
-            slots = [kernels[k] for k in COUNTERS if k in n] or [
+            slots = [kernels[k] for k in COUNTERS
+                     if DEVICE_NAME.get(k, k) in n] or [
                 other.setdefault(n[:60], [0, 0.0])]
             for slot in slots:
                 slot[0] += 1
@@ -2614,6 +2845,9 @@ def functionals(sc):
     """c_D, c_L (the line integral and the reaction force) and dp of a
     DFG1Benchmark; the traction c_D and c_L that the dfg_2d_1 solver
     keeps of its last step."""
+    if hasattr(sc, "force_coefficients"):  # DFG 3D (path M)
+        cd, cl = sc.force_coefficients()
+        return {"c_D": cd, "c_L": cl, "dp": sc.pressure_difference()}
     if not hasattr(sc, "compute_drag_lift"):
         s = sc.solver
         if hasattr(s, "cd"):
@@ -3176,6 +3410,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None,
                     help="also write every measured number to this JSON")
+    ap.add_argument("--path-m-only", action="store_true",
+                    help="run phases 1, 2 and 19 alone (DFG 3D-1Z on P1 "
+                         "tetrahedra)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3218,6 +3455,16 @@ def main(argv=None):
     floor_ms = empty_ms()
     log(f"[kernels] empty kernel through the library's C interface: "
         f"{floor_ms:.4f} ms (the floor of a small site)")
+    if args.path_m_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            rows, one_launch, launches_m, slice_m = phase_path_m(torch, np,
+                                                                 tmp)
+        lap("path M")
+        return finish(args, torch, smi, floor_ms, rows, {"M": launches_m},
+                      {"M": slice_m["profile"]["kernels"]},
+                      {"slice_path_m": slice_m,
+                       "one_launch": {"path M": one_launch},
+                       "phase_s": phase_s}, t_start)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sc = scenario(0.3, "float32", 4, RASAMG_KW)
         rows, plains = phase_kernels(torch, np, sc, 1e-5, timed=True)
@@ -3412,6 +3659,10 @@ def main(argv=None):
         lap("path K")
         launches_l, path_l = phase_path_l(torch, np, tmp)
         lap("path L")
+        rows_m, one_launch["path M"], launches_m, slice_m = phase_path_m(
+            torch, np, tmp)
+        rows.update(rows_m)
+        lap("path M")
         gm = phase_gather_micro()
         lap("path B")
         parity = phase_parity_and_cli(torch, np, tmp, lap)
@@ -3419,7 +3670,7 @@ def main(argv=None):
     launches = {"A": launches_a, "B": gm["launches"], "C": launches_c,
                 "D": launches_d, "E": launches_e, "F": launches_f,
                 "G": launches_gh["G"], "H": launches_gh["H"],
-                "I": launches_i}
+                "I": launches_i, "M": launches_m}
     # each kernel's calls in the profiled window of its path (path D:
     # the three methods' windows)
     windows = {"A": slice_a["profile"]["kernels"],
@@ -3428,15 +3679,35 @@ def main(argv=None):
                "E": slice_e["profile"]["kernels"],
                "F": slice_f["profile"]["kernels"],
                "G": slices_gh["G"]["profile"]["kernels"],
-               "H": slices_gh["H"]["profile"]["kernels"], "I": {}}
+               "H": slices_gh["H"]["profile"]["kernels"], "I": {},
+               "M": slice_m["profile"]["kernels"]}
     for res in slices_d.values():
         for name, kv in (res["profile"] or {"kernels": {}})["kernels"].items():
             acc = windows["D"].setdefault(name, {"calls": 0,
                                                  "device_ms": 0.0})
             acc["calls"] += kv["calls"]
             acc["device_ms"] += kv["device_ms"]
+    return finish(args, torch, smi, floor_ms, rows, launches, windows, {
+        "slice_rasamg_sup": slice_a, "slice_amg_p": slice_p,
+        "launches_amg_p": launches_p, "slice_path_c": slice_c,
+        "slices_path_d": slices_d, "slice_path_e": slice_e,
+        "slice_path_f": slice_f, "slices_paths_gh": slices_gh,
+        "slice_path_m": slice_m, "path_j": path_j, "path_k": path_k,
+        "path_l": path_l,
+        "launches_jkl": {"J": launches_j, "K": launches_k, "L": launches_l},
+        "graphs": graphs, "parity": parity, "determinism": determinism,
+        "gather_micro": gm, "one_launch": one_launch,
+        "phase_s": phase_s}, t_start)
+
+
+def finish(args, torch, smi, floor_ms, rows, launches, windows, report,
+           t_start):
+    """The kernels line (a SOURCES entry for each kernel whose path ran)
+    and the ok line; with --report, every number to that JSON."""
     entries = []
     for name, (src, replaces, site, path) in SOURCES.items():
+        if path not in launches:
+            continue
         r = rows[site]
         window = windows[path]
         counter, into = COUNTER_OF.get(name, (name, FOLDED.get(name)))
@@ -3467,21 +3738,8 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.report, "w") as fh:
             json.dump({"card": smi, "empty_kernel_ms": floor_ms,
-                       "sites": rows, "slice_rasamg_sup": slice_a,
-                       "slice_amg_p": slice_p, "launches_amg_p": launches_p,
-                       "slice_path_c": slice_c, "slices_path_d": slices_d,
-                       "slice_path_e": slice_e, "slice_path_f": slice_f,
-                       "slices_paths_gh": slices_gh,
-                       "path_j": path_j, "path_k": path_k,
-                       "path_l": path_l,
-                       "launches_jkl": {"J": launches_j, "K": launches_k,
-                                        "L": launches_l},
-                       "graphs": graphs,
-                       "launches": launches, "parity": parity,
-                       "determinism": determinism, "gather_micro": gm,
-                       "one_launch": one_launch,
+                       "sites": rows, **report, "launches": launches,
                        "profiler_retries": PROFILER_RETRIES,
-                       "phase_s": phase_s,
                        "kernels": entries}, fh, indent=1, default=str)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

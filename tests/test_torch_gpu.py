@@ -2011,3 +2011,237 @@ def test_stenosis_path_l_on_card_matches_cpu(tmp_path):
     assert 0 < fa < 1 and abs(fa - fb) <= 1e-9 * fb
     for a, b in ((ua, ub), (pa, pb), (ra, rb)):
         assert np.linalg.norm(a - b) / np.linalg.norm(b) < 1e-9
+
+
+# ---------------------------------------------------------------------
+# P1 tetrahedra (the DFG 3D-1Z path): the tetrahedral K3 with K7 in its
+# launch (csrc/ns_cell_tet.cu), and the node-block kernels at 4 x 4
+# node blocks (g bs = 16: K1 on the outer operator and its sub-blocks,
+# K2's assembly, K4, K6 and K10 at d = 3, K1's prolong at width 3),
+# against their plain versions in float64 (1e-12) and float32 (1e-5),
+# two calls bitwise equal. The mesh: the benchmark's extruded DFG
+# cross-section at res_scale 2.0 in 4 layers.
+@pytest.fixture(scope="module", params=["f64", "f32"])
+def sc3d(request, tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from benchmark import cell as cellmod
+    from benchmark.meshes import dfg3d
+
+    dtype = "float64" if request.param == "f64" else "float32"
+    _, _, cell, config = cellmod.resolve(
+        "dfg3d1z_developed",
+        config_patch={"dtype": dtype, "mesh": {"res_scale": 2.0,
+                                               "layers": 4}})
+    mesh = dfg3d.make(config, cache_dir=str(tmp_path_factory.mktemp("m")))
+    sc = cellmod.build_scenario(config, cell, mesh, None, "cuda")
+    return request.param, sc
+
+
+def _state3d(s, seed=0):
+    rng = np.random.default_rng(seed)
+    n = s.V.num_dofs
+    return (s.tensor(0.3 * rng.standard_normal((n, 3))),
+            s.tensor(0.3 * rng.standard_normal((n, 3))),
+            s.tensor(rng.standard_normal(n)))
+
+
+def _to_cpu_args(args):
+    from cfdtpu_torch.kernels.ns_cell_residual import CellTabs
+
+    out = []
+    for a in args:
+        if isinstance(a, CellTabs):
+            a = CellTabs(*(None if t is None else t.cpu() for t in (
+                a.qw, a.phi_u, a.dphi_u, a.d2phi_u, a.phi_p, a.dphi_p,
+                a.gdphi)), a.p1, a.affine)
+        elif torch.is_tensor(a):
+            a = a.cpu()
+        out.append(a)
+    return out
+
+
+@pytest.mark.parametrize("entry", ["residual", "jacobian"])
+def test_tet_element_kernel_matches_plain_and_repeats(sc3d, entry):
+    """The tetrahedral K3 with the natural-correction block in its
+    launch against the plain cell and facet kernels (the CPU), and two
+    launches bitwise equal; one launch a call, K7 never alone."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.ns_cell_residual import (ns_cell_jacobian_p1,
+                                                       ns_cell_residual_p1)
+    from cfdtpu_torch.kernels.ns_facet import FacetBlock
+
+    dt, sc = sc3d
+    _, tol = _dev_tol(dt)
+    s = sc.solver
+    f = s.form
+    prm = s.params()
+    u, up, p = _state3d(s)
+    fn = ns_cell_residual_p1 if entry == "residual" else ns_cell_jacobian_p1
+    blocks = [f._kernel_block(b, prm) for b in f._facet_blocks]
+    args = (u, up, p, f.dofmap_u, f.dofmap_p, f.cell_coords, f.cell_h,
+            f.tabs, prm["rho"], prm["mu"], prm["dt"], prm["f"], f.eps)
+    kernels.reset_counts()
+    got = fn(*args, facets=blocks)
+    again = fn(*args, facets=blocks)
+    torch.cuda.synchronize()
+    cblocks = [FacetBlock(b.term, b.dofmap_u.cpu(), b.dofmap_p.cpu(),
+                          b.coords.cpu(),
+                          {k: v.cpu() for k, v in b.tabs.items()},
+                          b.scalars) for b in blocks]
+    ref = fn(*_to_cpu_args(args), facets=cblocks)
+    assert len(got) == len(ref) == (3 if entry == "residual" else 2)
+    for g, a, r in zip(got, again, ref):
+        _close_tol(g.cpu(), r, tol)
+        assert torch.equal(g, a)
+    name = f"ns_cell_{entry}_p1"
+    n = kernels.counts()
+    assert n[name] == n[name + "_tet"] == n[name + "_facet"] == 2
+    jac = "_jac" if entry == "jacobian" else ""
+    assert n[f"ns_facet_natural{jac}_p1_fused"] == 2
+    assert n[f"ns_facet_natural{jac}_p1"] == 0
+
+
+def test_tet_form_calls_launch_the_tet_kernels(sc3d):
+    """form.residual and form.element_jacobians run the tetrahedral
+    element kernel (its facet variant), and the step's plain CPU path
+    is never taken on the card."""
+    from cfdtpu_torch.utils.cudatime import launches
+
+    _, sc = sc3d
+    s = sc.solver
+    u, up, p = _state3d(s, 1)
+    prm = s.params()
+    _, names = launches(lambda: s.form.residual(u, p, (up,), prm))
+    assert any("ns_cell_residual_tet_facet_kernel" in k for k in names)
+    _, names = launches(lambda: s.form.element_jacobians(u, p, (up,), prm))
+    assert any("ns_cell_jacobian_tet_facet_kernel" in k for k in names)
+
+
+@pytest.mark.parametrize("site", ["K1 outer", "K1 uu", "K1 pu", "K2 assemble",
+                                  "K4 selfp", "K6 ras", "K10 inverses",
+                                  "K10 apply"])
+def test_node_block_kernels_4x4_match_plain_and_repeat(sc3d, site):
+    """The node-block kernels on the 3D operator (4 x 4 node blocks,
+    supernodes of g = 4: 16 x 16 blocks; the velocity block at d = 3)
+    against their plain versions, two calls bitwise equal."""
+    from cfdtpu_torch.kernels.block_jacobi import (block_jacobi,
+                                                   block_jacobi_inv,
+                                                   block_jacobi_inv_plain,
+                                                   block_jacobi_plain)
+    from cfdtpu_torch.kernels.ell_sum import ell_sum, ell_sum_plain
+    from cfdtpu_torch.kernels.ras_apply import ras_apply, ras_apply_plain
+    from cfdtpu_torch.kernels.selfp_triple import (selfp_triple,
+                                                   selfp_triple_plain)
+    from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+
+    dt, sc = sc3d
+    dtype, tol = _dev_tol(dt)
+    s = sc.solver
+    f, nb = s.form, s._nodebsr
+    assert (nb.bs, nb.g, nb.dim) == (4, 4, 3)
+    u, up, p = _state3d(s, 2)
+    vals = nb.assemble(*f.element_jacobians(u, p, (up,), s.params()))
+    assert tuple(vals["coo"].shape[1:]) == (4, 4)
+    rng = np.random.default_rng(3)
+
+    def dev(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device="cuda")
+
+    n_u = nb.n_u_flat
+    cols = nb._sup.sup_cols
+    sup = vals["sup"]
+    gd = nb.g * nb.dim
+    if site == "K1 outer":
+        v = dev(n_u + nb.n_nodes)
+        split = (n_u, gd)
+        call = (lambda k: k(sup, cols, v, v.shape[0], x_split=split,
+                            y_split=split))
+        pair = (sup_spmv, sup_spmv_plain)
+    elif site == "K1 uu":
+        v = dev(n_u)
+        call = (lambda k: k(sup[:, :, :gd, :gd], cols, v, n_u))
+        pair = (sup_spmv, sup_spmv_plain)
+    elif site == "K1 pu":
+        v = dev(n_u)
+        call = (lambda k: k(sup[:, :, gd:, :gd], cols, v, nb.n_nodes))
+        pair = (sup_spmv, sup_spmv_plain)
+    elif site == "K2 assemble":
+        scat = nb._assemble_scatter
+        src = dev(scat.n_in, 16)
+        csr = (scat.row_ptr, scat.pos, scat.K)
+        call = (lambda k: k(src, *csr))
+        pair = (ell_sum, ell_sum_plain)
+    elif site == "K4 selfp":
+        nb.sp_structure()
+        inv = dev(nb.n_nodes, 3)
+        sargs = (vals["coo"], nb._sp_e1, nb._sp_e2, nb._sp_K, inv)
+        call = (lambda k: k(*sargs))
+        pair = (selfp_triple, selfp_triple_plain)
+    elif site == "K6 ras":
+        ras = nb.uu_ras(32, 4)
+        assert ras.d == 3
+        inv = dev(ras.n_sub, ras.s * ras.d, ras.m)
+        v = dev(n_u)
+        call = (lambda k: k(inv, v, ras.s, ras.o, ras.d, 0.5 * v))
+        pair = (ras_apply, ras_apply_plain)
+    elif site == "K10 inverses":
+        mask = torch.as_tensor(rng.random(n_u) < 0.1, device="cuda")
+        diag = nb._diag_pos
+        call = (lambda k: k(vals["coo"].contiguous(), diag, mask, 3))
+        pair = (block_jacobi_inv, block_jacobi_inv_plain)
+    else:
+        inv = dev(nb.n_nodes, 3, 3)
+        v = dev(n_u)
+        call = (lambda k: k(inv, v))
+        pair = (block_jacobi, block_jacobi_plain)
+    got, again = call(pair[0]), call(pair[0])
+    ref = call(pair[1])
+    torch.cuda.synchronize()
+    _close_tol(got, ref, tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_k1_prolong_width_3_matches_k8_then_k1(dt):
+    """K1 with the coarse-grid correction in its gather at width 3
+    (BlockAMG's levels in 3D: 8 nodes of 3 values a supernode) against
+    K8's plain version then K1's, with and without the input scale, in
+    modes residual (xhat stored) and jacobi."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch.kernels.amg_prolong import amg_prolong_plain
+    from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+
+    dtype, tol = _dev_tol(dt)
+    rng = np.random.default_rng(11)
+    ns, kg, C, w, nco = 600, 5, 24, 3, 40
+
+    def dev(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                               device="cuda")
+
+    A = dev(ns, kg, C, C)
+    cols = torch.as_tensor(rng.integers(0, ns, (ns, kg)).astype(np.int32),
+                           device="cuda")
+    m = ns * C - 3 * w
+    x, b, xc = dev(m), dev(m), dev(nco * w)
+    d = 1.0 + torch.rand(m, dtype=dtype, device="cuda")
+    sc = 0.5 + torch.rand(m, dtype=dtype, device="cuda")
+    agg = torch.as_tensor(rng.integers(0, nco, m // w).astype(np.int32),
+                          device="cuda")
+    for mode in ("residual", "jacobi"):
+        for scale in (None, sc):
+            kw = dict(mode=mode, b=b, d=d, omega=0.67)
+            xh = torch.empty(m, dtype=dtype, device="cuda")
+            extra = {"xhat_out": xh} if mode == "residual" else {}
+            got = sup_spmv(A, cols, x, m, scale=scale,
+                           prolong=(xc, agg, w), **kw, **extra)
+            again = sup_spmv(A, cols, x, m, scale=scale,
+                             prolong=(xc, agg, w), **kw)
+            xhat = amg_prolong_plain(xc, agg, w, x, scale)
+            _close_tol(got, sup_spmv_plain(A, cols, xhat, m, **kw), tol)
+            assert torch.equal(got, again)
+            if extra:
+                _close_tol(xh, xhat, tol)

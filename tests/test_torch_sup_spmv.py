@@ -49,6 +49,12 @@ CASES = {
     "amg 8x8": (8, slice(None), slice(None), None, None),
     "block-amg 16x16": (16, slice(None), slice(None), None, None),
     "width 1": (1, slice(None), slice(None), None, None),
+    # P1 tetrahedra: 4 x 4 node blocks, g = 4, and BlockAMG at width 3
+    "full 16x16 two segments": (16, slice(None), slice(None), 12, 12),
+    "uu 12x12 view of 16": (16, slice(0, 12), slice(0, 12), None, None),
+    "up 12x4 view of 16": (16, slice(0, 12), slice(12, None), None, None),
+    "pu 4x12 view of 16": (16, slice(12, None), slice(0, 12), None, None),
+    "block-amg 24x24": (24, slice(None), slice(None), None, None),
 }
 
 
@@ -156,6 +162,15 @@ SITES = {
     "block-amg L2": ((54, 11, 16, 16), None, None),
     "width 1 P=8192 K=8": ((8192 * 128, 8, 1, 1), None, None),
     "width 1 P=2048 K=16": ((2048 * 128, 16, 1, 1), None, None),
+    # DFG 3D-1Z (243,018 nodes): 4 x 4 node blocks in supernodes of 4,
+    # BlockAMG's levels at width 3
+    "3d full": ((60755, 30, 16, 16), None, 12),
+    "3d uu": ((60755, 30, 16, 16), (slice(0, 12), slice(0, 12)), None),
+    "3d up": ((60755, 30, 16, 16), (slice(0, 12), slice(12, None)), None),
+    "3d pu": ((60755, 30, 16, 16), (slice(12, None), slice(0, 12)), None),
+    "3d block-amg L0": ((30378, 20, 24, 24), None, None),
+    "3d block-amg L1": ((3100, 16, 24, 24), None, None),
+    "3d block-amg L2": ((320, 12, 24, 24), None, None),
 }
 
 
@@ -229,8 +244,9 @@ def test_wrapper_rejects_bad_input(bad):
 
 # K1's prolong option: the coarse-grid correction of a V-cycle read in
 # the gather (K8 folded into the post-smooth launch), at the SELFP AMG's
-# width (w = 1, 8x8 blocks) and BlockAMG's (w = 2, 16x16)
-PROLONG = {1: "amg 8x8", 2: "block-amg 16x16"}
+# width (w = 1, 8x8 blocks) and BlockAMG's (w = 2, 16x16; in 3D w = 3,
+# 24x24)
+PROLONG = {1: "amg 8x8", 2: "block-amg 16x16", 3: "block-amg 24x24"}
 N_COARSE = 5
 
 
@@ -251,7 +267,7 @@ def _prolong_case(w, seed=0):
 
 @pytest.mark.parametrize("scaled", [False, True], ids=["x", "s*x"])
 @pytest.mark.parametrize("mode", ["residual", "jacobi"])
-@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("w", [1, 2, 3])
 def test_prolong_is_k8_then_k1(w, mode, scaled):
     """sup_spmv(prolong=(xc, agg, w)) is K8's plain version followed by
     K1's on its output, bit for bit, and within 1e-12 of cfdtpu's einsum
@@ -274,7 +290,7 @@ def test_prolong_is_k8_then_k1(w, mode, scaled):
     assert np.abs(got.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("w", [1, 2, 3])
 def test_prolong_xhat_out_is_k8(w):
     """xhat_out receives K8's plain output, the vector the launch read
     (BlockAMG's finest level with the RAS smoother)."""
