@@ -6,6 +6,9 @@ K1 sup_spmv            supernode-ELL SpMV with fused epilogues; with its
                        cheby mode ends in a Chebyshev step
    cheby_update        that step alone, elementwise, after an operator
                        that is not one K1 launch
+   bsr_spmv            K1's node-block mode: the assembled 4 x 4 node
+                       blocks of tetrahedra in block-CSR order, with
+                       K1's epilogues (NodeBSR's layout at d = 3)
 K2 ell_sum             deterministic sorted-segment gather-reduce (CSR scatter)
 K3 ns_cell_residual_p1 fused stabilized-NS cell residual, P1 triangles,
    ns_cell_jacobian_p1 and its exact element Jacobian (the same cell body

@@ -44,6 +44,11 @@ SIGNATURES = {
                      I32, P, I64, I32, P, I64, I32, I64, I32, P, P, F64,
                      P, P, P, P, P, I32, P, P, P, P, P, F64, F64, I32, I32,
                      I32, I32, I32, I32, P],
+    # vals, rowptr, cols, n, x, rows, cols view, out, mode, b, scale,
+    # mask, mask_value, cheby w, dprev, dout, add, ca, cc, lg, is_f64,
+    # stream
+    "cfd_bsr_spmv": [P, P, P, I32, P, I32, I32, P, I32, P, P, P, P, P, P, P,
+                     P, F64, F64, I32, I32, P],
     # x, y, b, w, dprev, out, dout, n, ca, cc, is_f64, stream
     "cfd_cheby_update": [P, P, P, P, P, P, P, I64, F64, F64, I32, P],
     # src, row_ptr, pos, out, n_out, F, G, loads, is_f64, stream

@@ -1,22 +1,31 @@
 """Assembled node-blocked sparse operator (BSR) for equal-order forms.
 
-The counterpart of cfdtpu/la/nodebsr.py, supernode layout (g > 1)
-only: each coupled node pair (r, c) owns one dense (dim+1)x(dim+1)
-block [[A_uu, A_up], [A_pu, A_pp]], and the blocks are placed into the
-(ns, Kg, g*bs, g*bs) supernode-ELL layout of la/superell.py. Static
-structure is numpy, built once from the mesh.
+The counterpart of cfdtpu/la/nodebsr.py: each coupled node pair (r, c)
+owns one dense (dim+1)x(dim+1) block [[A_uu, A_up], [A_pu, A_pp]].
+The layout of the applies follows the block (supernode_g, cfdtpu's two
+branches; None picks by the block):
+- g = 1, the default on 4 x 4 blocks (P1 tetrahedra, d = 3): the
+  assembled blocks themselves in block-CSR order (a row pointer beside
+  the block columns), cfdtpu's per-node branch without its padding to
+  the widest row. A 16 x 16 supernode slot of g = 4 would hold 2.7 of
+  its 16 node blocks on the DFG 3D mesh.
+- g > 1, the default g = 4 on 3 x 3 blocks (triangles): the blocks
+  placed into the (ns, Kg, g*bs, g*bs) supernode-ELL layout of
+  la/superell.py. g = 1 there raises: a 3 x 3 float32 block row is 12
+  bytes, off the 16-byte chunks the node-block kernel reads.
+Static structure is numpy, built once from the mesh.
 
 Kernels on this path: assembly reduces element blocks with K2
 (ell_sum); every operator apply — the full matrix, the fieldsplit
-sub-blocks and the fused SELFP p-column — is K1 (sup_spmv) on a
-strided view of the one value array; the SELFP values are K4
+sub-blocks and the fused SELFP p-column — is one launch of K1: its
+node-block mode (bsr_spmv) on the block values at g = 1, sup_spmv on a
+strided view of the supernode array at g > 1; the SELFP values are K4
 (selfp_triple) reduced by K2. The velocity-block hooks (uu_vals,
 uu_amg, uu_ras) serve the *_up / *_sup methods of la/schur.py; the
 node-block Jacobi preconditioner (uu_block_jacobi) is K10, its inverses
 and its applies.
 
-Not ported yet: the g=1 per-node ELL branch, pp_amg, bbt_vals and the
-PCD p-scatter.
+Not ported yet: pp_amg, bbt_vals and the PCD p-scatter.
 """
 
 from __future__ import annotations
@@ -25,26 +34,39 @@ import numpy as np
 import torch
 
 from ..kernels.block_jacobi import block_jacobi, block_jacobi_inv
+from ..kernels.bsr_spmv import bsr_spmv
 from ..kernels.selfp_triple import selfp_triple
 from ..kernels.sup_spmv import sup_spmv
 from ..utils.geometry import SortedScatter
 from .superell import SuperMaps, place
 
 
+def resolve_supernode_g(dim: int, supernode_g=None) -> int:
+    """The layout's g: by the node block where None is given (1 on the
+    4 x 4 blocks of d = 3, 4 on the 3 x 3 of d = 2), else the value
+    given (0 reads as 1). g = 1 below d = 3 raises NotImplementedError."""
+    if supernode_g is None:
+        return 1 if dim == 3 else 4
+    g = int(supernode_g) if supernode_g else 1
+    if g == 1 and dim != 3:
+        raise NotImplementedError(
+            f"the node-block layout (supernode_g=1) is built for 4 x 4 "
+            f"blocks (d = 3); at d = {dim} a float32 block row of "
+            f"{(dim + 1) * 4} bytes is off the kernel's 16-byte chunks: "
+            f"use supernode_g > 1"
+        )
+    return g
+
+
 class NodeBSR:
-    def __init__(self, form, supernode_g: int = 4):
+    def __init__(self, form, supernode_g: int | None = None):
         V, Q = form.V, form.Q
         if not np.array_equal(np.asarray(V.dofmap), np.asarray(Q.dofmap)):
             raise ValueError(
                 "NodeBSR requires equal-order V/Q sharing node ids "
                 "(P1-P1 / Pk-Pk stabilized forms)"
             )
-        self.g = int(supernode_g) if supernode_g else 1
-        if self.g == 1:
-            raise NotImplementedError(
-                "the per-node ELL layout (supernode_g=1) is not ported; "
-                "use supernode_g > 1"
-            )
+        self.g = resolve_supernode_g(form.dim, supernode_g)
         self.form = form
         self.device = form.device
         self.dtype = form.dtype
@@ -97,15 +119,24 @@ class NodeBSR:
 
         row_np = (uniq // n_nodes).astype(np.int64)
         col_np = (uniq % n_nodes).astype(np.int64)
-        self._sup = SuperMaps(row_np, col_np, n_nodes, self.g,
-                              device=self.device)
-        gbs = self.g * self.bs
-        if self._sup.ns * self._sup.Kg * gbs * gbs >= 2 ** 31:
-            raise ValueError("supernode layout exceeds int32 range")
-        self._sup_pos = torch.as_tensor(
-            self._sup.block_positions(row_np, col_np, d).reshape(-1),
-            device=self.device,
-        )
+        if self.g == 1:
+            # block-CSR: the blocks are sorted by (row, col) already
+            self._bsr_rowptr = torch.as_tensor(
+                np.searchsorted(row_np, np.arange(n_nodes + 1))
+                .astype(np.int32), device=self.device)
+            self._bsr_cols = torch.as_tensor(self.block_col_np,
+                                             device=self.device)
+            self._sup = None
+        else:
+            self._sup = SuperMaps(row_np, col_np, n_nodes, self.g,
+                                  device=self.device)
+            gbs = self.g * self.bs
+            if self._sup.ns * self._sup.Kg * gbs * gbs >= 2 ** 31:
+                raise ValueError("supernode layout exceeds int32 range")
+            self._sup_pos = torch.as_tensor(
+                self._sup.block_positions(row_np, col_np, d).reshape(-1),
+                device=self.device,
+            )
         self._sp = None
         self._sp_amg_h = None
         self._uu_amg_h = None
@@ -114,8 +145,9 @@ class NodeBSR:
 
     # -- assembly (once per operator build) -------------------------------
     def assemble(self, A_cells, A_blocks):
-        """Element blocks -> {"coo": (n_blocks, bs, bs) assembled values,
-        "sup": (ns, Kg, g*bs, g*bs) supernode layout}."""
+        """Element blocks -> {"coo": (n_blocks, bs, bs) assembled values}
+        and, at g > 1, "sup": (ns, Kg, g*bs, g*bs) supernode layout (at
+        g = 1 the applies read "coo" itself)."""
         r = self._ridx
         bs = self.bs
         ent = [
@@ -129,6 +161,8 @@ class NodeBSR:
             )
         entries = torch.cat(ent, dim=0)
         vals = self._assemble_scatter(entries).reshape(-1, bs, bs)
+        if self._sup is None:
+            return {"coo": vals}
         gbs = self.g * bs
         sup = self._sup
         vals_sup = place(self._sup_pos, vals, sup.ns * sup.Kg * gbs * gbs,
@@ -159,15 +193,24 @@ class NodeBSR:
 
     # -- operator applies: one K1 launch each, on the flat vectors ---------
     # `epi` passes K1's epilogue options through (mode, b, scale, mask,
-    # mask_value: kernels/sup_spmv.py), so the elementwise work around an
-    # apply in cfdtpu is part of its one launch
+    # mask_value, cheb, d_out: kernels/sup_spmv.py, kernels/bsr_spmv.py),
+    # so the elementwise work around an apply in cfdtpu is part of its
+    # one launch
+    def _bsr(self, vals, x, rows, xcols, **epi):
+        return bsr_spmv(vals["coo"], self._bsr_rowptr, self._bsr_cols, x,
+                        rows, xcols, **epi)
+
     def apply_element_matrices(self, vals, _A_blocks, v_flat, **epi):
+        if self._sup is None:
+            return self._bsr(vals, v_flat, "all", "all", **epi)
         gd, n_u = self.g * self.dim, self.n_u_flat
         return sup_spmv(vals["sup"], self._sup.sup_cols, v_flat,
                         n_out=v_flat.shape[0], x_split=(n_u, gd),
                         y_split=(n_u, gd), **epi)
 
     def apply_sub_block(self, vals, _A_blocks, v, which: str, **epi):
+        if self._sup is None:
+            return self._bsr(vals, v, which[0], which[1], **epi)
         gd = self.g * self.dim
         rs = slice(0, gd) if which[0] == "u" else slice(gd, None)
         cs = slice(0, gd) if which[1] == "u" else slice(gd, None)
@@ -355,8 +398,13 @@ class NodeBSR:
     def apply_p_coupled(self, vals, v_p):
         """One fused pass for the SELFP Schur action: returns
         (Aup v_p, App v_p) from a single gather over the whole p block
-        column (one K1 launch on the (.., g*bs, g) column view)."""
-        gd, n_u = self.g * self.dim, self.n_u_flat
+        column (one K1 launch on the (.., g*bs, g) column view; at g = 1
+        its node-block mode on the p column)."""
+        n_u = self.n_u_flat
+        if self._sup is None:
+            y = self._bsr(vals, v_p, "all", "p")
+            return y[:n_u], y[n_u:]
+        gd = self.g * self.dim
         y = sup_spmv(vals["sup"][:, :, :, gd:], self._sup.sup_cols, v_p,
                      n_out=n_u + self.n_nodes, y_split=(n_u, gd))
         return y[:n_u], y[n_u:]

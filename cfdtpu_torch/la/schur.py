@@ -330,7 +330,7 @@ class PrecondSlot:
         apply = _precond_closure(form, *tree, bc_mask_u, pin_pressure, m_u,
                                  m_p, full, bc_mask_p, inner_method,
                                  ras_opts)
-        if state["A"]["sup"].device.type == "cuda":
+        if state["A"]["coo"].device.type == "cuda":
             apply = CapturedPrecond(apply)
         self._held[key] = (structure, leaves, state, apply)
         return apply, state

@@ -1,14 +1,14 @@
 """SUPG/PSPG/LSIC-stabilized Newton-Krylov solver (Crank-Nicolson midpoint).
 
 The counterpart of cfdtpu/solvers/stabilized_schur.py for the
-configuration this port covers: the assembled node-BSR operator
-(supernode layout), the Schur fieldsplit preconditioner with every
-inner method of la/schur.py (gmres, chebyshev, chebyshev_p and the AMG
-family amg_p, amg_up, ras_up, rasamg_up, amg_sup, rasamg_sup; the AMG
-cycle options pc_amg_kcycle, pc_amg_wcycle and pc_amg_cheby on both
-hierarchies), flexible GMRES inside Newton with line search, and the
-pc_lag_steps build/reuse split that carries the operator and
-preconditioner state across time steps. Unsupported option values raise
+configuration this port covers: the assembled node-BSR operator (node
+blocks on tetrahedra, supernodes on triangles), the Schur fieldsplit
+preconditioner with every inner method of la/schur.py (gmres,
+chebyshev, chebyshev_p and the AMG family amg_p, amg_up, ras_up,
+rasamg_up, amg_sup, rasamg_sup; the AMG cycle options pc_amg_kcycle,
+pc_amg_wcycle and pc_amg_cheby on both hierarchies), flexible GMRES
+inside Newton with line search, and the pc_lag_steps build/reuse split
+that carries the operator and preconditioner state across time steps. Unsupported option values raise
 NotImplementedError rather than being replaced silently.
 
 Variant hooks for subclasses, as in cfdtpu:
@@ -96,7 +96,7 @@ class Solver(SolverBase):
         pc_ras_overlap: int = 4,
         pc_lag_steps: int = 1,
         stats_every: int = 1,
-        supernode_g: int = 4,
+        supernode_g: int | None = None,
         device=None,
         dtype=None,
         **kwargs,
@@ -123,7 +123,9 @@ class Solver(SolverBase):
         # stats_every > 1: check convergence only every N-th step; the
         # skipped steps' flags are ANDed and checked at the window end
         self.stats_every = max(1, int(stats_every))
-        self.supernode_g = int(supernode_g)
+        # None: the layout by the node block (la/nodebsr.py)
+        self.supernode_g = (None if supernode_g is None
+                            else int(supernode_g))
         self.pc_amg_pairwise = bool(pc_amg_pairwise)
         self.pc_amg_smooth = int(pc_amg_smooth)
         self.pc_amg_kcycle = bool(pc_amg_kcycle)

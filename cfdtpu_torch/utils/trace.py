@@ -100,7 +100,7 @@ def count(name: str, n: int = 1) -> None:
 # adds one; a fused variant or option also counts under its own name
 COUNTERS = {
     name: counter(name)
-    for name in ("sup_spmv", "sup_spmv_prolong", "ell_sum",
+    for name in ("sup_spmv", "sup_spmv_prolong", "bsr_spmv", "ell_sum",
                  "ns_cell_residual_p1", "ns_cell_residual_p1_facet",
                  "ns_cell_jacobian_p1", "ns_cell_jacobian_p1_facet",
                  "ns_cell_residual_p1_tet", "ns_cell_jacobian_p1_tet",

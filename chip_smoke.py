@@ -241,9 +241,13 @@ Run from the root of a checkout. Phases, each raising on failure
    float32, the benchmark cell's amg_p settings): the tetrahedral K3
    with K7 in its launch (ns_cell_*_tet_facet_kernel; residual and
    Jacobian) against the plain cell kernel (PATH_M_CHUNK cells a call)
-   and the plain facet kernel, and K1 on the 16 x 16 supernode blocks
-   (the outer operator and its velocity view, with and without the row
-   mask), within 1e-5 and bitwise on repeat, timed as in 3 (the
+   and the plain facet kernel, K1's node-block mode on the solver's own
+   layout (bsr_spmv on the 4 x 4 node blocks: the outer operator with
+   and without its row mask, Auu with its mask, Apu in S's residual
+   with the scale, the p column) and, beside each, K1 on the 16 x 16
+   supernode blocks of g = 4 that it replaces (NodeBSR at supernode_g
+   4, the same sites and the plain velocity view), within 1e-5 and
+   bitwise on repeat, timed as in 3 (the
    tetrahedral body's bound is its bytes alone: its operations are not
    counted); the same in float64 at res_scale 2.0 in 4 layers within
    1e-12, untimed; form.residual and form.element_jacobians one element
@@ -251,7 +255,8 @@ Run from the root of a checkout. Phases, each raising on failure
    Scenario.solve from rest with the counters reset just before and one
    under torch.profiler, as path A's checks: every element launch
    tetrahedral (`ns_cell_*_p1_tet`) with the natural block in it, K7
-   never alone, c_D, c_L and dp after the last step printed.
+   never alone, bsr_spmv launched, c_D, c_L and dp after the last step
+   printed.
 
 The second-to-last line is {"kernels": [...]} (per kernel at its
 headline site: launches on its path (A-I, M), max_abs_err, the cold ms,
@@ -469,8 +474,9 @@ PATH_M_KW = dict(pc_inner_method="amg_p", pc_inner_u=6, pc_inner_p=5,
 PATH_M_STEPS = 4
 PATH_M_PROFILE = 1
 PATH_M_CHUNK = 65536
-PATH_M_KERNELS = ("sup_spmv", "ell_sum", "selfp_triple", "block_jacobi",
-                  "block_jacobi_inv", "krylov_cgs", "krylov_lsq",
+PATH_M_KERNELS = ("sup_spmv", "bsr_spmv", "ell_sum", "selfp_triple",
+                  "block_jacobi", "block_jacobi_inv", "krylov_cgs",
+                  "krylov_lsq",
                   *ELEMENT_KERNELS, "ns_cell_residual_p1_tet",
                   "ns_cell_jacobian_p1_tet", "ns_facet_natural_p1_fused",
                   "ns_facet_natural_jac_p1_fused")
@@ -681,6 +687,9 @@ SOURCES = {
     "ns_cell_jacobian_p1_tet": ("cfdtpu_torch/csrc/ns_cell_tet.cu",
                                 "cfdtpu/forms/navier_stokes.py:384",
                                 "K3+K7 tet jacobian", "M"),
+    "bsr_spmv": ("cfdtpu_torch/csrc/bsr_spmv.cu",
+                 "cfdtpu/la/nodebsr.py:258", "K1 3D node blocks outer",
+                 "M"),
 }
 PATHS = {"A": "rasamg_sup slice (Scenario.solve, 106,275 DOF)",
          "B": "python -m cfdtpu_torch.scripts.gather_micro",
@@ -826,6 +835,19 @@ def k1_yardstick(torch, A, cols):
                 ccol.reshape(-1),
                 A.permute(0, 2, 1, 3).reshape(-1).contiguous(),
                 size=(ns * R, (ns + 1) * C))
+        return lambda: mat @ xd
+    return lib
+
+
+def bsr_yardstick(torch, nb, coo):
+    """K1's node-block mode's yardstick: torch.sparse_bsr_tensor(...) @ x
+    over the same 4 x 4 blocks (x node by node)."""
+    def lib():
+        n = nb.n_nodes
+        mat = torch.sparse_bsr_tensor(nb._bsr_rowptr.long(),
+                                      nb._bsr_cols.long(), coo,
+                                      size=(4 * n, 4 * n))
+        xd = torch.ones(4 * n, dtype=coo.dtype, device=coo.device)
         return lambda: mat @ xd
     return lib
 
@@ -1529,6 +1551,20 @@ def k1_bytes(A, x, n_out, kw):
             + nbytes(kw.get("scale"), kw.get("mask"), kw.get("mask_value")))
 
 
+def bsr_bytes(nb, coo, x, n_out, nv, kw):
+    """K1's node-block mode: the nv values a block of the view (its rows
+    times its columns; a row read is 16 bytes, so a view's sectors may
+    hold more), the block columns (int32), the row pointer (int32, n +
+    1), x and y once each, plus b (residual) and the scale, row mask and
+    mask values where the call takes them. The outer operator's count is
+    the node-block sparsity's bytes spmv_roofline divides by."""
+    sz = coo.element_size()
+    epi = {"y": 0, "residual": 1}[kw.get("mode", "y")]
+    return (nb.n_blocks * (nv * sz + 4) + (nb.n_nodes + 1) * 4
+            + x.numel() * sz + (1 + epi) * n_out * sz
+            + nbytes(kw.get("scale"), kw.get("mask"), kw.get("mask_value")))
+
+
 def k2_bytes(src, row_ptr, pos):
     """K2: every source row once (pos lists each once), the CSR offsets
     and positions, and the output."""
@@ -1828,17 +1864,21 @@ def tet_sites(torch, np, s, dtype):
     tetrahedra (csrc/ns_cell_tet.cu; residual and Jacobian, the
     natural-correction block in the launch; K7 has no launch of its own
     on tetrahedra) against the plain cell kernel, PATH_M_CHUNK cells a
-    call, then the plain facet kernel; and K1 on the 3D operator's 16 x
-    16 supernode blocks (the outer operator and its 12 x 12 velocity
-    view, each with and without its row mask). Bytes: k3_bytes with
+    call, then the plain facet kernel; K1 on the 3D operator's 16 x 16
+    supernode blocks of a NodeBSR asked for g = 4 (the outer operator
+    and its 12 x 12 velocity view, each with and without its row mask,
+    Apu in S's residual, the p column); and K1's node-block mode on the
+    solver's own layout at the same sites (bsr_bytes). Bytes: k3_bytes with
     every output, plus the facet block's maps, coordinates and tables
     (FACET_READS' natural term); the tetrahedral body's operations are
     not counted, so its bound is that of its bytes."""
     from cfdtpu_torch.kernels.ns_cell_residual import (
         ns_cell_jacobian_p1, ns_cell_jacobian_plain, ns_cell_residual_p1,
         ns_cell_residual_plain)
+    from cfdtpu_torch.kernels.bsr_spmv import WIDTH, bsr_spmv, bsr_spmv_plain
     from cfdtpu_torch.kernels.ns_facet import facet_jac_plain, facet_plain
     from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+    from cfdtpu_torch.la.nodebsr import NodeBSR
 
     f, nb = s.form, s._nodebsr
     u, up, p = tet_state(torch, np, s, 31, dtype)
@@ -1887,20 +1927,33 @@ def tet_sites(torch, np, s, dtype):
                    + nbytes(*(have[a] for a in reads)) + ftab),
             flops=0, lib=None, reset=None, pair=None))
     del res, jac
-    vals = nb.assemble(*f.element_jacobians(u, p, (up,), prm))
-    S, cols = vals["sup"], nb._sup.sup_cols
-    gd = nb.g * nb.dim
+    A_el = f.element_jacobians(u, p, (up,), prm)
+    vals = nb.assemble(*A_el)
+    require(nb.g == 1 and set(vals) == {"coo"},
+            f"path M: the solver's layout is g {nb.g}, not the node blocks")
+    # the supernode layout the node blocks replace, asked for
+    nb4 = NodeBSR(f, supernode_g=4)
+    vals4 = nb4.assemble(*A_el)
+    del A_el
+    S, cols = vals4["sup"], nb4._sup.sup_cols
+    gd = nb4.g * nb4.dim
     n_u, n_p = nb.n_u_flat, nb.n_nodes
-    require((nb.g, nb.dim, gd) == (4, 3, 12) and tuple(S.shape[2:]) == (16, 16),
-            f"path M: supernode blocks {tuple(S.shape)}, g {nb.g}, d "
-            f"{nb.dim}: not 16 x 16 over 4 x 4 node blocks")
+    require((nb4.g, nb4.dim, gd) == (4, 3, 12)
+            and tuple(S.shape[2:]) == (16, 16),
+            f"path M: supernode blocks {tuple(S.shape)}, g {nb4.g}, d "
+            f"{nb4.dim}: not 16 x 16 over 4 x 4 node blocks")
     rng = np.random.default_rng(37)
     v = torch.as_tensor(rng.standard_normal(n_u + n_p), dtype=dtype,
                         device=s.device)
-    vu = v[:n_u]
+    vu, vp = v[:n_u], v[n_u:]
     mask_u = torch.as_tensor(rng.random(n_u) < 0.05, device=s.device)
-    mask = torch.cat([mask_u, torch.zeros(n_p, dtype=torch.bool,
-                                          device=s.device)])
+    mask_p = torch.zeros(n_p, dtype=torch.bool, device=s.device)
+    mask = torch.cat([mask_u, mask_p])
+    scale_u = torch.as_tensor(rng.random(n_u), dtype=dtype,
+                              device=s.device)
+    b_p = torch.as_tensor(rng.standard_normal(n_p), dtype=dtype,
+                          device=s.device)
+    s_kw = dict(mode="residual", b=b_p, scale=scale_u)
     for label, A, x, n_out, kw in (
             ("K1 3D outer", S, v, n_u + n_p,
              dict(x_split=(n_u, gd), y_split=(n_u, gd))),
@@ -1909,7 +1962,10 @@ def tet_sites(torch, np, s, dtype):
                   mask_value=v)),
             ("K1 3D uu", S[:, :, :gd, :gd], vu, n_u, {}),
             ("K1 3D uu + mask (Auu)", S[:, :, :gd, :gd], vu, n_u,
-             dict(mask=mask_u, mask_value=vu))):
+             dict(mask=mask_u, mask_value=vu)),
+            ("K1 3D Apu scaled (S)", S[:, :, gd:, :gd], vu, n_p, s_kw),
+            ("K1 3D p column", S[:, :, :, gd:], vp, n_u + n_p,
+             dict(y_split=(n_u, gd)))):
         ns_, Kg, R, C = A.shape
         sites.append(dict(
             name="sup_spmv", label=label,
@@ -1918,6 +1974,29 @@ def tet_sites(torch, np, s, dtype):
                                                                    **a[4]),
             bytes=k1_bytes(A, x, n_out, kw), flops=2 * ns_ * Kg * R * C,
             lib=k1_yardstick(torch, A, cols), reset=None, pair=None))
+    # K1's node-block mode on the solver's own layout, the same sites
+    coo = vals["coo"]
+    bsr = (coo, nb._bsr_rowptr, nb._bsr_cols)
+    for label, x, rows, xcols, kw in (
+            ("K1 3D node blocks outer", v, "all", "all", {}),
+            ("K1 3D node blocks outer + mask", v, "all", "all",
+             dict(mask=mask, mask_value=v)),
+            ("K1 3D node blocks Auu + mask", vu, "u", "u",
+             dict(mask=mask_u, mask_value=vu)),
+            ("K1 3D node blocks Apu scaled (S)", vu, "p", "u", s_kw),
+            ("K1 3D node blocks p column", vp, "all", "p", {})):
+        n_out = n_p * WIDTH[rows]
+        nv = WIDTH[rows] * WIDTH[xcols]
+        sites.append(dict(
+            name="bsr_spmv", label=label,
+            kern=lambda a=(*bsr, x, rows, xcols, kw): bsr_spmv(*a[:6],
+                                                               **a[6]),
+            plain=lambda a=(*bsr, x, rows, xcols, kw): bsr_spmv_plain(
+                *a[:6], **a[6]),
+            bytes=bsr_bytes(nb, coo, x, n_out, nv, kw),
+            flops=2 * nb.n_blocks * nv,
+            lib=(bsr_yardstick(torch, nb, coo) if rows == xcols == "all"
+                 else None), reset=None, pair=None))
     log(f"[kernels M] {nc} cells, {b0.dofmap_u.shape[0]} boundary facets, "
         f"{n_u + n_p} DOF, supernode blocks {tuple(S.shape)} ({dtype})")
     return sites

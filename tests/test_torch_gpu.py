@@ -2123,8 +2123,8 @@ def test_tet_form_calls_launch_the_tet_kernels(sc3d):
                                   "K10 apply"])
 def test_node_block_kernels_4x4_match_plain_and_repeat(sc3d, site):
     """The node-block kernels on the 3D operator (4 x 4 node blocks,
-    supernodes of g = 4: 16 x 16 blocks; the velocity block at d = 3)
-    against their plain versions, two calls bitwise equal."""
+    supernodes of g = 4, asked for: 16 x 16 blocks; the velocity block
+    at d = 3) against their plain versions, two calls bitwise equal."""
     from cfdtpu_torch.kernels.block_jacobi import (block_jacobi,
                                                    block_jacobi_inv,
                                                    block_jacobi_inv_plain,
@@ -2134,11 +2134,13 @@ def test_node_block_kernels_4x4_match_plain_and_repeat(sc3d, site):
     from cfdtpu_torch.kernels.selfp_triple import (selfp_triple,
                                                    selfp_triple_plain)
     from cfdtpu_torch.kernels.sup_spmv import sup_spmv, sup_spmv_plain
+    from cfdtpu_torch.la.nodebsr import NodeBSR
 
     dt, sc = sc3d
     dtype, tol = _dev_tol(dt)
     s = sc.solver
-    f, nb = s.form, s._nodebsr
+    # the supernode layout on request: tetrahedra default to node blocks
+    f, nb = s.form, NodeBSR(s.form, supernode_g=4)
     assert (nb.bs, nb.g, nb.dim) == (4, 4, 3)
     u, up, p = _state3d(s, 2)
     vals = nb.assemble(*f.element_jacobians(u, p, (up,), s.params()))
@@ -2245,3 +2247,156 @@ def test_k1_prolong_width_3_matches_k8_then_k1(dt):
             assert torch.equal(got, again)
             if extra:
                 _close_tol(xh, xhat, tol)
+
+
+# ---------------------------------------------------------------------
+# K1's node-block mode (csrc/bsr_spmv.cu): NodeBSR's applies on the 4 x
+# 4 node blocks of tetrahedra, the layout they resolve to, with every
+# epilogue their callers pass, against bsr_spmv's plain version.
+BSR_SITES = ("outer", "outer + mask", "Auu + mask", "Auu cheby + scale + mask",
+             "Auu cheby + add", "Aup zero rows", "Apu", "r_p - Apu z_u",
+             "S: Apu residual + scale + p rows", "App", "p column")
+
+
+def _bsr_case(nb, site, dtype, rng):
+    """(x, rows, xcols, kw) of a NodeBSR apply's bsr_spmv call."""
+    n, n_u = nb.n_nodes, nb.n_u_flat
+
+    def vec(m):
+        return torch.as_tensor(rng.standard_normal(m), dtype=dtype,
+                               device="cuda")
+
+    def rows(m, frac=0.1):
+        return torch.as_tensor(rng.random(m) < frac, device="cuda")
+
+    full, vu, vp = vec(n_u + n), vec(n_u), vec(n)
+    mask_u, mask_p = rows(n_u), rows(n, 0.05)
+    scale_u = torch.where(mask_u, 0.0, 1.0 + vec(n_u).abs())
+    w = 1.0 + vec(n_u).abs()
+    return {
+        "outer": (full, "all", "all", {}),
+        "outer + mask": (full, "all", "all", dict(
+            mask=torch.cat([mask_u, mask_p]), mask_value=full)),
+        "Auu + mask": (vu, "u", "u", dict(mask=mask_u, mask_value=vu)),
+        "Auu cheby + scale + mask": (vu, "u", "u", dict(
+            mode="cheby", b=vec(n_u), scale=scale_u, mask=mask_u,
+            cheb=(w, None, 0.4, 1.7), d_out=True)),
+        "Auu cheby + add": (vu, "u", "u", dict(
+            mode="cheby", b=vec(n_u), cheb=(w, vec(n_u), 0.4, 1.7),
+            add=vec(n_u), d_out=True)),
+        "Aup zero rows": (vp, "u", "p", dict(mask=mask_u)),
+        "Apu": (vu, "p", "u", {}),
+        "r_p - Apu z_u": (vu, "p", "u", dict(mode="residual", b=vec(n))),
+        "S: Apu residual + scale + p rows": (vu, "p", "u", dict(
+            mode="residual", b=vec(n), scale=scale_u, mask=mask_p,
+            mask_value=vp)),
+        "App": (vp, "p", "p", {}),
+        "p column": (vp, "all", "p", {}),
+    }[site]
+
+
+@pytest.mark.parametrize("site", BSR_SITES)
+def test_bsr_spmv_matches_plain_and_repeats(sc3d, site):
+    """bsr_spmv at every NodeBSR site on the 3D operator against its plain
+    version (1e-12 in float64, 1e-5 in float32; d_out too), two calls
+    bitwise equal, one launch a call on its counter and none of K1's on
+    the supernode layout."""
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_plain
+
+    dt, sc = sc3d
+    dtype, tol = _dev_tol(dt)
+    s = sc.solver
+    nb = s._nodebsr
+    assert (nb.g, nb.bs) == (1, 4)
+    u, up, p = _state3d(s, 5)
+    vals = nb.assemble(*s.form.element_jacobians(u, p, (up,), s.params()))
+    assert set(vals) == {"coo"}
+    coo = vals["coo"].to(dtype)
+    x, rows, xcols, kw = _bsr_case(nb, site, dtype,
+                                   np.random.default_rng(6))
+    outs = []
+
+    def call(fn):
+        k = dict(kw)
+        if k.pop("d_out", None):
+            k["d_out"] = torch.empty_like(k["b"])
+        y = fn(coo, nb._bsr_rowptr, nb._bsr_cols, x, rows, xcols, **k)
+        outs.append((y, k.get("d_out")))
+        return y
+
+    kernels.reset_counts()
+    call(bsr_spmv)
+    call(bsr_spmv)
+    n = kernels.counts()
+    call(bsr_spmv_plain)
+    torch.cuda.synchronize()
+    (got, d_got), (again, d_again), (ref, d_ref) = outs
+    assert n["bsr_spmv"] == 2 and n["sup_spmv"] == 0
+    _close_tol(got, ref, tol)
+    assert torch.equal(got, again)
+    if d_ref is not None:
+        _close_tol(d_got, d_ref, tol)
+        assert torch.equal(d_got, d_again)
+
+
+def _scenario3d(tmp_path, dtype="float32"):
+    from benchmark import cell as cellmod
+    from benchmark.meshes import dfg3d
+
+    _, _, cell, config = cellmod.resolve(
+        "dfg3d1z_developed",
+        config_patch={"dtype": dtype, "mesh": {"res_scale": 2.0,
+                                               "layers": 4}})
+    # every step checked, so that last_stats says whether it converged
+    config["solver_kw"] = {**config["solver_kw"], "stats_every": 1}
+    mesh = dfg3d.make(config, cache_dir=str(tmp_path))
+    return cellmod.build_scenario(config, cell, mesh, None, "cuda")
+
+
+def test_3d_step_runs_no_sup_spmv_on_node_blocks(tmp_path, monkeypatch):
+    """A 3D stabilized_schur step under amg_p (the configuration's
+    solver) applies its operator only through the node-block mode: no
+    NodeBSR apply calls sup_spmv, and the only K1 launches on the
+    supernode layout are the SELFP AMG levels'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.la import nodebsr
+
+    sc = _scenario3d(tmp_path)
+    s = sc.solver
+    assert s.pc_inner_method == "amg_p" and s._nodebsr.g == 1
+    via_nodebsr, sup_spmv = [], nodebsr.sup_spmv
+
+    def spy(*a, **k):
+        via_nodebsr.append(1)
+        return sup_spmv(*a, **k)
+
+    monkeypatch.setattr(nodebsr, "sup_spmv", spy)
+    kernels.reset_counts()
+    s.solveStep()
+    torch.cuda.synchronize()
+    n = kernels.counts()
+    assert s.last_stats["converged"]
+    assert not via_nodebsr
+    assert n["bsr_spmv"] > 0 and n["sup_spmv"] > 0
+
+
+def test_2d_step_launches_no_node_block_mode():
+    """On triangles the layout stays the supernodes' (g = 4): a step
+    launches K1 there and never its node-block mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cfdtpu_torch import kernels
+    from cfdtpu_torch.scenarios.dfg_1 import DFG1Benchmark
+
+    s = DFG1Benchmark("stabilized_schur", dt=0.05, T=1.0, res_scale=2.5,
+                      dtype="float32", device="cuda").solver
+    assert s._nodebsr.g == 4
+    kernels.reset_counts()
+    s.solveStep()
+    torch.cuda.synchronize()
+    n = kernels.counts()
+    assert s.last_stats["converged"]
+    assert n["sup_spmv"] > 0 and n["bsr_spmv"] == 0
